@@ -1,0 +1,10 @@
+"""qwen3-1.7b [dense] — 28L d_model=2048 16H (GQA kv=8) d_ff=6144
+vocab=151936 — qk_norm, GQA [hf:Qwen/Qwen3-8B; hf]."""
+from repro_torch.configs.base import ModelConfig, tiny_variant
+
+CONFIG = ModelConfig(
+    name="qwen3-1.7b", family="dense",
+    n_layers=28, d_model=2048, n_heads=16, n_kv_heads=8, d_head=128,
+    d_ff=6144, vocab_size=151936, qk_norm=True, rope_theta=1e6,
+)
+SMOKE_CONFIG = tiny_variant(CONFIG)
