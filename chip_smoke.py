@@ -8,12 +8,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. The card (``nvidia-smi`` name and power limit) and the kernel build:
    every ``src/repro_torch/kernels/csrc/*.cu`` compiled by its own
    ``nvcc``, all at once.
-2. Each kernel at the main path's shapes against its plain PyTorch
-   version on the same inputs, with its time, the plain version's time,
+2. Each kernel at the main paths' shapes against its plain PyTorch
+   version on the same inputs, with its time (a CUDA-event mean of
+   back-to-back calls, and its own device time from ``torch.profiler``),
+   the plain version's time,
    a one-call PyTorch yardstick (``library_ms``, never used by the port)
    and its bound on the card (the larger of bytes over 3.35 TB/s and
-   operations over the peak rate of their type).
-3. The main path at full width: ``qwen3-1.7b`` (28 layers, d=2048,
+   operations over the peak rate of their type: the bf16 tensor rate for
+   bf16 inputs, the fp32 rate for fp32). ``flash_attention`` at full
+   width (S = 128), at the router probe's shape (S = 32), with a 32-token
+   prefix (S = 160), under a sliding window, and at ``pred-base`` width
+   in fp32.
+3. The decode path at full width: ``qwen3-1.7b`` (28 layers, d=2048,
    V=151936, bf16; random weights from seed 0) through
    ``CompressionService(slots=16, chunk_size=128, topk=48)``: a few
    compress jobs of mixed length, then decompression by another service
@@ -24,11 +30,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    once more by a fresh process that rebuilds the predictor from the
    seed, in a third order: compress and decompress are separate
    processes in the user's flow.
-4. ``--topk 0`` (full-vocabulary CDF kernel) round trip at ``pred-base``
+4. Teacher-forced scoring at full width: ``score_chunks`` on 16 chunks
+   x 128 against the decode program's logits for the same chunks, fresh
+   and under a 32-token prefix (max |logit difference| and the share of
+   positions whose top-48 id sets agree, against stated tolerances);
+   ``LLMCompressor.compress(exact=False)`` against ``exact=True`` on
+   those chunks (the two code lengths).
+5. The routed service at full width: two jobs of text, random bytes and
+   runs of one byte through ``CompressionService(route="auto")``, counts
+   reset just before and read just after (``flash_attention`` = 28 per
+   probe), decompressed by another service run in the other order, byte
+   identity required; the per-codec decisions and the probe's time.
+6. ``--topk 0`` (full-vocabulary CDF kernel) round trip at ``pred-base``
    width, counts read the same way.
-5. ``python -m repro_torch.cli compress`` / ``decompress`` on a small
-   file, and a byte comparison.
-6. One JSON line describing every kernel, then the result line
+7. ``python -m repro_torch.cli compress`` / ``decompress`` on a small
+   file, plain and with ``--route auto``, and byte comparisons.
+8. One JSON line describing every kernel, then the result line
    ``{"ok": true, "device": {...}}`` as the last line of stdout.
 
 It exits non-zero, printing no result, without a CUDA device or outside
@@ -47,6 +64,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 FP32_FLOPS = 67e12                  # fp32 outside the tensor cores
+BF16_FLOPS = 989e12                 # bf16 on the tensor cores, dense
 SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:67"),
@@ -54,6 +72,8 @@ SOURCES = {
                  "src/repro/kernels/ac_cdf.py:187"),
     "cdf_points": ("src/repro_torch/kernels/csrc/cdf_points.cu",
                    "src/repro/kernels/ac_cdf.py:92"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:89"),
 }
 
 
@@ -82,9 +102,36 @@ def time_ms(fn, iters: int = 50) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Mean device milliseconds per call of the CUDA kernels whose name
+    contains ``kernel``, from ``torch.profiler`` over ``iters`` calls:
+    the kernel's own time, without the host's launch overhead that a
+    CUDA-event mean of back-to-back calls includes when the host cannot
+    keep the device busy."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key)
+    if not us > 0:
+        fail(f"the profiler saw no device time of {kernel}")
+    return us / 1e3 / iters
+
+
+def bound(nbytes: float, flops: float, dtype=None) -> tuple[float, str]:
+    """Least ms for ``nbytes`` moved and ``flops`` done on inputs of
+    ``dtype``: bf16 counts at the tensor-core rate, anything else at the
+    fp32 rate."""
+    import torch
+    rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / FP32_FLOPS * 1e3
+    tf = flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -115,14 +162,59 @@ def check_attention(shape, dtype, gen):
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, attn_mask=mask, enable_gqa=True))
     ms = time_ms(lambda: ops.decode_attention(q, kc, vc, lengths))
+    dev_ms = device_ms(lambda: ops.decode_attention(q, kc, vc, lengths),
+                       "decode_attention_kernel")
     plain_ms = time_ms(lambda: ref.decode_attention(q, kc, vc, lengths))
     el = q.element_size()
     live = int(lengths.sum().item())
     nbytes = 2 * B * H * hd * el + 2 * live * K * hd * el + B * 4
     flops = 4.0 * live * H * hd
-    b_ms, b_by = bound(nbytes, flops)
-    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    return dict(max_abs_err=err, tol=tol, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+def check_flash(B, H, K, S, hd, dtype, gen, window=None):
+    """Prefill attention as the model calls it: q/k/v made in the model's
+    (B, S, heads, hd) layout and handed over as transposed views."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    dev = "cuda"
+    q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, S, K, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, S, K, hd), generator=gen, device=dev).to(dtype)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    out = ops.flash_attention(q, k, v, True, window)
+    want = ref.flash_attention(q, k, v, True, window)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    if not err <= tol:
+        fail(f"flash_attention ({B},{H},{K},{S},{hd}) window {window} "
+             f"{dtype}: max err {err} > {tol}")
+    mask = ref.attention_mask(S, S, True, window, dev)
+    if window is None:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=True, enable_gqa=True)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    lib_ms = time_ms(lib)
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, True, window))
+    dev_ms = device_ms(lambda: ops.flash_attention(q, k, v, True, window),
+                       "flash_bf16_kernel" if dtype == torch.bfloat16
+                       else "flash_f32_kernel")
+    plain_ms = time_ms(lambda: ref.flash_attention(q, k, v, True, window),
+                       10)
+    el = q.element_size()
+    nbytes = (2 * B * H * S * hd + 2 * B * K * S * hd) * el
+    flops = 4.0 * B * H * hd * int(mask.sum().item())
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    return dict(max_abs_err=err, tol=tol, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
 def _logits(R, V, dtype, gen, padded=None):
@@ -148,13 +240,16 @@ def check_topk(R, V, dtype, gen, k=48, precision=16, padded=None):
             or not bool((cdf.diff(dim=-1) >= 1).all()):
         fail(f"topk_cdf ({R},{V}): cdf err {err} quanta or invariants")
     ms = time_ms(lambda: ops.topk_cdf(x, k, precision))
+    dev_ms = device_ms(lambda: ops.topk_cdf(x, k, precision),
+                       "topk_cdf_kernel")
     plain_ms = time_ms(lambda: ref.topk_cdf(x, k, precision), 10)
     lib_ms = time_ms(lambda: torch.topk(torch.softmax(x.float(), dim=-1),
                                         k, dim=-1))
     nbytes = R * V * x.element_size() + R * k * 4 + R * (k + 2) * 4
-    b_ms, b_by = bound(nbytes, 4.0 * R * V)
-    return dict(max_abs_err=float(err), tol=1, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    b_ms, b_by = bound(nbytes, 4.0 * R * V, dtype)
+    return dict(max_abs_err=float(err), tol=1, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
 def check_cdf_points(R, V, dtype, gen, precision, padded=None):
@@ -170,21 +265,26 @@ def check_cdf_points(R, V, dtype, gen, precision, padded=None):
             or not bool((pts[:, 0] >= 1).all()):
         fail(f"cdf_points ({R},{V}): err {err} quanta or invariants")
     ms = time_ms(lambda: ops.cdf_points(x, precision))
+    dev_ms = device_ms(lambda: ops.cdf_points(x, precision),
+                       "cdf_points_kernel")
     plain_ms = time_ms(lambda: ref.cdf_points(x, precision))
     lib_ms = time_ms(lambda: torch.cumsum(torch.softmax(x.float(), dim=-1),
                                           dim=-1))
     nbytes = R * V * x.element_size() + R * V * 4
-    b_ms, b_by = bound(nbytes, 4.0 * R * V)
-    return dict(max_abs_err=float(err), tol=1, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    b_ms, b_by = bound(nbytes, 4.0 * R * V, dtype)
+    return dict(max_abs_err=float(err), tol=1, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
-def phase_kernels(gen) -> dict:
+def phase_kernels(gen, probe_chunks: int) -> dict:
     import torch
     from repro_torch.configs.paper_predictors import PRED_BASE
     from repro_torch.configs.qwen3_1_7b import CONFIG as QWEN
     res = {}
     S = 128                                   # chunk 128, no context
+    H, K, hd = QWEN.n_heads, QWEN.n_kv_heads, QWEN.head_dim
+    bf = torch.bfloat16
     for name, fn, args in [
         ("decode_attention", check_attention,
          ((16, QWEN.n_heads, QWEN.n_kv_heads, QWEN.head_dim, S),
@@ -201,11 +301,22 @@ def phase_kernels(gen) -> dict:
          (16, QWEN.vocab_size, torch.bfloat16, gen, 18, QWEN.padded_vocab)),
         ("cdf_points@pred-base", check_cdf_points,
          (16, PRED_BASE.vocab_size, torch.float32, gen, 16)),
+        ("flash_attention", check_flash, (16, H, K, S, hd, bf, gen)),
+        ("flash_attention@probe", check_flash,
+         (probe_chunks, H, K, 32, hd, bf, gen)),
+        ("flash_attention@prefix32", check_flash,
+         (16, H, K, S + 32, hd, bf, gen)),
+        ("flash_attention@window64", check_flash,
+         (16, H, K, S, hd, bf, gen, 64)),
+        ("flash_attention@pred-base", check_flash,
+         (16, PRED_BASE.n_heads, PRED_BASE.padded_kv_heads, S,
+          PRED_BASE.head_dim, torch.float32, gen)),
     ]:
         r = fn(*args)
         res[name] = r
         log(f"[kernel] {name}: max_err {r['max_abs_err']:.3g} (tol "
-            f"{r['tol']}) kernel {r['ms']:.4f} ms, plain "
+            f"{r['tol']}) kernel {r['ms']:.4f} ms (on the device "
+            f"{r['device_ms']:.4f} ms), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return res
@@ -334,9 +445,9 @@ def phase_service(gen) -> dict:
     return out
 
 
-def profile_steps(pred, state, prev, n: int = 5) -> dict:
-    """torch.profiler over ``n`` decode steps: the operators by device
-    time, device ms and kernel launches per step."""
+def profile_calls(fn, n: int = 5) -> tuple[float, float]:
+    """torch.profiler over ``n`` calls of ``fn``: logs the operators by
+    device time; returns device ms and kernel launches per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -344,7 +455,7 @@ def profile_steps(pred, state, prev, n: int = 5) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            _, state = pred.decode_step(state, prev)
+            fn()
         torch.cuda.synchronize()
     ka = prof.key_averages()
     log(ka.table(sort_by="self_cuda_time_total", row_limit=20))
@@ -352,8 +463,17 @@ def profile_steps(pred, state, prev, n: int = 5) -> dict:
                  if e.device_type == DeviceType.CUDA)
     n_launch = sum(e.count for e in ka
                    if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
-    return dict(device_ms_per_step=dev_us / 1e3 / n,
-                launches_per_step=n_launch / n)
+    return dev_us / 1e3 / n, n_launch / n
+
+
+def profile_steps(pred, state, prev, n: int = 5) -> dict:
+    """``profile_calls`` over ``n`` decode steps."""
+    box = [state]
+
+    def step():
+        box[0] = pred.decode_step(box[0], prev)[1]
+    dev_ms, launches = profile_calls(step, n)
+    return dict(device_ms_per_step=dev_ms, launches_per_step=launches)
 
 
 def decompress_in_fresh_process(work: str, order) -> int:
@@ -384,6 +504,190 @@ def _leaves(tree):
 
 
 # ----------------------------------------------------------- phase 4
+# Tolerance of teacher-forced scoring against the decode program, both
+# bf16 with fp32 accumulation. The two run different GEMM shapes (M =
+# B*S against M = B, so cuBLAS picks other kernels and sum orders) and
+# different attention kernels, so each bf16-rounded activation (half an
+# ulp is 2**-9 relative) can land one ulp apart, and 28 residual layers
+# compound such differences. SCORE_TOL bounds max |difference| relative
+# to the largest |logit| of the decode program: 2**-4 is 16 bf16 ulps of
+# the logit scale. The shares of positions whose top-1 id and top-48 id
+# sets agree are printed, not held: in a random model at V = 151936 the
+# leading logits sit closer together than that tolerance.
+SCORE_TOL = 2.0 ** -4
+
+
+def _compare_logits(what: str, scored, decoded) -> dict:
+    import torch
+    a, b = scored.float(), decoded.float()
+    diff = (a - b).abs()
+    scale = b.abs().max().item()
+    top = lambda x: torch.topk(x, 48, dim=-1).indices.sort(  # noqa: E731
+        dim=-1).values
+    r = dict(max_abs_diff=diff.max().item(), mean_abs_diff=diff.mean()
+             .item(), max_abs_logit=scale,
+             top1_agree=(a.argmax(-1) == b.argmax(-1)).float().mean().item(),
+             top48_sets_agree=(top(a) == top(b)).all(-1).float().mean()
+             .item())
+    log(f"[score] {what}: max |dlogit| {r['max_abs_diff']:.4g} (tol "
+        f"{SCORE_TOL} x max |logit| {scale:.4g}), mean "
+        f"{r['mean_abs_diff']:.3g}; top-1 ids agree {r['top1_agree']:.4f},"
+        f" top-48 id sets agree {r['top48_sets_agree']:.4f}")
+    if not r["max_abs_diff"] <= SCORE_TOL * scale:
+        fail(f"{what}: scoring disagrees with the decode program: {r}")
+    return r
+
+
+def _decode_logits(pred, chunks, prefix=None):
+    """The decode program's logits for ``chunks`` (B, C): the steps the
+    service takes, after ``begin_decode(prefix)``."""
+    import numpy as np
+    import torch
+    B, C = chunks.shape
+    state = pred.begin_decode(B, prefix=prefix)
+    prev = prefix[:, -1] if prefix is not None else np.full(B, pred.bos_id)
+    out = []
+    for t in range(C):
+        lg, state = pred.decode_step(state, prev)
+        out.append(lg)
+        prev = chunks[:, t]
+    return torch.stack(out, dim=1)
+
+
+def phase_scoring(pred) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core import LLMCompressor
+    from repro_torch.data.synthetic import human_like
+    from repro_torch.data.tokenizer import encode
+    from repro_torch.kernels import ops
+    B, C, P = 16, 128, 32
+    toks = encode(human_like("wiki", 3 * B * C, seed=11))
+    chunks = toks[:B * C].reshape(B, C).astype(np.int64)
+    prefix = toks[B * C:B * (C + P)].reshape(B, P).astype(np.int64)
+    pred.set_decode_len(C + P + 1)
+    ops.reset_launches()
+    scored = pred.score_chunks(chunks)
+    torch.cuda.synchronize()
+    n_flash = ops.LAUNCHES["flash_attention"]
+    if n_flash != pred.cfg.n_layers:
+        fail(f"score_chunks launched flash_attention {n_flash} times, not "
+             f"once per layer ({pred.cfg.n_layers})")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        pred.score_chunks(chunks)
+    torch.cuda.synchronize()
+    score_ms = (time.perf_counter() - t0) / 5 * 1e3
+    score_dev_ms, score_launches = profile_calls(
+        lambda: pred.score_chunks(chunks), 3)
+    fresh = _compare_logits("fresh context", scored,
+                            _decode_logits(pred, chunks))
+    pre = _compare_logits("32-token prefix",
+                          pred.score_chunks(chunks, prefix=prefix),
+                          _decode_logits(pred, chunks, prefix))
+    comp = LLMCompressor(pred, chunk_size=C, topk=48, decode_batch=B)
+    ops.reset_launches()
+    blob_x, st_x = comp.compress(chunks.ravel())
+    blob_e, st_e = comp.compress(chunks.ravel(), exact=False)
+    torch.cuda.synchronize()
+    if ops.LAUNCHES["flash_attention"] != pred.cfg.n_layers:
+        fail(f"compress(exact=False) launched flash_attention "
+             f"{ops.LAUNCHES['flash_attention']} times")
+    log(f"[score] score_chunks ({B} x {C}) {score_ms:.2f} ms, of it on the "
+        f"device {score_dev_ms:.2f} ms (idle "
+        f"{1 - score_dev_ms / score_ms:.1%}), {score_launches:.0f} kernel "
+        f"launches; "
+        f"compress(exact=True) {len(blob_x)} B, compress(exact=False) "
+        f"{len(blob_e)} B ({len(blob_e) / len(blob_x) - 1:+.4%}); ideal "
+        f"{st_x.ideal_bits / 8:.0f} / {st_e.ideal_bits / 8:.0f} B")
+    return dict(score_ms=score_ms, score_device_ms=score_dev_ms,
+                score_launches=score_launches, fresh=fresh, prefix=pre,
+                exact_bytes=len(blob_x), estimate_bytes=len(blob_e))
+
+
+# ----------------------------------------------------------- phase 5
+def routed_jobs():
+    """Two mixed jobs for the routed service: synthetic text, random
+    bytes and long runs of one byte, so that each fallback has a reason
+    to win some chunk (at most 64 chunks of 128 each)."""
+    import numpy as np
+    from repro_torch.data.synthetic import human_like
+    from repro_torch.data.tokenizer import encode
+    rng = np.random.default_rng(21)
+    a = np.concatenate([encode(human_like("web", 1500, seed=21)),
+                        rng.integers(0, 256, 768), np.full(640, 65)])
+    b = np.concatenate([np.full(900, 32), rng.integers(0, 256, 640),
+                        encode(human_like("code", 1300, seed=22))])
+    return [a.astype(np.int32), b.astype(np.int32)]
+
+
+def phase_routed(pred) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core import read_header, read_index
+    from repro_torch.core.cdf import to_numpy
+    from repro_torch.core.router import estimate_chunk_bits
+    from repro_torch.kernels import ops
+    from repro_torch.service import CompressionService
+    jobs = routed_jobs()
+    kw = dict(slots=16, chunk_size=128, topk=48)
+    svc = CompressionService(pred, route="auto", **kw)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [svc.submit_compress(t) for t in jobs]
+    blobs = [h.result()[0] for h in handles]
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    svc = CompressionService(pred, **kw)
+    order = list(reversed(range(len(jobs))))
+    t0 = time.perf_counter()
+    handles = {i: svc.submit_decompress(blobs[i]) for i in order}
+    outs = {i: handles[i].result() for i in order}
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    for i, t in enumerate(jobs):
+        if not np.array_equal(outs[i], t):
+            fail(f"routed round trip: job {i} differs after decompress")
+    want = pred.cfg.n_layers * len(jobs)
+    if launches["flash_attention"] != want:
+        fail(f"routed compress launched flash_attention "
+             f"{launches['flash_attention']} times, not {want} (28 per "
+             f"probe, one probe per job)")
+    counts: dict = {}
+    for b in blobs:
+        for e in read_index(b, read_header(b)).entries:
+            counts[e.codec_name] = counts.get(e.codec_name, 0) + 1
+    # the probe of job 0 alone, timed: its device scoring, then the
+    # host's float64 estimate
+    C, P = 128, 32
+    t = jobs[0]
+    n = -(-t.size // C)
+    chunks = np.zeros((n, C), np.int32)
+    chunks.ravel()[:t.size] = t
+    valid = np.minimum(C, t.size - C * np.arange(n))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg = pred.score_chunks(chunks[:, :P])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    estimate_chunk_bits(to_numpy(lg), chunks, valid, P)
+    t2 = time.perf_counter()
+    n_chunks = sum(counts.values())
+    log(f"[routed] {len(jobs)} jobs, {sum(t.size for t in jobs)} tokens, "
+        f"{n_chunks} chunks: decisions {counts}; compress {t_c:.2f} s, "
+        f"decompress (other service, order {order}) {t_d:.2f} s, "
+        f"byte-identical; probe of job 0 ({n} chunks): score "
+        f"{(t1 - t0) * 1e3:.2f} ms + host estimate {(t2 - t1) * 1e3:.1f} "
+        f"ms; launches {launches}")
+    return dict(decisions=counts, launches=launches, compress_s=t_c,
+                decompress_s=t_d, probe_chunks=n,
+                probe_score_ms=(t1 - t0) * 1e3,
+                probe_estimate_ms=(t2 - t1) * 1e3)
+
+
+# ----------------------------------------------------------- phase 6
 def phase_full_cdf() -> dict:
     import numpy as np
     import torch
@@ -413,31 +717,41 @@ def phase_full_cdf() -> dict:
     return dict(launches=launches)
 
 
-# ----------------------------------------------------------- phase 5
+# ----------------------------------------------------------- phase 7
 def phase_cli() -> None:
+    import numpy as np
     from repro_torch.data.synthetic import human_like
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
-    src, arc, back = work / "in.txt", work / "in.llmc", work / "back.txt"
-    src.write_bytes(human_like("novel", 1500, seed=7))
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
-    for cmd in (["compress", str(src), str(arc)],
-                ["decompress", str(arc), str(back)]):
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "repro_torch.cli", *cmd,
-                            "--predictor", "pred-base"], env=env, cwd=ROOT,
-                           capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            fail(f"llmc-torch {cmd[0]} exited {r.returncode}:\n{r.stdout}"
-                 f"\n{r.stderr}")
-        log(f"[cli] {cmd[0]}: {r.stdout.strip()} "
-            f"({time.perf_counter() - t0:.1f} s with start-up)")
-    if src.read_bytes() != back.read_bytes():
-        fail("CLI round trip: decompressed file differs")
-    log(f"[cli] compress -> decompress byte-identical "
-        f"({src.stat().st_size} B -> {arc.stat().st_size} B)")
+    rng = np.random.default_rng(9)
+    mixed = human_like("novel", 1200, seed=8) + bytes(
+        rng.integers(0, 256, 600).astype(np.uint8)) + b"=" * 500
+    for tag, data, extra in (("", human_like("novel", 1500, seed=7), []),
+                             ("routed", mixed, ["--route", "auto"])):
+        src = work / f"in{tag}.txt"
+        arc, back = work / f"in{tag}.llmc", work / f"back{tag}.txt"
+        src.write_bytes(data)
+        for cmd in (["compress", str(src), str(arc), *extra],
+                    ["decompress", str(arc), str(back)]):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "repro_torch.cli",
+                                *cmd, "--predictor", "pred-base"], env=env,
+                               cwd=ROOT, capture_output=True, text=True,
+                               timeout=600)
+            if r.returncode != 0:
+                fail(f"llmc-torch {' '.join(cmd[:1] + extra)} exited "
+                     f"{r.returncode}:\n{r.stdout}\n{r.stderr}")
+            log(f"[cli] {' '.join(cmd[:1] + extra)}: {r.stdout.strip()} "
+                f"({time.perf_counter() - t0:.1f} s with start-up)")
+        if src.read_bytes() != back.read_bytes():
+            fail(f"CLI {tag or 'plain'} round trip: decompressed file "
+                 f"differs")
+        log(f"[cli] {' '.join(['compress', *extra])} -> decompress "
+            f"byte-identical ({src.stat().st_size} B -> "
+            f"{arc.stat().st_size} B)")
 
 
 def main() -> int:
@@ -475,15 +789,24 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    kern = phase_kernels(gen)
+    jobs = routed_jobs()
+    kern = phase_kernels(gen, -(-jobs[0].size // 128))
     svc = phase_service(gen)
+    from repro_torch.configs.qwen3_1_7b import CONFIG as QWEN
+    from repro_torch.serve.engine import ModelPredictor
+    pred = ModelPredictor.random_init(QWEN, seed=0, device="cuda")
+    phase_scoring(pred)
+    routed = phase_routed(pred)
+    del pred
+    torch.cuda.empty_cache()
     full = phase_full_cdf()
     phase_cli()
 
+    paths = {"cdf_points": full, "flash_attention": routed}
     rows = []
     for name, (src, replaces) in SOURCES.items():
         r = kern[name]
-        main_launches = (full if name == "cdf_points" else svc)["launches"]
+        main_launches = paths.get(name, svc)["launches"]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": int(main_launches[name]),

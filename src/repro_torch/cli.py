@@ -3,6 +3,7 @@
     llmc-torch compress   IN OUT [--predictor NAME] [--seed S] [--device D]
                                  [--slots B] [--chunk N] [--topk K]
                                  [--codec rans|ac]
+                                 [--route llm|auto|zstd|lzma|raw]
     llmc-torch decompress IN OUT [--predictor NAME] [--seed S] [--device D]
                                  [--slots B]
     llmc-torch info       IN
@@ -10,6 +11,12 @@
 ``compress``/``decompress`` run through the continuous-batching
 ``CompressionService`` and write/read v4 seekable containers, as the
 JAX package's ``llmc`` does (``--codec ac`` takes the grouped path).
+``--route`` is the per-chunk codec routing of the JAX CLI: ``auto``
+scores the first 32 tokens of every chunk in one teacher-forced pass (the
+flash-attention kernel on the card) and sends each chunk the model fits
+badly to its best fallback byte codec; a codec name forces that fallback
+for every chunk; both write a v5 mixed-codec container. ``llm`` (the
+default) keeps the v4 path.
 ``info`` prints header + index without any model.
 
 Predictors: ``--predictor`` names a ``pred-*`` predictor or a registered
@@ -65,6 +72,7 @@ def _service(args, pred, chunk, topk, precision):
     from repro_torch.service import CompressionService
     return CompressionService(pred, slots=args.slots, chunk_size=chunk,
                               topk=topk, precision=precision,
+                              route=getattr(args, "route", "llm"),
                               device=args.device)
 
 
@@ -73,6 +81,10 @@ def _cmd_compress(args) -> int:
     from repro_torch.core.cdf import DEFAULT_PRECISION
     from repro_torch.data.tokenizer import encode
     args.slots = args.slots or 16
+    if args.codec == "ac" and args.route != "llm":
+        # routing needs v5 codec tags, which the ac path never writes
+        raise SystemExit("llmc-torch: --route requires the default "
+                         "service path (rans codec)")
     pred = _predictor(args)
     data = open(args.input, "rb").read()
     toks = encode(data)
@@ -141,6 +153,12 @@ def main(argv=None) -> int:
     p.add_argument("--codec", choices=("rans", "ac"), default="rans")
     p.add_argument("--chunk", type=int, default=128)
     p.add_argument("--topk", type=int, default=48)
+    p.add_argument("--route", choices=("llm", "auto", "zstd", "lzma", "raw"),
+                   default="llm",
+                   help="per-chunk codec routing: 'auto' probes model fit "
+                        "per chunk and writes a v5 mixed-codec container; "
+                        "a codec name forces that fallback for every "
+                        "chunk; 'llm' (default) keeps the v4 path")
     p.set_defaults(fn=_cmd_compress)
 
     p = sub.add_parser("decompress", help=".llmc container -> file")

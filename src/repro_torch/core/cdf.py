@@ -40,8 +40,11 @@ def as_tensor(x) -> torch.Tensor:
 
 
 def to_numpy(x) -> np.ndarray:
-    """Host numpy copy of a tensor (any device) or array."""
+    """Host numpy copy of a tensor (any device) or array; bfloat16, which
+    numpy has no type for, comes back as float32 (exactly)."""
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.float()
         return x.detach().cpu().numpy()
     return np.asarray(x)
 

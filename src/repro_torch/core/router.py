@@ -45,6 +45,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from .baselines import available_byte_codecs, compress_bytes, decompress_bytes
+from .cdf import to_numpy
 
 #: routes that run the LLM entropy path for every chunk
 ROUTE_LLM = "llm"
@@ -271,7 +272,8 @@ def route_chunks(router: CodecRouter, predictor, chunks: np.ndarray,
         return [], fb
     with _trace.span("router.probe"):
         P = min(router.config.probe_tokens, chunks.shape[1])
-        logits = np.asarray(predictor.score_chunks(chunks[:, :P]))
+        # the port's predictor returns device logits: one host copy here
+        logits = to_numpy(predictor.score_chunks(chunks[:, :P]))
         est = estimate_chunk_bits(logits, chunks, valid, P)
     return [RouteDecision(name if router.skip_llm(float(est[i]), s)
                           else llm_codec, len(s), float(est[i]))

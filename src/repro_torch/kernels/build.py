@@ -69,6 +69,10 @@ KERNELS = {
     "cdf_points": (
         "cdf_points.cu", ["-fmad=false"], "repro_cdf_points",
         [_vp, _ll, _i, _i, _i, _i, _vp, _vp]),
+    "flash_attention": (
+        "flash_attention.cu", [], "repro_flash_attention",
+        [_vp, _vp, _vp, _vp] + [_ll] * 12
+        + [_i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _i, _vp]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

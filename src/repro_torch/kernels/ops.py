@@ -16,6 +16,7 @@ went through the kernels.
 | decode_attention   | csrc/decode_attention.cu    | kernels/decode_attention.py decode_attention |
 | topk_cdf           | csrc/topk_cdf.cu            | kernels/ac_cdf.py topk_cdf_points          |
 | cdf_points         | csrc/cdf_points.cu          | kernels/ac_cdf.py cdf_points               |
+| flash_attention    | csrc/flash_attention.cu     | kernels/flash_attention.py flash_attention |
 """
 from __future__ import annotations
 
@@ -157,4 +158,60 @@ def cdf_points(logits: torch.Tensor, precision: int) -> torch.Tensor:
             V, precision, out.data_ptr(), _stream(logits))
         _raise_on("cdf_points", rc)
         LAUNCHES["cdf_points"] += 1
+    return out
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Every (lane, head, position) row of ``t`` starts on 16 bytes."""
+    unit = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s % unit == 0
+                                          for s in t.stride()[:3])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window=None) -> torch.Tensor:
+    """q (B, H, Sq, hd), k/v (B, K, Sk, hd), each read through its strides
+    (unit stride over hd; the model passes transposed views of its
+    (B, S, heads, hd) projections) -> (B, H, Sq, hd) in q's dtype. On the
+    card the result is a (B, H, Sq, hd) view of a (B, Sq, H, hd) tensor,
+    so the caller's transpose back to the model's layout is free. Any Sq
+    and Sk; hd a multiple of 8 up to 128; H % K == 0; ``window`` None or
+    >= 1."""
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal, window)
+    _check_cuda("flash_attention", q, k, v)
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit "
+                         f"(B,H,Sq,hd)/(B,K,Sk,hd)")
+    B, H, Sq, hd = q.shape
+    Bk, K, Sk, hdk = k.shape
+    if (Bk, hdk) != (B, hd) or K < 1 or H % K:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree (lanes, hd, or H % K)")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
+                         f"{v.dtype} (float32 or bfloat16, all equal)")
+    if hd % 8 or not 8 <= hd <= 128:
+        raise ValueError(f"flash_attention: hd={hd} (the kernel takes a "
+                         f"multiple of 8 up to 128)")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("flash_attention: unit stride over hd required")
+    if window is not None and int(window) < 1:
+        raise ValueError(f"flash_attention: window {window} (None or >= 1)")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"flash_attention: B={B}, H={H} exceed the grid")
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if B == 0 or Sq == 0 or Sk == 0:
+        return out.zero_()
+    vec = all(_rows_aligned(t) for t in (q, k, v))
+    rc = build.entry("flash_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], B, H, K, Sq, Sk, hd, int(bool(causal)),
+        int(window or 0), _DTYPES[q.dtype], 1.0 / math.sqrt(hd), int(vec),
+        _stream(q))
+    _raise_on("flash_attention", rc)
+    LAUNCHES["flash_attention"] += 1
     return out

@@ -36,13 +36,80 @@ def decode_attention(q, k_cache, v_cache, lengths):
     return o.reshape(B, H, hd).to(q.dtype)
 
 
+def attention_mask(Sq: int, Sk: int, causal: bool, window, device):
+    """(Sq, Sk) bool: key k is visible to query q. Positions count from 0
+    on both sides, as the Pallas kernel counts them: ``k <= q`` when
+    causal, ``k > q - window`` under a sliding window."""
+    q_pos = torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def flash_attention(q, k, v, causal: bool = True, window=None):
+    """q (B, H, Sq, hd), k/v (B, K, Sk, hd) -> (B, H, Sq, hd) in q's
+    dtype: softmax(q k^T / sqrt(hd)) v per head, head h reading kv-head
+    h // (H / K), fp32 scores and accumulation. Masked scores take the
+    reference's value NEG_INF (-1e30, not -inf), and the sum is divided
+    by max(l, 1e-30). Masked terms weigh exactly 0, so a query row with
+    no visible key gives 0 (such rows never arise in the model, which
+    scores Sq == Sk with key q always visible). Any Sq, Sk."""
+    B, H, Sq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, Sq, hd).float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) \
+        * (1.0 / math.sqrt(hd))
+    mask = attention_mask(Sq, Sk, causal, window, q.device)
+    s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
+    m = s.max(dim=-1, keepdim=True).values
+    p = torch.exp(s - m) * mask
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    o = o / torch.clamp(l, min=1e-30)
+    return o.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+SCAN_BLOCK = 16
+
+
+def blocked_cumsum(x):
+    """Inclusive float32 prefix sum over the last axis in the order XLA's
+    CPU backend takes for ``jnp.cumsum``: the axis cut into blocks of 16,
+    a sequential float32 sum inside each block, the block totals scanned
+    the same way (recursively), and each block's exclusive prefix added
+    to its elements. ``torch.cumsum`` on the CPU accumulates in float64
+    instead, which moves a few rounded CDF points by one quantum."""
+    x = x.float()
+    n = x.shape[-1]
+    if n <= SCAN_BLOCK:
+        cols, acc = [], None
+        for j in range(n):
+            acc = x[..., j] if acc is None else acc + x[..., j]
+            cols.append(acc)
+        return torch.stack(cols, dim=-1)
+    m = -(-n // SCAN_BLOCK)
+    xp = torch.nn.functional.pad(x, (0, m * SCAN_BLOCK - n))
+    local = blocked_cumsum(xp.reshape(*x.shape[:-1], m, SCAN_BLOCK)
+                           .reshape(-1, SCAN_BLOCK))
+    local = local.reshape(*x.shape[:-1], m, SCAN_BLOCK)
+    tot = blocked_cumsum(local[..., -1])
+    excl = torch.nn.functional.pad(tot[..., :-1], (1, 0))
+    return (local + excl[..., None]).reshape(*x.shape[:-1], -1)[..., :n]
+
+
 def cumulative_round(pmf, precision: int):
     """pmf (..., A) -> int32 CDF interior points (..., A) by cumulative
     rounding: floor(cum / cum[-1] * (2**precision - A) + 0.5) + i + 1.
-    Strictly increasing, and the last point is exactly 2**precision."""
+    Strictly increasing, and the last point is exactly 2**precision. The
+    prefix sum runs in XLA's CPU order (``blocked_cumsum``)."""
     A = pmf.shape[-1]
     budget = float((1 << precision) - A)
-    cum = torch.cumsum(pmf.float(), dim=-1)
+    cum = blocked_cumsum(pmf)
     cum = cum / cum[..., -1:]
     pts = torch.floor(cum * budget + 0.5).to(torch.int32)
     return pts + torch.arange(1, A + 1, dtype=torch.int32, device=pmf.device)

@@ -1,4 +1,4 @@
-"""Family dispatch: one init_cache/decode_step API over the model
+"""Family dispatch: one forward/init_cache/decode_step API over the model
 families the port has (the dense family so far; the JAX package's
 ``models/api.py`` covers six)."""
 from __future__ import annotations
@@ -20,6 +20,11 @@ def module_for(cfg: ModelConfig):
     return _FAMS[cfg.family]
 
 
+def forward(params, cfg: ModelConfig, batch: dict):
+    """Teacher-forced logits (B, S, padded_vocab) for batch["tokens"]."""
+    return module_for(cfg).forward(params, cfg, batch)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None):
     return module_for(cfg).init_cache(cfg, batch, max_len, dtype, device)
@@ -30,5 +35,5 @@ def decode_step(params, cfg: ModelConfig, cache, prev_tokens):
     return module_for(cfg).decode_step(params, cfg, cache, prev_tokens)
 
 
-__all__ = ["init_cache", "decode_step", "module_for", "init_params",
-           "from_jax", "count_params", "schema"]
+__all__ = ["forward", "init_cache", "decode_step", "module_for",
+           "init_params", "from_jax", "count_params", "schema"]

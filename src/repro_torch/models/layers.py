@@ -3,11 +3,11 @@ package's ``models/layers.py``).
 
 Float32 inside normalisation, rotary embedding and attention, activations
 in the config dtype — cast where the JAX layers cast, so a bf16 config
-computes as the reference does. Decode attention runs in the port's
-CUDA kernel (``kernels/ops.py``) on the card and in its plain version on
-the CPU. The JAX module's sharding hints, explicit-TP down projection,
-residual barrier and environment switches belong to the multi-GPU slice
-and are not ported yet.
+computes as the reference does. Decode attention and prefill attention
+run in the port's CUDA kernels (``kernels/ops.py``) on the card and in
+their plain versions on the CPU. The JAX module's sharding hints,
+explicit-TP down projection, residual barrier and environment switches
+belong to the multi-GPU slice and are not ported yet.
 """
 from __future__ import annotations
 
@@ -61,3 +61,15 @@ def decode_attention(q, k_cache, v_cache, pos):
     lengths = (pos + 1).clamp(max=S).to(torch.int32)
     o = ops.decode_attention(q[:, 0], k_cache, v_cache, lengths)
     return o.reshape(B, 1, H, hd)
+
+
+def prefill_attention(q, k, v, *, causal: bool = True, window=None):
+    """Teacher-forced attention over a whole sequence, in the role the JAX
+    model gives ``attention_masked``: q (B, S, H, hd), k/v (B, S, K, hd)
+    -> (B, S, H, hd), GQA by head grouping, fp32 softmax. The kernel
+    reads the projections through transposed views (no copy) and writes
+    the model's layout, so the transposes here move no data on the
+    card."""
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal, window or None)
+    return o.transpose(1, 2)

@@ -1,12 +1,15 @@
-"""Dense decoder-only transformer (llama/qwen family): the decode path of
-the JAX package's ``models/transformer.py`` in PyTorch.
+"""Dense decoder-only transformer (llama/qwen family): the teacher-forced
+``forward`` and the decode path of the JAX package's
+``models/transformer.py`` in PyTorch.
 
 Layouts are the JAX ones, so tests compare like with like: stacked layer
 weights (L, D, out) used as ``x @ W``; caches (L, B, S, K, hd); per-lane
-positions ``pos`` (B,). ``decode_step`` covers GQA, RoPE, qk-norm and the
-padded-vocab mask. Not ported yet (they raise ``NotImplementedError``):
-the int8 KV cache (``kv_cache_dtype="int8"``) and the sliding-window
-ring cache; neither ``pred-*`` nor ``qwen3-1.7b`` uses them.
+positions ``pos`` (B,). ``forward`` and ``decode_step`` cover GQA, RoPE,
+qk-norm and the padded-vocab mask; ``forward`` also takes a sliding
+window. Not ported yet (they raise ``NotImplementedError``): the int8 KV
+cache (``kv_cache_dtype="int8"``), the sliding-window ring cache of the
+decode path, and the ``vlm`` image-embedding prefix of ``forward``;
+neither ``pred-*`` nor ``qwen3-1.7b`` uses them.
 
 One deliberate difference: JAX is functional and returns a new cache;
 here ``decode_step`` writes the new K/V into the cache tensors in place
@@ -19,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from .layers import NEG_INF, decode_attention, rms_norm, rope, swiglu
+from .layers import (NEG_INF, decode_attention, prefill_attention,
+                     rms_norm, rope, swiglu)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -29,11 +33,16 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _check_supported(cfg: ModelConfig) -> None:
+def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
             f"the port runs the dense family only so far (got "
             f"{cfg.family!r})")
+
+
+def _check_cache(cfg: ModelConfig) -> None:
+    """The decode path's cache variants the port has not ported."""
+    _check_family(cfg)
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError(
             "int8 KV cache is not ported yet (models/transformer.py "
@@ -58,13 +67,57 @@ def lm_logits(cfg: ModelConfig, params, x):
     return logits
 
 
+def attn_block(cfg: ModelConfig, lp: dict, x, *, positions):
+    """Pre-norm attention of one layer over the whole sequence (residual
+    applied by the caller): x (B, S, D) -> (B, S, D)."""
+    B, S, _ = x.shape
+    hd, Hp, Kp = cfg.head_dim, cfg.padded_heads, cfg.padded_kv_heads
+    q = (x @ lp["wq"]).reshape(B, S, Hp, hd)
+    k = (x @ lp["wk"]).reshape(B, S, Kp, hd)
+    v = (x @ lp["wv"]).reshape(B, S, Kp, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    o = prefill_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    return o.reshape(B, S, Hp * hd) @ lp["wo"]
+
+
+def dense_block(cfg: ModelConfig, lp: dict, x, *, positions):
+    x = x + attn_block(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps),
+                       positions=positions)
+    return x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["wi_gate"],
+                      lp["wi_up"], lp["wo_mlp"])
+
+
+def forward(params, cfg: ModelConfig, batch: dict):
+    """Teacher-forced scoring: batch["tokens"] (B, S) -> logits (B, S, Vp);
+    logits[:, t] predicts tokens[:, t + 1] (the predictor handles the BOS
+    shift). One prefill-attention launch per layer."""
+    _check_family(cfg)
+    if "img_embeds" in batch:
+        raise NotImplementedError(
+            "the vlm image-embedding prefix of forward is not ported yet")
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = embed_tokens(cfg, params, tokens)
+    positions = torch.arange(S, device=x.device)
+    lp = params["layers"]
+    for layer in range(cfg.n_layers):
+        x = dense_block(cfg, {name: w[layer] for name, w in lp.items()}, x,
+                        positions=positions)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return lm_logits(cfg, params, x)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None):
     """KV cache {"k", "v": (L, B, S, K, hd), "pos": (B,) int32}. ``pos``
     is PER-LANE: every lane carries its own decode position, so the
     continuous-batching scheduler can reset one slot to a fresh context
     while the rest keep stepping."""
-    _check_supported(cfg)
+    _check_cache(cfg)
     dtype = dtype or torch_dtype(cfg.dtype)
     L, Kp, hd = cfg.n_layers, cfg.padded_kv_heads, cfg.head_dim
     return {
@@ -106,7 +159,7 @@ def _decode_attn_one(cfg, params, layer: int, x, kc, vc, pos):
 def decode_step(params, cfg: ModelConfig, cache, prev_tokens):
     """One autoregressive step: (cache, prev (B,)) -> (logits (B, Vp),
     cache). The cache is updated in place; ``pos`` advances by one."""
-    _check_supported(cfg)
+    _check_cache(cfg)
     pos = cache["pos"]
     lp = params["layers"]
     x = embed_tokens(cfg, params, prev_tokens[:, None])

@@ -4,6 +4,10 @@
 (core/compressor.py) over a dense model in PyTorch, as the JAX package's
 ``serve/engine.py`` does over its model zoo:
 
+  * ``score_chunks`` — one teacher-forced ``forward`` over (B, C) chunks,
+    fresh or under a scored ``prefix`` (the router probe, ``exact=False``
+    and scored context). Its logits come back as a **device tensor**
+    (B, C, V), as ``decode_step``'s do;
   * ``begin_decode`` — a fresh per-lane KV cache; with a ``prefix``, the
     cache consumes [BOS, prefix[:, :-1]] by replaying the decode step,
     so it is bit-identical to the same steps taken one by one;
@@ -17,8 +21,7 @@ The BOS convention: the model input for chunk tokens x_0..x_{C-1} is
 [BOS, x_0, .., x_{C-2}], so logits[t] parameterizes P(x_t | x_<t) with a
 fresh context per chunk — the paper's chunked setup (§5.4).
 
-Not ported yet (they raise ``NotImplementedError``): ``score_chunks``
-(teacher-forced prefill; needs the flash-attention kernel),
+Not ported yet (they raise ``NotImplementedError``):
 ``verify_steps``/``rollback`` (speculative decode) and
 ``snapshot_slot``/``restore_slot`` (the radix prefix cache).
 
@@ -78,6 +81,31 @@ class ModelPredictor:
         return logits[..., :self.cfg.vocab_size], cache
 
     # --------------------------------------------------- PredictorAdapter
+    @torch.no_grad()
+    def score_chunks(self, tokens, prefix=None) -> torch.Tensor:
+        """Teacher-forced logits (B, C, V) for (B, C) chunks: the model
+        input is [BOS, x_0 .. x_{C-2}], so logits[:, t] predicts x_t. With
+        ``prefix`` (B, P) or (P,), the input is [BOS, prefix, x_0 ..
+        x_{C-2}] and only the last C positions come back — position t is
+        scored given [prefix, x_<t] (the v6 scored-context form). A device
+        tensor, as ``decode_step`` returns."""
+        with obs.span("model.score"):
+            tokens = np.asarray(tokens, np.int64)
+            B = tokens.shape[0]
+            parts = [np.full((B, 1), self.bos_id, np.int64)]
+            P = 0
+            if prefix is not None:
+                prefix = np.asarray(prefix, np.int64)
+                if prefix.ndim == 1:
+                    prefix = np.broadcast_to(prefix[None],
+                                             (B, prefix.shape[0]))
+                P = prefix.shape[1]
+                parts.append(prefix)
+            inp = np.concatenate(parts + [tokens[:, :-1]], axis=1)
+            logits = model_api.forward(self.params, self.cfg,
+                                       {"tokens": self._tokens(inp)})
+            return logits[:, P:, :self.cfg.vocab_size]
+
     def begin_decode(self, batch: int, prefix: np.ndarray | None = None):
         """Fresh decode cache for ``batch`` lanes. With ``prefix`` (B, P)
         or (P,), the cache has consumed [BOS, prefix[:, :-1]] through the
@@ -123,12 +151,6 @@ class ModelPredictor:
             return state
 
     # ------------------------------------------------- not ported yet
-    def score_chunks(self, tokens, prefix=None):
-        raise NotImplementedError(
-            "score_chunks (teacher-forced prefill scoring: exact=False, the "
-            "router probe, scored context) needs the flash-attention kernel "
-            "and is not ported yet")
-
     def verify_steps(self, state, seq):
         raise NotImplementedError(
             "verify_steps (speculative decode) is not ported yet")

@@ -7,7 +7,9 @@ the machine with the card run
 
 This file imports no JAX (that machine has none). Tolerances as in
 ``test_torch_kernels.py``: attention atol 2e-5 in fp32 and 3e-2 in bf16
-(the kernel sums in another order than torch's einsum); CDFs within one
+(the kernel sums in another order than torch's einsum; the bf16
+flash-attention kernel also rounds P to bf16 for its second tensor-core
+product, as the bf16 output itself is rounded); CDFs within one
 quantum with equal ids (a GPU ``expf`` and a CPU ``exp`` differ in the
 last bit), invariants exact.
 """
@@ -82,3 +84,77 @@ def test_cdf_points_kernel_vs_plain(cuda, R, V, prec, dtype):
     assert (pts - want).abs().max().item() <= 1
     p = pts.cpu().numpy()
     assert (np.diff(p, axis=-1) >= 1).all() and (p[:, -1] == 1 << prec).all()
+
+
+FLASH_CASES = [
+    # (B, H, K, Sq, Sk, hd, causal, window)
+    (16, 16, 8, 128, 128, 128, True, None),     # qwen3-1.7b score_chunks
+    (8, 16, 8, 32, 32, 128, True, None),        # the router probe
+    (4, 16, 8, 160, 160, 128, True, None),      # a 32-token prefix
+    (2, 4, 2, 100, 100, 64, True, None),        # ragged tiles
+    (2, 4, 4, 96, 96, 32, True, 16),            # sliding window
+    (2, 4, 1, 130, 130, 64, True, 48),
+    (2, 4, 2, 70, 70, 64, False, None),
+    (2, 4, 2, 70, 70, 64, False, 16),
+    (2, 4, 2, 50, 130, 64, False, None),        # Sq != Sk
+    (1, 2, 1, 17, 17, 8, True, None),           # hd 8, 24, 40, 120
+    (1, 2, 2, 33, 33, 24, True, None),
+    (1, 3, 1, 65, 65, 40, True, None),
+    (1, 2, 1, 64, 64, 120, True, None),
+    (16, 8, 4, 128, 128, 32, True, None),       # pred-base
+]
+
+
+def _flash_inputs(cuda, B, H, K, Sq, Sk, hd, dtype, layout="bhsd"):
+    rng = np.random.default_rng(B * 1000 + Sq + hd)
+    t = lambda shape: torch.from_numpy(rng.normal(size=shape).astype(  # noqa
+        np.float32)).to(device=cuda, dtype=_DT[dtype])
+    if layout == "bshd":              # the model's layout, as views
+        return (t((B, Sq, H, hd)).transpose(1, 2),
+                t((B, Sk, K, hd)).transpose(1, 2),
+                t((B, Sk, K, hd)).transpose(1, 2))
+    return t((B, H, Sq, hd)), t((B, K, Sk, hd)), t((B, K, Sk, hd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_vs_plain(cuda, B, H, K, Sq, Sk, hd, causal,
+                                         window, dtype):
+    for layout in ("bhsd", "bshd"):
+        q, k, v = _flash_inputs(cuda, B, H, K, Sq, Sk, hd, dtype, layout)
+        n0 = ops.LAUNCHES["flash_attention"]
+        out = ops.flash_attention(q, k, v, causal, window)
+        assert ops.LAUNCHES["flash_attention"] == n0 + 1
+        want = ref.flash_attention(q, k, v, causal, window)
+        assert out.shape == want.shape and out.dtype == want.dtype
+        tol = 2e-5 if dtype == "float32" else 3e-2
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_lanes_are_independent(cuda):
+    """A lane's output is bit-identical whatever the other lanes hold."""
+    q, k, v = _flash_inputs(cuda, 6, 16, 8, 128, 128, 128, "bfloat16")
+    a = ops.flash_attention(q, k, v)
+    perm = torch.tensor([3, 0, 5, 1, 4, 2], device=cuda)
+    b = ops.flash_attention(q[perm], k[perm], v[perm])
+    assert torch.equal(a[perm], b)
+    assert torch.equal(ops.flash_attention(q[:2], k[:2], v[:2]), a[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["hd12", "hd136", "gqa", "float16",
+                                 "stride", "window0"])
+def test_flash_attention_wrapper_refuses(cuda, bad):
+    hd = {"hd12": 12, "hd136": 136}.get(bad, 64)
+    dt = torch.float16 if bad == "float16" else torch.bfloat16
+    q = torch.zeros((1, 4, 8, hd), device=cuda, dtype=dt)
+    k = torch.zeros((1, 3 if bad == "gqa" else 2, 8, hd), device=cuda,
+                    dtype=dt)
+    v = k.clone()
+    if bad == "stride":
+        q = torch.zeros((1, 4, hd, 8), device=cuda, dtype=dt).transpose(2, 3)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, True, 0 if bad == "window0" else None)

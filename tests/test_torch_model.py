@@ -177,8 +177,7 @@ def test_unported_cache_variants_raise(override):
 
 def test_unported_predictor_paths_raise():
     pred = ModelPredictor.random_init(ppp.PRED_TINY, seed=0, device="cpu")
-    for call in (lambda: pred.score_chunks(np.zeros((1, 4), np.int32)),
-                 lambda: pred.verify_steps(None, np.zeros((1, 2))),
+    for call in (lambda: pred.verify_steps(None, np.zeros((1, 2))),
                  lambda: pred.rollback(None, np.zeros(1)),
                  lambda: pred.snapshot_slot(None, 0),
                  lambda: pred.restore_slot(None, None, np.ones(1, bool))):
