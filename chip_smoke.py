@@ -18,7 +18,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    bf16 inputs, the fp32 rate for fp32). ``flash_attention`` at full
    width (S = 128), at the router probe's shape (S = 32), with a 32-token
    prefix (S = 160), under a sliding window, and at ``pred-base`` width
-   in fp32.
+   in fp32. ``ssd_intra`` at the mamba2-130m scoring path's shapes
+   (H=24, P=64, N=128, bf16): 16 chunks of Q = 128, the probe's Q = 32,
+   the prefix's Q = 160, S = 512 as 32 chunks of Q = 256, and the tiny
+   test width in fp32.
 3. The decode path at full width: ``qwen3-1.7b`` (28 layers, d=2048,
    V=151936, bf16; random weights from seed 0) through
    ``CompressionService(slots=16, chunk_size=128, topk=48)``: a few
@@ -29,7 +32,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (device time and launches per step), and the containers decompressed
    once more by a fresh process that rebuilds the predictor from the
    seed, in a third order: compress and decompress are separate
-   processes in the user's flow.
+   processes in the user's flow. Digests of the weights and of one
+   decode step let runs on other cards be compared.
 4. Teacher-forced scoring at full width: ``score_chunks`` on 16 chunks
    x 128 against the decode program's logits for the same chunks, fresh
    and under a 32-token prefix (max |logit difference| and the share of
@@ -45,7 +49,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    width, counts read the same way.
 7. ``python -m repro_torch.cli compress`` / ``decompress`` on a small
    file, plain and with ``--route auto``, and byte comparisons.
-8. One JSON line describing every kernel, then the result line
+8. Phase 3 again for ``mamba2-130m`` (the ssm family at full width: 24
+   layers, d=768, N=128, P=64, V=50280, bf16; random weights from seed
+   0): the recurrent decode step and ``topk_cdf``, the same jobs, the
+   other lane order and the fresh process.
+9. Phases 4 and 5 again for ``mamba2-130m``: ``score_chunks`` against
+   the decode program, fresh and under a prefix (held in fp32 through a
+   twin of the same seed, and in bf16 against that twin: see
+   ``SCORE_TOL_FP32``), ``compress(exact=False)`` and the routed
+   service, with ``ssd_intra`` launched once per layer of every
+   teacher-forced ``forward``.
+10. One JSON line describing every kernel, then the result line
    ``{"ok": true, "device": {...}}`` as the last line of stdout.
 
 It exits non-zero, printing no result, without a CUDA device or outside
@@ -74,6 +88,8 @@ SOURCES = {
                    "src/repro/kernels/ac_cdf.py:92"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:89"),
+    "ssd_intra": ("src/repro_torch/kernels/csrc/ssd_intra.cu",
+                  "src/repro/kernels/ssd_scan.py:51"),
 }
 
 
@@ -217,6 +233,56 @@ def check_flash(B, H, K, S, hd, dtype, gen, window=None):
                 library_ms=lib_ms)
 
 
+# ssd_intra against its plain version: both compute in fp32 from the same
+# inputs, in other orders, and the bf16 kernel keeps ~16 bits of its fp32
+# factors (two bf16 parts each); held to SSD_TOL of the plain version's
+# largest |value| (at least 1), as tests/test_torch_cuda.py holds it.
+SSD_TOL = {"float32": 2e-5, "bfloat16": 1e-4}
+
+
+def check_ssd(R, Q, H, P, N, dtype, gen):
+    """The SSD intra-chunk kernel as the model calls it: x, B and C as
+    views of one (R, Q, H*P + 2N) conv output, inputs drawn as in
+    tests/test_kernels.py."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = "cuda"
+    conv = torch.randn((R, Q, H * P + 2 * N), generator=gen,
+                       device=dev).to(dtype)
+    x, Bm, Cm = torch.split(conv, [H * P, N, N], dim=-1)
+    x = x.reshape(R, Q, H, P)
+    dt = (0.05 + 0.75 * torch.rand((R, Q, H), generator=gen,
+                                   device=dev)).to(dtype)
+    A = -(0.3 + 1.7 * torch.rand((H,), generator=gen, device=dev))
+    y, s = ops.ssd_intra(x, dt, A, Bm, Cm)
+    yr, sr = ref.ssd_intra(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    scale = max(1.0, yr.abs().max().item(), sr.abs().max().item())
+    err = max((y - yr).abs().max().item(), (s - sr).abs().max().item())
+    tol = SSD_TOL[str(dtype).split(".")[-1]] * scale
+    if not err <= tol:
+        fail(f"ssd_intra ({R},{Q},{H},{P},{N}) {dtype}: max err {err} > "
+             f"{tol}")
+    ms = time_ms(lambda: ops.ssd_intra(x, dt, A, Bm, Cm))
+    dev_ms = device_ms(lambda: ops.ssd_intra(x, dt, A, Bm, Cm),
+                       "ssd_bf16_kernel" if dtype == torch.bfloat16
+                       else "ssd_f32_kernel")
+    plain_ms = time_ms(lambda: ref.ssd_intra(x, dt, A, Bm, Cm), 10)
+    el = x.element_size()
+    nbytes = (R * Q * H * P + R * Q * H + 2 * R * Q * N) * el + H * 4 \
+        + (R * Q * H * P + R * H * P * N) * 4
+    # what the function needs: C B^T once per chunk (heads share B and
+    # C) over the Q (Q + 1) / 2 causal pairs, W x per head over the same
+    # pairs, and the (P, N) state per head over Q positions
+    pairs = Q * (Q + 1) // 2
+    flops = 2.0 * R * pairs * N + 2.0 * R * H * pairs * P \
+        + 2.0 * R * H * Q * P * N
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    return dict(max_abs_err=err, tol=tol, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
 def _logits(R, V, dtype, gen, padded=None):
     """(R, V) logits laid out as the main path hands them over: a view of
     the first V columns of (R, padded) logits when the vocab is padded."""
@@ -279,12 +345,16 @@ def check_cdf_points(R, V, dtype, gen, precision, padded=None):
 
 def phase_kernels(gen, probe_chunks: int) -> dict:
     import torch
+    from repro_torch.configs.base import tiny_variant
+    from repro_torch.configs.mamba2_130m import CONFIG as MAMBA
     from repro_torch.configs.paper_predictors import PRED_BASE
     from repro_torch.configs.qwen3_1_7b import CONFIG as QWEN
     res = {}
     S = 128                                   # chunk 128, no context
     H, K, hd = QWEN.n_heads, QWEN.n_kv_heads, QWEN.head_dim
     bf = torch.bfloat16
+    ssm = (MAMBA.ssm_heads, MAMBA.ssm_headdim, MAMBA.ssm_state)
+    tiny = tiny_variant(MAMBA)
     for name, fn, args in [
         ("decode_attention", check_attention,
          ((16, QWEN.n_heads, QWEN.n_kv_heads, QWEN.head_dim, S),
@@ -311,31 +381,49 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
         ("flash_attention@pred-base", check_flash,
          (16, PRED_BASE.n_heads, PRED_BASE.padded_kv_heads, S,
           PRED_BASE.head_dim, torch.float32, gen)),
+        ("ssd_intra", check_ssd, (16, S) + ssm + (bf, gen)),
+        ("ssd_intra@probe", check_ssd, (probe_chunks, 32) + ssm + (bf, gen)),
+        ("ssd_intra@prefix32", check_ssd, (16, S + 32) + ssm + (bf, gen)),
+        ("ssd_intra@S512", check_ssd,
+         (32, MAMBA.ssm_chunk) + ssm + (bf, gen)),
+        ("ssd_intra@tiny", check_ssd,
+         (16, tiny.ssm_chunk, tiny.ssm_heads, tiny.ssm_headdim,
+          tiny.ssm_state, torch.float32, gen)),
     ]:
         r = fn(*args)
         res[name] = r
+        lib = "none" if r["library_ms"] is None \
+            else f"{r['library_ms']:.4f} ms"
         log(f"[kernel] {name}: max_err {r['max_abs_err']:.3g} (tol "
-            f"{r['tol']}) kernel {r['ms']:.4f} ms (on the device "
+            f"{r['tol']:.3g}) kernel {r['ms']:.4f} ms (on the device "
             f"{r['device_ms']:.4f} ms), plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"{r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return res
 
 
 # ----------------------------------------------------------- phase 3
-def phase_service(gen) -> dict:
+# kernels the decode path of each family launches on every step
+DECODE_KERNELS = {"dense": ("decode_attention", "topk_cdf"),
+                  "ssm": ("topk_cdf",)}
+
+
+def phase_service(arch: str) -> dict:
+    """The service round trip of config ``arch`` at full width (phase 3
+    for qwen3-1.7b, phase 8 for mamba2-130m)."""
     import numpy as np
     import torch
-    from repro_torch.configs.qwen3_1_7b import CONFIG as QWEN
+    from repro_torch.configs.registry import get_config
     from repro_torch.data.synthetic import human_like
     from repro_torch.data.tokenizer import encode
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import ModelPredictor
     from repro_torch.service import CompressionService
+    cfg = get_config(arch)
     t0 = time.perf_counter()
-    pred = ModelPredictor.random_init(QWEN, seed=0, device="cuda")
+    pred = ModelPredictor.random_init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    log(f"[service] qwen3-1.7b random init (seed 0, bf16): "
+    log(f"[service] {arch} random init (seed 0, {cfg.dtype}): "
         f"{sum(t.numel() for t in _leaves(pred.params)) / 1e9:.3f} B "
         f"params in {time.perf_counter() - t0:.1f} s")
 
@@ -343,13 +431,15 @@ def phase_service(gen) -> dict:
     # on which lane it is. Permute the lanes of one decode step.
     B = 16
     pred.set_decode_len(128)
-    toks = np.arange(B, dtype=np.int64) * 37 % QWEN.vocab_size
+    toks = np.arange(B, dtype=np.int64) * 37 % cfg.vocab_size
     perm = np.roll(np.arange(B), 5)
     la, _ = pred.decode_step(pred.begin_decode(B), toks)
     lb, _ = pred.decode_step(pred.begin_decode(B), toks[perm])
     if not torch.equal(la[torch.as_tensor(perm, device="cuda")], lb):
         fail("decode-step logits change with the lane a sequence runs on")
     log("[service] lane permutation: decode-step logits bit-identical")
+    log(f"[service] digests: weights {_digest(_leaves(pred.params))}, "
+        f"first decode-step logits {_digest([la])}")
 
     svc = CompressionService(pred, slots=16, chunk_size=128, topk=48)
     sizes = [(d, n, s) for d, n, s in (("wiki", 3000, 1), ("code", 2200, 2),
@@ -378,12 +468,13 @@ def phase_service(gen) -> dict:
     for i, t in enumerate(texts):
         if not np.array_equal(outs[i], encode(t)):
             fail(f"service round trip: job {i} differs after decompress")
-    for k in ("decode_attention", "topk_cdf"):
+    for k in DECODE_KERNELS[cfg.family]:
         if launches[k] <= 0:
             fail(f"main path launched {k} {launches[k]} times")
-    if launches["decode_attention"] != QWEN.n_layers * (steps_c + steps_d):
+    if cfg.family == "dense" and launches["decode_attention"] \
+            != cfg.n_layers * (steps_c + steps_d):
         fail(f"decode_attention launches {launches['decode_attention']} != "
-             f"{QWEN.n_layers} x {steps_c + steps_d} steps")
+             f"{cfg.n_layers} x {steps_c + steps_d} steps")
 
     # decode step alone at 16 lanes, then under torch.profiler
     state = pred.begin_decode(B)
@@ -415,13 +506,13 @@ def phase_service(gen) -> dict:
         f"{prof['device_ms_per_step']:.3f} ms (idle "
         f"{1 - prof['device_ms_per_step'] / step_ms:.1%}), "
         f"{prof['launches_per_step']:.0f} kernel launches per step; "
-        f"launches {launches}")
+        f"launches {launches} over {steps_c + steps_d} steps")
     del pred, svc, state
     torch.cuda.empty_cache()
 
     # the user's flow: decompression in a process of its own, which
     # builds the predictor from the seed again, jobs in a third order
-    work = ROOT / "build" / "chip_smoke" / "full_width"
+    work = ROOT / "build" / "chip_smoke" / f"full_width_{cfg.family}"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     for i, b in enumerate(blobs):
@@ -430,8 +521,8 @@ def phase_service(gen) -> dict:
     t0 = time.perf_counter()
     r = subprocess.run(
         [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke"
-         ".decompress_in_fresh_process(sys.argv[1], sys.argv[2:]))",
-         str(work), *map(str, order)],
+         ".decompress_in_fresh_process(sys.argv[1], sys.argv[2], "
+         "sys.argv[3:]))", str(work), arch, *map(str, order)],
         cwd=ROOT, capture_output=True, text=True, timeout=600)
     if r.returncode != 0:
         fail(f"fresh-process decompression exited {r.returncode}:\n"
@@ -476,23 +567,37 @@ def profile_steps(pred, state, prev, n: int = 5) -> dict:
     return dict(device_ms_per_step=dev_ms, launches_per_step=launches)
 
 
-def decompress_in_fresh_process(work: str, order) -> int:
-    """Phase 3's second half, run by a new interpreter: qwen3-1.7b from
-    seed 0 again, the saved containers decompressed in ``order``, the
-    tokens saved beside them."""
+def decompress_in_fresh_process(work: str, arch: str, order) -> int:
+    """The second half of phases 3 and 8, run by a new interpreter:
+    ``arch`` from seed 0 again, the saved containers decompressed in
+    ``order``, the tokens saved beside them."""
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
-    from repro_torch.configs.qwen3_1_7b import CONFIG as QWEN
+    from repro_torch.configs.registry import get_config
     from repro_torch.serve.engine import ModelPredictor
     from repro_torch.service import CompressionService
     work = pathlib.Path(work)
-    pred = ModelPredictor.random_init(QWEN, seed=0, device="cuda")
+    pred = ModelPredictor.random_init(get_config(arch), seed=0,
+                                      device="cuda")
     svc = CompressionService(pred, slots=16, chunk_size=128, topk=48)
     handles = {int(i): svc.submit_decompress(
         (work / f"job{i}.llmc").read_bytes()) for i in order}
     for i, h in handles.items():
         np.save(work / f"job{i}.npy", h.result())
     return 0
+
+
+def _digest(tensors) -> str:
+    """First 16 hex digits of the sha256 of the tensors' raw bytes: tells
+    two runs (other machines, other driver versions) whether their
+    weights, or their logits, differ at all."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
 
 
 def _leaves(tree):
@@ -515,9 +620,25 @@ def _leaves(tree):
 # sets agree are printed, not held: in a random model at V = 151936 the
 # leading logits sit closer together than that tolerance.
 SCORE_TOL = 2.0 ** -4
+# mamba2-130m is not held to that bound: its first chip run missed it
+# under the prefix (max |dlogit| 31.5 of 168), and the JAX package's own
+# forward and decode programs of this model sit as far apart in bf16
+# (tests/test_torch_ssm.py holds the port's gap to the reference's). In
+# a random 24-layer SSM a rounding difference grows from layer to layer
+# (dt feeds exp(dt A) with |A| up to 16). So the function is held in
+# fp32, where the two programs agree to SCORE_TOL_FP32 of max |logit|;
+# and in bf16 the distance between scoring and the decode program, mean
+# and max, is held to twice the distance bf16 rounding alone puts
+# between the decode program and its fp32 twin (same seed): each bf16
+# program carries a rounding error of about that size.
+SCORE_TOL_FP32 = 2.0 ** -10
 
 
-def _compare_logits(what: str, scored, decoded) -> dict:
+def _compare_logits(what: str, scored, decoded, tol=SCORE_TOL,
+                    fp32_twin=None) -> dict:
+    """max |scored - decoded| <= tol x max |decoded|; or, given the
+    decode program's logits in fp32 (``fp32_twin``), mean and max
+    |scored - decoded| <= 2 x those of |decoded - fp32_twin|."""
     import torch
     a, b = scored.float(), decoded.float()
     diff = (a - b).abs()
@@ -529,11 +650,23 @@ def _compare_logits(what: str, scored, decoded) -> dict:
              top1_agree=(a.argmax(-1) == b.argmax(-1)).float().mean().item(),
              top48_sets_agree=(top(a) == top(b)).all(-1).float().mean()
              .item())
-    log(f"[score] {what}: max |dlogit| {r['max_abs_diff']:.4g} (tol "
-        f"{SCORE_TOL} x max |logit| {scale:.4g}), mean "
-        f"{r['mean_abs_diff']:.3g}; top-1 ids agree {r['top1_agree']:.4f},"
-        f" top-48 id sets agree {r['top48_sets_agree']:.4f}")
-    if not r["max_abs_diff"] <= SCORE_TOL * scale:
+    if fp32_twin is None:
+        held = f"tol {tol} x max |logit| {scale:.4g}"
+        ok = r["max_abs_diff"] <= tol * scale
+    else:
+        rd = (b - fp32_twin.float()).abs()
+        r.update(twin_mean_abs_diff=rd.mean().item(),
+                 twin_max_abs_diff=rd.max().item())
+        held = (f"max |logit| {scale:.4g}; held to 2 x the bf16-vs-fp32 "
+                f"decode distance, mean {r['twin_mean_abs_diff']:.3g} max "
+                f"{r['twin_max_abs_diff']:.4g}")
+        ok = r["mean_abs_diff"] <= 2 * r["twin_mean_abs_diff"] \
+            and r["max_abs_diff"] <= 2 * r["twin_max_abs_diff"]
+    log(f"[score] {what}: max |dlogit| {r['max_abs_diff']:.4g} ({held}), "
+        f"mean {r['mean_abs_diff']:.3g}; top-1 ids agree "
+        f"{r['top1_agree']:.4f}, top-48 id sets agree "
+        f"{r['top48_sets_agree']:.4f}")
+    if not ok:
         fail(f"{what}: scoring disagrees with the decode program: {r}")
     return r
 
@@ -554,6 +687,10 @@ def _decode_logits(pred, chunks, prefix=None):
     return torch.stack(out, dim=1)
 
 
+# the kernel each family's teacher-forced forward launches once per layer
+SCORE_KERNEL = {"dense": "flash_attention", "ssm": "ssd_intra"}
+
+
 def phase_scoring(pred) -> dict:
     import numpy as np
     import torch
@@ -566,12 +703,13 @@ def phase_scoring(pred) -> dict:
     chunks = toks[:B * C].reshape(B, C).astype(np.int64)
     prefix = toks[B * C:B * (C + P)].reshape(B, P).astype(np.int64)
     pred.set_decode_len(C + P + 1)
+    kern = SCORE_KERNEL[pred.cfg.family]
     ops.reset_launches()
     scored = pred.score_chunks(chunks)
     torch.cuda.synchronize()
-    n_flash = ops.LAUNCHES["flash_attention"]
-    if n_flash != pred.cfg.n_layers:
-        fail(f"score_chunks launched flash_attention {n_flash} times, not "
+    n_kern = ops.LAUNCHES[kern]
+    if n_kern != pred.cfg.n_layers:
+        fail(f"score_chunks launched {kern} {n_kern} times, not "
              f"once per layer ({pred.cfg.n_layers})")
     t0 = time.perf_counter()
     for _ in range(5):
@@ -580,20 +718,24 @@ def phase_scoring(pred) -> dict:
     score_ms = (time.perf_counter() - t0) / 5 * 1e3
     score_dev_ms, score_launches = profile_calls(
         lambda: pred.score_chunks(chunks), 3)
-    fresh = _compare_logits("fresh context", scored,
-                            _decode_logits(pred, chunks))
-    pre = _compare_logits("32-token prefix",
-                          pred.score_chunks(chunks, prefix=prefix),
-                          _decode_logits(pred, chunks, prefix))
+    if pred.cfg.family == "dense":
+        fresh = _compare_logits("fresh context", scored,
+                                _decode_logits(pred, chunks))
+        pre = _compare_logits("32-token prefix",
+                              pred.score_chunks(chunks, prefix=prefix),
+                              _decode_logits(pred, chunks, prefix))
+    else:
+        fresh, pre = _compare_with_fp32_twin(pred, chunks, prefix)
     comp = LLMCompressor(pred, chunk_size=C, topk=48, decode_batch=B)
     ops.reset_launches()
     blob_x, st_x = comp.compress(chunks.ravel())
     blob_e, st_e = comp.compress(chunks.ravel(), exact=False)
     torch.cuda.synchronize()
-    if ops.LAUNCHES["flash_attention"] != pred.cfg.n_layers:
-        fail(f"compress(exact=False) launched flash_attention "
-             f"{ops.LAUNCHES['flash_attention']} times")
-    log(f"[score] score_chunks ({B} x {C}) {score_ms:.2f} ms, of it on the "
+    if ops.LAUNCHES[kern] != pred.cfg.n_layers:
+        fail(f"compress(exact=False) launched {kern} "
+             f"{ops.LAUNCHES[kern]} times")
+    log(f"[score] {pred.cfg.name} score_chunks ({B} x {C}) "
+        f"{score_ms:.2f} ms, of it on the "
         f"device {score_dev_ms:.2f} ms (idle "
         f"{1 - score_dev_ms / score_ms:.1%}), {score_launches:.0f} kernel "
         f"launches; "
@@ -603,6 +745,34 @@ def phase_scoring(pred) -> dict:
     return dict(score_ms=score_ms, score_device_ms=score_dev_ms,
                 score_launches=score_launches, fresh=fresh, prefix=pre,
                 exact_bytes=len(blob_x), estimate_bytes=len(blob_e))
+
+
+def _compare_with_fp32_twin(pred, chunks, prefix):
+    """Scoring against the decode program for a model whose bf16 programs
+    drift apart (see SCORE_TOL_FP32): the fp32 twin (same config and
+    seed in float32; the fp32 ``ssd_intra`` kernel) held to
+    SCORE_TOL_FP32, then the bf16 model held against its twin."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ModelPredictor
+    twin = ModelPredictor.random_init(pred.cfg.with_(dtype="float32"),
+                                      seed=0, device="cuda")
+    out = []
+    for what, pre in (("fresh context", None), ("32-token prefix", prefix)):
+        ops.reset_launches()
+        s32 = twin.score_chunks(chunks, prefix=pre)
+        torch.cuda.synchronize()
+        if ops.LAUNCHES["ssd_intra"] != twin.cfg.n_layers:
+            fail(f"fp32 score_chunks launched ssd_intra "
+                 f"{ops.LAUNCHES['ssd_intra']} times")
+        d32 = _decode_logits(twin, chunks, pre)
+        _compare_logits(f"fp32 {what}", s32, d32, tol=SCORE_TOL_FP32)
+        out.append(_compare_logits(
+            what, pred.score_chunks(chunks, prefix=pre),
+            _decode_logits(pred, chunks, pre), fp32_twin=d32))
+    del twin
+    torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------- phase 5
@@ -630,6 +800,7 @@ def phase_routed(pred) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.service import CompressionService
     jobs = routed_jobs()
+    kern = SCORE_KERNEL[pred.cfg.family]
     kw = dict(slots=16, chunk_size=128, topk=48)
     svc = CompressionService(pred, route="auto", **kw)
     ops.reset_launches()
@@ -651,10 +822,10 @@ def phase_routed(pred) -> dict:
         if not np.array_equal(outs[i], t):
             fail(f"routed round trip: job {i} differs after decompress")
     want = pred.cfg.n_layers * len(jobs)
-    if launches["flash_attention"] != want:
-        fail(f"routed compress launched flash_attention "
-             f"{launches['flash_attention']} times, not {want} (28 per "
-             f"probe, one probe per job)")
+    if launches[kern] != want:
+        fail(f"routed compress launched {kern} {launches[kern]} times, "
+             f"not {want} ({pred.cfg.n_layers} per probe, one probe per "
+             f"job)")
     counts: dict = {}
     for b in blobs:
         for e in read_index(b, read_header(b)).entries:
@@ -675,7 +846,8 @@ def phase_routed(pred) -> dict:
     estimate_chunk_bits(to_numpy(lg), chunks, valid, P)
     t2 = time.perf_counter()
     n_chunks = sum(counts.values())
-    log(f"[routed] {len(jobs)} jobs, {sum(t.size for t in jobs)} tokens, "
+    log(f"[routed] {pred.cfg.name}: {len(jobs)} jobs, "
+        f"{sum(t.size for t in jobs)} tokens, "
         f"{n_chunks} chunks: decisions {counts}; compress {t_c:.2f} s, "
         f"decompress (other service, order {order}) {t_d:.2f} s, "
         f"byte-identical; probe of job 0 ({n} chunks): score "
@@ -776,8 +948,12 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
         "nvidia-smi: " + smi.stderr.strip()
     log(card)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    drv = subprocess.run(["nvidia-smi", "--query-gpu=driver_version",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}, driver "
+        f"{drv}, {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()}")
     t0 = time.perf_counter()
     built = build.build_all()
     log(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
@@ -791,18 +967,27 @@ def main() -> int:
     gen.manual_seed(0)
     jobs = routed_jobs()
     kern = phase_kernels(gen, -(-jobs[0].size // 128))
-    svc = phase_service(gen)
-    from repro_torch.configs.qwen3_1_7b import CONFIG as QWEN
+    svc = phase_service("qwen3-1.7b")
+    from repro_torch.configs.registry import get_config
     from repro_torch.serve.engine import ModelPredictor
-    pred = ModelPredictor.random_init(QWEN, seed=0, device="cuda")
+    pred = ModelPredictor.random_init(get_config("qwen3-1.7b"), seed=0,
+                                      device="cuda")
     phase_scoring(pred)
     routed = phase_routed(pred)
     del pred
     torch.cuda.empty_cache()
     full = phase_full_cdf()
     phase_cli()
+    phase_service("mamba2-130m")
+    pred = ModelPredictor.random_init(get_config("mamba2-130m"), seed=0,
+                                      device="cuda")
+    phase_scoring(pred)
+    routed_ssm = phase_routed(pred)
+    del pred
+    torch.cuda.empty_cache()
 
-    paths = {"cdf_points": full, "flash_attention": routed}
+    paths = {"cdf_points": full, "flash_attention": routed,
+             "ssd_intra": routed_ssm}
     rows = []
     for name, (src, replaces) in SOURCES.items():
         r = kern[name]

@@ -20,8 +20,8 @@ default) keeps the v4 path.
 ``info`` prints header + index without any model.
 
 Predictors: ``--predictor`` names a ``pred-*`` predictor or a registered
-config (``qwen3-1.7b``); the port has no trained weights yet, so the
-model is a **random init made from ``--seed``** (default 0), on
+config (``qwen3-1.7b``, ``mamba2-130m``); the port has no trained weights
+yet, so the model is a **random init made from ``--seed``** (default 0), on
 ``--device`` (default ``cuda``; ``cpu`` on request). Decompress needs the
 same predictor, seed and device as compress: the engine and its weights
 are part of the coding geometry.

@@ -1,5 +1,6 @@
 """Config registry of the PyTorch port: the byte-level paper predictors
-and the dense architectures the port runs so far.
+and the architectures the port runs so far (dense ``qwen3-1.7b``, ssm
+``mamba2-130m``).
 
 Names resolve with or without dashes (``qwen3-1.7b`` == ``qwen3_1_7b``);
 ``pred-*`` names resolve to the small predictor LMs of
@@ -13,6 +14,7 @@ from .paper_predictors import PRED_BASE, PRED_LARGE, PRED_SMALL, PRED_TINY
 
 ARCH_IDS = [
     "qwen3_1_7b",
+    "mamba2_130m",
 ]
 
 PREDICTORS = {c.name: c for c in (PRED_TINY, PRED_SMALL, PRED_BASE,

@@ -73,6 +73,9 @@ KERNELS = {
         "flash_attention.cu", [], "repro_flash_attention",
         [_vp, _vp, _vp, _vp] + [_ll] * 12
         + [_i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _i, _vp]),
+    "ssd_intra": (
+        "ssd_intra.cu", [], "repro_ssd_intra",
+        [_vp] * 7 + [_ll] * 10 + [_i] * 7 + [_vp]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

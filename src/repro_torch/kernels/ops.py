@@ -17,6 +17,7 @@ went through the kernels.
 | topk_cdf           | csrc/topk_cdf.cu            | kernels/ac_cdf.py topk_cdf_points          |
 | cdf_points         | csrc/cdf_points.cu          | kernels/ac_cdf.py cdf_points               |
 | flash_attention    | csrc/flash_attention.cu     | kernels/flash_attention.py flash_attention |
+| ssd_intra          | csrc/ssd_intra.cu           | kernels/ssd_scan.py ssd_intra              |
 """
 from __future__ import annotations
 
@@ -162,10 +163,10 @@ def cdf_points(logits: torch.Tensor, precision: int) -> torch.Tensor:
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
-    """Every (lane, head, position) row of ``t`` starts on 16 bytes."""
+    """Every row of ``t`` (its last axis) starts on 16 bytes."""
     unit = 16 // t.element_size()
     return t.data_ptr() % 16 == 0 and all(s % unit == 0
-                                          for s in t.stride()[:3])
+                                          for s in t.stride()[:-1])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -215,3 +216,55 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on("flash_attention", rc)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def ssd_intra(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              Bm: torch.Tensor, Cm: torch.Tensor):
+    """Mamba2 SSD over R independent chunks with a zero entering state:
+    x (R, Q, H, P), dt (R, Q, H), A (H,) float32, Bm/Cm (R, Q, N), each
+    read through its strides (unit stride over P and N; the model passes
+    views of its conv output) -> (y (R, Q, H, P), chunk-end state (R, H,
+    P, N)), both float32. Any Q up to 4096, P <= 64, N <= 128; x, dt, Bm
+    and Cm share the dtype."""
+    if x.device.type == "cpu":
+        return ref.ssd_intra(x, dt, A, Bm, Cm)
+    _check_cuda("ssd_intra", x, dt, A, Bm, Cm)
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 3 \
+            or Cm.shape != Bm.shape:
+        raise ValueError(f"ssd_intra: shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(Bm.shape)}, C {tuple(Cm.shape)} do not fit "
+                         f"(R,Q,H,P)/(R,Q,H)/(H,)/(R,Q,N)")
+    R, Q, H, P = x.shape
+    N = Bm.shape[2]
+    if dt.shape != (R, Q, H) or A.shape != (H,) or Bm.shape[:2] != (R, Q):
+        raise ValueError(f"ssd_intra: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)} and B "
+                         f"{tuple(Bm.shape)} disagree")
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype
+                                     for t in (dt, Bm, Cm)):
+        raise ValueError(f"ssd_intra: dtypes {x.dtype}, {dt.dtype}, "
+                         f"{Bm.dtype}, {Cm.dtype} (float32 or bfloat16, "
+                         f"all equal)")
+    if A.dtype != torch.float32 or not A.is_contiguous():
+        raise ValueError("ssd_intra: A must be contiguous float32")
+    if x.stride(3) != 1 or Bm.stride(2) != 1 or Cm.stride(2) != 1:
+        raise ValueError("ssd_intra: unit stride over P and N required")
+    if not (1 <= P <= 64 and 1 <= N <= 128 and Q <= 4096):
+        raise ValueError(f"ssd_intra: P={P}, N={N}, Q={Q} outside the "
+                         f"kernel's range (P <= 64, N <= 128, Q <= 4096)")
+    if R > 65535 or H > 65535:
+        raise ValueError(f"ssd_intra: R={R}, H={H} exceed the grid")
+    y = torch.empty((R, Q, H, P), dtype=torch.float32, device=x.device)
+    state = torch.empty((R, H, P, N), dtype=torch.float32, device=x.device)
+    if R == 0 or Q == 0 or H == 0:
+        return y, state.zero_()
+    vec = all(_rows_aligned(t) for t in (x, Bm, Cm))
+    rc = build.entry("ssd_intra")(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), y.data_ptr(), state.data_ptr(), *x.stride()[:3],
+        *dt.stride(), *Bm.stride()[:2], *Cm.stride()[:2], R, Q, H, P, N,
+        _DTYPES[x.dtype], int(vec), _stream(x))
+    _raise_on("ssd_intra", rc)
+    LAUNCHES["ssd_intra"] += 1
+    return y, state

@@ -142,3 +142,29 @@ def cdf_points(logits, precision: int):
     x = logits.float()
     e = torch.exp(x - x.max(dim=-1, keepdim=True).values)
     return cumulative_round(e / e.sum(dim=-1, keepdim=True), precision)
+
+
+def ssd_intra(x, dt, A, Bm, Cm):
+    """Mamba2 SSD, one chunk with a zero entering state, in fp32: x (R, Q,
+    H, P), dt (R, Q, H), A (H,), Bm/Cm (R, Q, N) -> (y (R, Q, H, P),
+    chunk-end state (R, H, P, N)), both float32.
+
+    cum = inclusive cumsum over Q of dt * A; y_i = sum_{j <= i} (C_i .
+    B_j) exp(cum_i - cum_j) dt_j x_j; state = sum_j exp(cum_{Q-1} -
+    cum_j) dt_j x_j (x) B_j. Acausal entries of cum_i - cum_j are set to
+    -inf before ``exp`` (they are large and positive), so they weigh
+    exactly 0."""
+    x, dt, Bm, Cm = x.float(), dt.float(), Bm.float(), Cm.float()
+    Q = x.shape[1]
+    cum = torch.cumsum(dt * A.float(), dim=1)                 # (R, Q, H)
+    seg = cum[:, :, None, :] - cum[:, None, :, :]             # (R, Qi, Qj, H)
+    causal = torch.ones((Q, Q), dtype=torch.bool,
+                        device=x.device).tril()[None, :, :, None]
+    L = torch.exp(torch.where(causal, seg, torch.tensor(
+        float("-inf"), device=x.device)))
+    G = torch.einsum("rin,rjn->rij", Cm, Bm)
+    W = G[..., None] * L * dt[:, None, :, :]                  # (R, Qi, Qj, H)
+    y = torch.einsum("rijh,rjhp->rihp", W, x)
+    end = torch.exp(cum[:, -1:, :] - cum) * dt                # (R, Q, H)
+    state = torch.einsum("rjhp,rjn->rhpn", x * end[..., None], Bm)
+    return y, state

@@ -1,22 +1,24 @@
 """Family dispatch: one forward/init_cache/decode_step API over the model
-families the port has (the dense family so far; the JAX package's
+families the port has (dense and ssm so far; the JAX package's
 ``models/api.py`` covers six)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from . import transformer
+from . import mamba2, transformer
 from .schema import count_params, from_jax, init_params, schema
 
 _FAMS = {
     "dense": transformer,
     "vlm": transformer,
+    "ssm": mamba2,
 }
 
 
 def module_for(cfg: ModelConfig):
     if cfg.family not in _FAMS:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (dense only)")
+            f"model family {cfg.family!r} is not ported yet (the port has "
+            f"{', '.join(sorted(_FAMS))})")
     return _FAMS[cfg.family]
 
 

@@ -1,0 +1,183 @@
+"""Mamba2 -- SSD (state-space duality, arXiv:2405.21060) blocks: the
+PyTorch counterpart of the JAX package's ``models/mamba2.py``.
+
+Chunked SSD for teacher-forced scoring, whose intra-chunk part runs in
+the port's ``ssd_intra`` kernel (``kernels/ops.py``; its plain version on
+the CPU), and the O(1) recurrent decode step.
+
+Per layer:  x -> [z | xc | B | C | dt] projections; causal conv1d over
+(xc, B, C); SSD recurrence with per-head scalar decay A; gated output.
+State per head: (P, N) with P = headdim, N = ssm_state.
+
+Rounding follows the reference: dt * A and its cumsum are fp32 (A is);
+the state entering a chunk is cast to x's dtype before it meets C; the
+recurrent state stays fp32 and is cast to x's dtype in the output
+product; a sequence is padded to a chunk multiple with dt = 0.
+
+One deliberate difference: JAX is functional and returns a new cache;
+here ``decode_step`` writes the conv and SSM states into the cache
+tensors in place, as the dense family does with its K/V.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from .layers import rms_norm
+from .transformer import embed_tokens, lm_logits, torch_dtype
+
+
+def _conv1d_causal(x, w, state=None):
+    """Causal depthwise conv. x (B, S, C), w (K, C). If ``state`` (B, K-1,
+    C) is given it prefixes x (decode). Returns (silu(y), new_state)."""
+    K = w.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state
+    xp = torch.cat([pad, x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(K))
+    return F.silu(y), xp[:, -(K - 1):]
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None):
+    """Chunked SSD scan.
+
+    x (B, S, H, P), dt (B, S, H), A (H,) negative fp32, Bm/Cm (B, S, N)
+    (one group). Returns y (B, S, H, P) and the final state (B, H, P, N),
+    both in x's dtype. The intra-chunk part (B x chunks folded into R) is
+    one ``ops.ssd_intra`` launch; the recurrence across chunks is a loop
+    in fp32."""
+    Bsz, S0, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S0)
+    if S0 % Q:  # pad the sequence to a chunk multiple (dt=0: identity steps)
+        pad = Q - S0 % Q
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    S = x.shape[1]
+    nc = S // Q
+    y_intra, s_in = ops.ssd_intra(
+        x.reshape(Bsz * nc, Q, H, P), dt.reshape(Bsz * nc, Q, H), A,
+        Bm.reshape(Bsz * nc, Q, N), Cm.reshape(Bsz * nc, Q, N))
+    y_intra = y_intra.reshape(Bsz, nc, Q, H, P)
+    s_in = s_in.reshape(Bsz, nc, H, P, N)
+
+    # the kernel keeps the TPU kernel's contract (y, state): what the
+    # inter-chunk part needs of cum is recomputed here
+    cum = torch.cumsum(dt.reshape(Bsz, nc, Q, H) * A, dim=2)   # fp32
+    chunk_decay = torch.exp(cum[:, :, -1])                     # (B, nc, H)
+    s = torch.zeros((Bsz, H, P, N), dtype=x.dtype, device=x.device) \
+        if initial_state is None else initial_state
+    s = s.float()
+    enter = []
+    for c in range(nc):                 # state ENTERING each chunk
+        enter.append(s)
+        s = s * chunk_decay[:, c, :, None, None] + s_in[:, c]
+    s_enter = torch.stack(enter, dim=1).to(x.dtype)            # (B,nc,H,P,N)
+
+    # inter-chunk: y_inter[i] = exp(cum_i) * C_i . S_enter
+    Cc = Cm.reshape(Bsz, nc, Q, N)
+    y_inter = torch.einsum("bcin,bchpn->bcihp", Cc.float(),
+                           s_enter.float()) * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(Bsz, S, H, P)[:, :S0]
+    return y.to(x.dtype), s.to(x.dtype)
+
+
+def _projections(lp: dict, h):
+    return (h @ lp["in_z"], h @ lp["in_x"], h @ lp["in_B"], h @ lp["in_C"],
+            h @ lp["in_dt"])
+
+
+def ssm_block(cfg: ModelConfig, lp: dict, x):
+    """Full mamba2 layer (teacher-forced). x (B, S, D) -> (B, S, D)."""
+    B, S, _ = x.shape
+    di, N = cfg.ssm_d_inner, cfg.ssm_state
+    H, P = cfg.ssm_heads, cfg.ssm_headdim
+    h = rms_norm(x, lp["ln"], cfg.norm_eps)
+    z, xc, Bm, Cm, dt_raw = _projections(lp, h)
+    conv_out, _ = _conv1d_causal(torch.cat([xc, Bm, Cm], dim=-1),
+                                 lp["conv_w"])
+    xc, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)    # views
+    dt = F.softplus(dt_raw + lp["dt_bias"])
+    A = -torch.exp(lp["A_log"].float())
+    xh = xc.reshape(B, S, H, P)
+    y, _ = ssd_chunked(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+    y = y + lp["D_skip"][None, None, :, None] * xh
+    y = (y.reshape(B, S, di) * F.silu(z)).to(x.dtype)
+    return x + y @ lp["out_proj"]
+
+
+def _layer(params, layer: int) -> dict:
+    return {name: w[layer] for name, w in params["layers"].items()}
+
+
+def forward(params, cfg: ModelConfig, batch: dict):
+    """Teacher-forced scoring: batch["tokens"] (B, S) -> logits (B, S, Vp).
+    One ``ssd_intra`` launch per layer."""
+    x = embed_tokens(cfg, params, batch["tokens"])
+    for layer in range(cfg.n_layers):
+        x = ssm_block(cfg, _layer(params, layer), x)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return lm_logits(cfg, params, x)
+
+
+# ------------------------------------------------------------------ decode
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device=None):
+    """Recurrent cache {"conv": (L, B, K-1, di+2N) in the model dtype,
+    "state": (L, B, H, P, N) fp32, "pos": (B,) int32}. Its size does not
+    depend on ``max_len``; ``pos`` is per lane, as the dense cache's, so
+    the scheduler can reset one slot while the rest keep stepping."""
+    dtype = dtype or torch_dtype(cfg.dtype)
+    L, di, N = cfg.n_layers, cfg.ssm_d_inner, cfg.ssm_state
+    return {
+        "conv": torch.zeros((L, batch, cfg.ssm_conv - 1, di + 2 * N),
+                            dtype=dtype, device=device),
+        "state": torch.zeros((L, batch, cfg.ssm_heads, cfg.ssm_headdim, N),
+                             dtype=torch.float32, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def ssm_decode_step(cfg: ModelConfig, lp: dict, x, conv_state, ssm_state):
+    """One-token mamba2 step of one layer: x (B, 1, D) -> (B, 1, D).
+    ``conv_state`` (B, K-1, C) and ``ssm_state`` (B, H, P, N) fp32 are
+    updated in place."""
+    B = x.shape[0]
+    di, N = cfg.ssm_d_inner, cfg.ssm_state
+    H, P = cfg.ssm_heads, cfg.ssm_headdim
+    h = rms_norm(x, lp["ln"], cfg.norm_eps)
+    z, xc, Bm, Cm, dt_raw = _projections(lp, h)
+    conv_out, new_conv = _conv1d_causal(torch.cat([xc, Bm, Cm], dim=-1),
+                                        lp["conv_w"], conv_state)
+    conv_state.copy_(new_conv)
+    xc, Bm, Cm = torch.split(conv_out[:, 0], [di, N, N], dim=-1)
+    dt = F.softplus(dt_raw[:, 0] + lp["dt_bias"])                  # (B, H)
+    A = -torch.exp(lp["A_log"].float())
+    xh = xc.reshape(B, H, P)
+    dA = torch.exp(dt * A)                                         # fp32
+    upd = dt[..., None, None] * xh[..., None] * Bm[:, None, None, :]
+    ssm_state.mul_(dA[..., None, None]).add_(upd.float())
+    y = torch.einsum("bhpn,bn->bhp", ssm_state.to(x.dtype), Cm)
+    y = y + lp["D_skip"][None, :, None] * xh
+    y = (y.reshape(B, 1, di) * F.silu(z)).to(x.dtype)
+    return x + y @ lp["out_proj"]
+
+
+def decode_step(params, cfg: ModelConfig, cache, prev_tokens):
+    """One autoregressive step: (cache, prev (B,)) -> (logits (B, Vp),
+    cache). The cache is updated in place; ``pos`` advances by one."""
+    x = embed_tokens(cfg, params, prev_tokens[:, None])
+    for layer in range(cfg.n_layers):
+        x = ssm_decode_step(cfg, _layer(params, layer), x,
+                            cache["conv"][layer], cache["state"][layer])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = lm_logits(cfg, params, x)[:, 0]
+    cache["pos"] = cache["pos"] + 1
+    return logits, cache

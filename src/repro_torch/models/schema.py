@@ -9,7 +9,7 @@ GB; it is never staged on the host). ``from_jax`` turns the JAX package's
 parameter tree, as numpy arrays, into the port's tensors, so that the two
 packages compute the same function in the tests.
 
-The dense family only, so far.
+The dense and ssm (mamba2) families, so far.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from .transformer import torch_dtype
 class Leaf:
     shape: tuple
     axes: tuple            # logical axis name (or None) per dim
-    init: str = "normal"   # normal | zeros | ones
+    init: str = "normal"   # normal | zeros | ones | a_log | conv
     scale: float = 1.0
 
 
@@ -62,6 +62,26 @@ def _mlp_leaves(cfg: ModelConfig, L: Optional[int]) -> dict:
     }
 
 
+def _ssm_leaves(cfg: ModelConfig, L: int) -> dict:
+    D = cfg.d_model
+    di, N, Hs, KC = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
+    s = 1.0 / np.sqrt(D)
+    return {
+        "ln": Leaf((L, D), ("layers", None), "ones"),
+        "in_z": Leaf((L, D, di), ("layers", "embed", "ssm_inner"), "normal", s),
+        "in_x": Leaf((L, D, di), ("layers", "embed", "ssm_inner"), "normal", s),
+        "in_B": Leaf((L, D, N), ("layers", "embed", None), "normal", s),
+        "in_C": Leaf((L, D, N), ("layers", "embed", None), "normal", s),
+        "in_dt": Leaf((L, D, Hs), ("layers", "embed", "ssm_inner"), "normal", s),
+        "conv_w": Leaf((L, KC, di + 2 * N), ("layers", None, "ssm_inner"), "conv"),
+        "A_log": Leaf((L, Hs), ("layers", "ssm_inner"), "a_log"),
+        "D_skip": Leaf((L, Hs), ("layers", "ssm_inner"), "ones"),
+        "dt_bias": Leaf((L, Hs), ("layers", "ssm_inner"), "zeros"),
+        "out_proj": Leaf((L, di, D), ("layers", "ssm_inner", "embed"),
+                         "normal", 1.0 / np.sqrt(di)),
+    }
+
+
 def _norm(L: Optional[int], name: str, D: int) -> dict:
     if L:
         return {name: Leaf((L, D), ("layers", None), "ones")}
@@ -69,10 +89,10 @@ def _norm(L: Optional[int], name: str, D: int) -> dict:
 
 
 def schema(cfg: ModelConfig) -> dict:
-    """Nested dict of Leaf for the given (dense) config."""
-    if cfg.family not in ("dense", "vlm"):
+    """Nested dict of Leaf for the given (dense or ssm) config."""
+    if cfg.family not in ("dense", "vlm", "ssm"):
         raise NotImplementedError(
-            f"the port has the dense family only so far (got "
+            f"the port has the dense and ssm families only so far (got "
             f"{cfg.family!r})")
     D, L, Vp = cfg.d_model, cfg.n_layers, cfg.padded_vocab
     tree: dict = {"embed": Leaf((Vp, D), ("vocab_rows", "embed"), "normal", 1.0)}
@@ -80,8 +100,11 @@ def schema(cfg: ModelConfig) -> dict:
         tree["lm_head"] = Leaf((D, Vp), ("embed_head", "vocab"), "normal",
                                1.0 / np.sqrt(D))
     tree.update(_norm(None, "final_norm", D))
-    tree["layers"] = {**_attn_leaves(cfg, L), **_mlp_leaves(cfg, L),
-                      **_norm(L, "ln1", D), **_norm(L, "ln2", D)}
+    if cfg.family == "ssm":
+        tree["layers"] = _ssm_leaves(cfg, L)
+    else:
+        tree["layers"] = {**_attn_leaves(cfg, L), **_mlp_leaves(cfg, L),
+                          **_norm(L, "ln1", D), **_norm(L, "ln2", D)}
     return tree
 
 
@@ -117,6 +140,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
             arr = torch.ones(leaf.shape, dtype=dtype, device=device)
         elif leaf.init == "zeros":
             arr = torch.zeros(leaf.shape, dtype=dtype, device=device)
+        elif leaf.init == "a_log":      # mamba2: A uniform in [1, 16), log
+            u = torch.rand(leaf.shape, generator=gen, device=device,
+                           dtype=torch.float32)
+            arr = torch.log(u.mul_(15.0).add_(1.0)).to(dtype)
+        elif leaf.init == "conv":       # normal over sqrt(fan-in)
+            fan = leaf.shape[-2] if len(leaf.shape) > 1 else 4
+            arr = torch.randn(leaf.shape, generator=gen, device=device,
+                              dtype=torch.float32)
+            arr = arr.div_(float(np.sqrt(fan))).to(dtype)
         else:
             arr = torch.randn(leaf.shape, generator=gen, device=device,
                               dtype=torch.float32)
@@ -135,8 +167,10 @@ def _leaf_tensor(a, device) -> torch.Tensor:
 
 def from_jax(params_np: dict, device=None) -> dict:
     """The JAX package's parameter tree (nested dict of numpy arrays:
-    ``embed``, ``lm_head``, ``final_norm``, ``layers/{wq, wk, wv, wo,
-    q_norm, k_norm, wi_gate, wi_up, wo_mlp, ln1, ln2}``) as the port's
+    ``embed``, ``lm_head``, ``final_norm``, and ``layers/{wq, wk, wv, wo,
+    q_norm, k_norm, wi_gate, wi_up, wo_mlp, ln1, ln2}`` for the dense
+    family or ``layers/{ln, in_z, in_x, in_B, in_C, in_dt, conv_w, A_log,
+    D_skip, dt_bias, out_proj}`` for the ssm family) as the port's
     tensors: same names, same layouts, same dtypes."""
     device = torch.device("cpu" if device is None else device)
     return {k: from_jax(v, device) if isinstance(v, dict)

@@ -36,8 +36,8 @@ def torch_dtype(name: str) -> torch.dtype:
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
-            f"the port runs the dense family only so far (got "
-            f"{cfg.family!r})")
+            f"models/transformer.py runs the dense family (got "
+            f"{cfg.family!r}; the port's ssm family is models/mamba2.py)")
 
 
 def _check_cache(cfg: ModelConfig) -> None:

@@ -1,14 +1,15 @@
 """Serving engine: lock-step decode over the port's models.
 
 ``ModelPredictor`` implements the compressor's ``PredictorAdapter``
-(core/compressor.py) over a dense model in PyTorch, as the JAX package's
-``serve/engine.py`` does over its model zoo:
+(core/compressor.py) over the port's models (dense and ssm) in PyTorch,
+as the JAX package's ``serve/engine.py`` does over its model zoo:
 
   * ``score_chunks`` — one teacher-forced ``forward`` over (B, C) chunks,
     fresh or under a scored ``prefix`` (the router probe, ``exact=False``
     and scored context). Its logits come back as a **device tensor**
     (B, C, V), as ``decode_step``'s do;
-  * ``begin_decode`` — a fresh per-lane KV cache; with a ``prefix``, the
+  * ``begin_decode`` — a fresh per-lane cache (K/V for the dense family,
+    conv and SSM state for the ssm family); with a ``prefix``, the
     cache consumes [BOS, prefix[:, :-1]] by replaying the decode step,
     so it is bit-identical to the same steps taken one by one;
   * ``decode_step`` — one token for every lane. The logits come back as
@@ -137,17 +138,21 @@ class ModelPredictor:
     @torch.no_grad()
     def reset_slots(self, state, mask: np.ndarray):
         """Reset the cache lanes selected by ``mask`` (B,) bool to a fresh
-        context (pos 0, K/V zeroed) without touching the other lanes —
-        the slot-refill primitive of the continuous-batching scheduler.
-        In place; zeroing K/V is hygiene (the per-lane length already
-        hides stale entries)."""
+        context without touching the other lanes — the slot-refill
+        primitive of the continuous-batching scheduler. In place: ``pos``
+        returns to 0 and every other cache leaf, (L, B, ...) with the lane
+        on axis 1, is zeroed. For an SSM the conv and recurrent state
+        MUST be zeroed (they are the context); for attention, zeroing K/V
+        is hygiene (the per-lane length already hides stale entries)."""
         with obs.span("model.reset_slots"):
             lanes = torch.as_tensor(np.nonzero(np.asarray(mask, bool))[0],
                                     device=self.device)
             if lanes.numel():
-                state["k"][:, lanes] = 0
-                state["v"][:, lanes] = 0
-                state["pos"][lanes] = 0
+                for name, leaf in state.items():
+                    if name == "pos":
+                        leaf[lanes] = 0
+                    else:
+                        leaf[:, lanes] = 0
             return state
 
     # ------------------------------------------------- not ported yet

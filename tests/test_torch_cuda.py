@@ -11,7 +11,11 @@ This file imports no JAX (that machine has none). Tolerances as in
 flash-attention kernel also rounds P to bf16 for its second tensor-core
 product, as the bf16 output itself is rounded); CDFs within one
 quantum with equal ids (a GPU ``expf`` and a CPU ``exp`` differ in the
-last bit), invariants exact.
+last bit), invariants exact. ``ssd_intra`` within 2e-5 (fp32) and 1e-4
+(bf16) of the plain version's largest |value| (at least 1): both compute
+in fp32 from the same inputs, in another order; the bf16 kernel splits
+its fp32 factors into two bf16 parts for the tensor cores, which keeps
+~16 of their 24 bits.
 """
 import numpy as np
 import pytest
@@ -158,3 +162,87 @@ def test_flash_attention_wrapper_refuses(cuda, bad):
         q = torch.zeros((1, 4, hd, 8), device=cuda, dtype=dt).transpose(2, 3)
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, v, True, 0 if bad == "window0" else None)
+
+
+SSD_CASES = [
+    # (R, Q, H, P, N): the mamba2-130m scoring path (chip_smoke.py phase 2)
+    (16, 128, 24, 64, 128),     # score_chunks, 16 chunks x 128
+    (23, 32, 24, 64, 128),      # the router probe
+    (16, 160, 24, 64, 128),     # under a 32-token prefix
+    (32, 256, 24, 64, 128),     # S = 512: two chunks of 256 per lane
+    (16, 16, 8, 16, 16),        # the tiny test width
+    (3, 23, 2, 8, 4),           # ragged Q, P and N
+    (2, 100, 3, 40, 72),
+]
+
+
+def _ssd_inputs(cuda, R, Q, H, P, N, dtype, strided):
+    """Inputs drawn as in tests/test_kernels.py. ``strided``: x, B and C
+    as views of one (R, Q, H*P + 2N) tensor, as the model passes them."""
+    rng = np.random.default_rng(R * Q + P + N)
+    dt_ = _DT[dtype]
+    if strided:
+        conv = torch.from_numpy(rng.normal(size=(R, Q, H * P + 2 * N))
+                                .astype(np.float32)).to(cuda, dt_)
+        x, Bm, Cm = torch.split(conv, [H * P, N, N], dim=-1)
+        x = x.reshape(R, Q, H, P)
+    else:
+        x, Bm, Cm = (torch.from_numpy(rng.normal(size=s).astype(
+            np.float32)).to(cuda, dt_) for s in ((R, Q, H, P), (R, Q, N),
+                                                 (R, Q, N)))
+    dt = torch.from_numpy(rng.uniform(0.05, 0.8, (R, Q, H)).astype(
+        np.float32)).to(cuda, dt_)
+    A = torch.from_numpy(-rng.uniform(0.3, 2.0, (H,)).astype(
+        np.float32)).to(cuda)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,Q,H,P,N", SSD_CASES)
+def test_ssd_intra_kernel_vs_plain(cuda, R, Q, H, P, N, dtype):
+    for strided in (False, True):
+        args = _ssd_inputs(cuda, R, Q, H, P, N, dtype, strided)
+        n0 = ops.LAUNCHES["ssd_intra"]
+        y, s = ops.ssd_intra(*args)
+        assert ops.LAUNCHES["ssd_intra"] == n0 + 1
+        yr, sr = ref.ssd_intra(*args)
+        tol = 2e-5 if dtype == "float32" else 1e-4
+        for got, want in ((y, yr), (s, sr)):
+            assert got.shape == want.shape and got.dtype == torch.float32
+            scale = max(1.0, want.abs().max().item())
+            assert (got - want).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+def test_ssd_intra_chunks_are_independent(cuda):
+    """A chunk's result is bit-identical whatever the other chunks hold."""
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, 6, 160, 24, 64, 128, "bfloat16",
+                                   True)
+    y, s = ops.ssd_intra(x, dt, A, Bm, Cm)
+    perm = torch.tensor([3, 0, 5, 1, 4, 2], device=cuda)
+    y2, s2 = ops.ssd_intra(x[perm], dt[perm], A, Bm[perm], Cm[perm])
+    assert torch.equal(y[perm], y2) and torch.equal(s[perm], s2)
+    y3, s3 = ops.ssd_intra(x[:2], dt[:2], A, Bm[:2], Cm[:2])
+    assert torch.equal(y3, y[:2]) and torch.equal(s3, s[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["P72", "N136", "float16", "mixed",
+                                 "stride", "A_bf16"])
+def test_ssd_intra_wrapper_refuses(cuda, bad):
+    P = 72 if bad == "P72" else 16
+    N = 136 if bad == "N136" else 16
+    dt_ = torch.float16 if bad == "float16" else torch.bfloat16
+    x = torch.zeros((2, 8, 3, P), device=cuda, dtype=dt_)
+    dt = torch.zeros((2, 8, 3), device=cuda,
+                     dtype=torch.float32 if bad == "mixed" else dt_)
+    A = torch.zeros((3,), device=cuda,
+                    dtype=torch.bfloat16 if bad == "A_bf16"
+                    else torch.float32)
+    Bm = torch.zeros((2, 8, N), device=cuda, dtype=dt_)
+    if bad == "stride":
+        x = torch.zeros((2, 8, P, 3), device=cuda,
+                        dtype=dt_).transpose(2, 3)
+    with pytest.raises(ValueError):
+        ops.ssd_intra(x, dt, A, Bm, Bm.clone())
