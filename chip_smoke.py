@@ -12,13 +12,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    version on the same inputs, with its time (a CUDA-event mean of
    back-to-back calls, and its own device time from ``torch.profiler``),
    the plain version's time,
-   a one-call PyTorch yardstick (``library_ms``, never used by the port)
-   and its bound on the card (the larger of bytes over 3.35 TB/s and
+   a one-call PyTorch yardstick (``library_ms``, never used by the port;
+   ``library_device_ms`` the device time of every kernel that call
+   launches, held beside the kernel's own device time) and its bound on
+   the card (the larger of bytes over 3.35 TB/s and
    operations over the peak rate of their type: the bf16 tensor rate for
    bf16 inputs, the fp32 rate for fp32). ``flash_attention`` at full
    width (S = 128), at the router probe's shape (S = 32), with a 32-token
    prefix (S = 160), under a sliding window, and at ``pred-base`` width
-   in fp32. ``ssd_intra`` at the mamba2-130m scoring path's shapes
+   in fp32. ``topk_cdf`` at qwen3-1.7b's, mamba2-130m's and
+   ``pred-base``'s vocabularies. ``ssd_intra`` at the mamba2-130m
+   scoring path's shapes
    (H=24, P=64, N=128, bf16): 16 chunks of Q = 128, the probe's Q = 32,
    the prefix's Q = 160, S = 512 as 32 chunks of Q = 256, and the tiny
    test width in fp32.
@@ -140,6 +144,14 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float:
     return us / 1e3 / iters
 
 
+def library_device_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call of a yardstick PyTorch call: the
+    time of every CUDA kernel it launches, from ``torch.profiler``, so
+    that a kernel's device time and its library call's compare like for
+    like."""
+    return device_ms(fn, "", iters)
+
+
 def bound(nbytes: float, flops: float, dtype=None) -> tuple[float, str]:
     """Least ms for ``nbytes`` moved and ``flops`` done on inputs of
     ``dtype``: bf16 counts at the tensor-core rate, anything else at the
@@ -175,8 +187,10 @@ def check_attention(shape, dtype, gen):
     k4, v4 = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
     mask = (torch.arange(S, device=dev)[None, :]
             < lengths[:, None])[:, None, None, :]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask, enable_gqa=True))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, k4, v4, attn_mask=mask, enable_gqa=True)
+    lib_ms = time_ms(lib)
+    lib_dev_ms = library_device_ms(lib)
     ms = time_ms(lambda: ops.decode_attention(q, kc, vc, lengths))
     dev_ms = device_ms(lambda: ops.decode_attention(q, kc, vc, lengths),
                        "decode_attention_kernel")
@@ -188,7 +202,7 @@ def check_attention(shape, dtype, gen):
     b_ms, b_by = bound(nbytes, flops, dtype)
     return dict(max_abs_err=err, tol=tol, ms=ms, device_ms=dev_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, library_device_ms=lib_dev_ms)
 
 
 def check_flash(B, H, K, S, hd, dtype, gen, window=None):
@@ -218,6 +232,7 @@ def check_flash(B, H, K, S, hd, dtype, gen, window=None):
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, attn_mask=mask, enable_gqa=True)
     lib_ms = time_ms(lib)
+    lib_dev_ms = library_device_ms(lib)
     ms = time_ms(lambda: ops.flash_attention(q, k, v, True, window))
     dev_ms = device_ms(lambda: ops.flash_attention(q, k, v, True, window),
                        "flash_bf16_kernel" if dtype == torch.bfloat16
@@ -230,7 +245,7 @@ def check_flash(B, H, K, S, hd, dtype, gen, window=None):
     b_ms, b_by = bound(nbytes, flops, dtype)
     return dict(max_abs_err=err, tol=tol, ms=ms, device_ms=dev_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, library_device_ms=lib_dev_ms)
 
 
 # ssd_intra against its plain version: both compute in fp32 from the same
@@ -280,7 +295,7 @@ def check_ssd(R, Q, H, P, N, dtype, gen):
     b_ms, b_by = bound(nbytes, flops, dtype)
     return dict(max_abs_err=err, tol=tol, ms=ms, device_ms=dev_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, library_device_ms=None)
 
 
 def _logits(R, V, dtype, gen, padded=None):
@@ -309,13 +324,15 @@ def check_topk(R, V, dtype, gen, k=48, precision=16, padded=None):
     dev_ms = device_ms(lambda: ops.topk_cdf(x, k, precision),
                        "topk_cdf_kernel")
     plain_ms = time_ms(lambda: ref.topk_cdf(x, k, precision), 10)
-    lib_ms = time_ms(lambda: torch.topk(torch.softmax(x.float(), dim=-1),
-                                        k, dim=-1))
+    lib = lambda: torch.topk(torch.softmax(x.float(), dim=-1),  # noqa: E731
+                             k, dim=-1)
+    lib_ms = time_ms(lib)
+    lib_dev_ms = library_device_ms(lib)
     nbytes = R * V * x.element_size() + R * k * 4 + R * (k + 2) * 4
     b_ms, b_by = bound(nbytes, 4.0 * R * V, dtype)
     return dict(max_abs_err=float(err), tol=1, ms=ms, device_ms=dev_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, library_device_ms=lib_dev_ms)
 
 
 def check_cdf_points(R, V, dtype, gen, precision, padded=None):
@@ -334,13 +351,15 @@ def check_cdf_points(R, V, dtype, gen, precision, padded=None):
     dev_ms = device_ms(lambda: ops.cdf_points(x, precision),
                        "cdf_points_kernel")
     plain_ms = time_ms(lambda: ref.cdf_points(x, precision))
-    lib_ms = time_ms(lambda: torch.cumsum(torch.softmax(x.float(), dim=-1),
-                                          dim=-1))
+    lib = lambda: torch.cumsum(torch.softmax(x.float(), dim=-1),  # noqa
+                               dim=-1)
+    lib_ms = time_ms(lib)
+    lib_dev_ms = library_device_ms(lib)
     nbytes = R * V * x.element_size() + R * V * 4
     b_ms, b_by = bound(nbytes, 4.0 * R * V, dtype)
     return dict(max_abs_err=float(err), tol=1, ms=ms, device_ms=dev_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, library_device_ms=lib_dev_ms)
 
 
 def phase_kernels(gen, probe_chunks: int) -> dict:
@@ -365,6 +384,8 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
         ("topk_cdf", check_topk,
          (16, QWEN.vocab_size, torch.bfloat16, gen, 48, 16,
           QWEN.padded_vocab)),
+        ("topk_cdf@mamba2", check_topk,
+         (16, MAMBA.vocab_size, torch.bfloat16, gen)),
         ("topk_cdf@pred-base", check_topk,
          (16, PRED_BASE.vocab_size, torch.float32, gen)),
         ("cdf_points", check_cdf_points,
@@ -393,7 +414,9 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
         r = fn(*args)
         res[name] = r
         lib = "none" if r["library_ms"] is None \
-            else f"{r['library_ms']:.4f} ms"
+            else (f"{r['library_ms']:.4f} ms (on the device "
+                  f"{r['library_device_ms']:.4f} ms; kernel / library on "
+                  f"the device {r['device_ms'] / r['library_device_ms']:.2f})")
         log(f"[kernel] {name}: max_err {r['max_abs_err']:.3g} (tol "
             f"{r['tol']:.3g}) kernel {r['ms']:.4f} ms (on the device "
             f"{r['device_ms']:.4f} ms), plain "
@@ -998,7 +1021,9 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+                     "library_ms": r["library_ms"],
+                     "device_ms": r["device_ms"],
+                     "library_device_ms": r["library_device_ms"]})
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -65,14 +65,14 @@ KERNELS = {
          _i, _i, _i, _i, _i, _i, _f, _vp]),
     "topk_cdf": (
         "topk_cdf.cu", ["-fmad=false"], "repro_topk_cdf",
-        [_vp, _ll, _i, _i, _i, _i, _i, _vp, _vp, _vp]),
+        [_vp, _ll] + [_i] * 8 + [_vp, _vp, _vp]),
     "cdf_points": (
         "cdf_points.cu", ["-fmad=false"], "repro_cdf_points",
         [_vp, _ll, _i, _i, _i, _i, _vp, _vp]),
     "flash_attention": (
         "flash_attention.cu", [], "repro_flash_attention",
         [_vp, _vp, _vp, _vp] + [_ll] * 12
-        + [_i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _i, _vp]),
+        + [_i] * 9 + [_f, _i, _i, _i, _vp]),
     "ssd_intra": (
         "ssd_intra.cu", [], "repro_ssd_intra",
         [_vp] * 7 + [_ll] * 10 + [_i] * 7 + [_vp]),

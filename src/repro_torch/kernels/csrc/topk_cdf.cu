@@ -1,4 +1,5 @@
-// Fused top-k selection + escape pmf + quantized CDF, one row per CTA.
+// Fused top-k selection + escape pmf + quantized CDF, one thread-block
+// cluster per row.
 //
 // Replaces the TPU kernel src/repro/kernels/ac_cdf.py (`topk_cdf_points`
 // / `_topk_cdf_kernel`): logits (B, V) -> ids (B, k) int32 in the order
@@ -11,222 +12,526 @@
 // Bound on the H100: bytes. The function must read each logit once
 // (V * 2 B per row in bf16) and write (2k+2) * 4 B; its flops (one exp
 // per logit) are negligible, so the least time is the logits' bytes over
-// 3.35 TB/s.
+// 3.35 TB/s: 1.45 us for 16 rows of 151,936 bf16 logits. One CTA per
+// row would leave 116 of the 132 SMs idle and stream each row through
+// one SM's share of the bandwidth, so the row is split.
 //
-// Design. The TPU kernel merged each 2048-wide vocab block into a running
-// top-k by k extract-max rounds -- on a GPU that is thousands of block
-// reductions per row. Here the k-th largest value is found by a radix
-// select on order-preserving float keys: four passes of 8-bit integer
-// histograms in shared memory (warp-aggregated integer atomics; counts
-// do not depend on their order), each pass restricted to the keys whose
-// higher bytes match the prefix found so far. A gather pass then keeps
-// every key above the threshold and the smallest-id keys equal to it
-// (an ordered block scan when the threshold value is tied past k), and a
-// rank sort over the k candidates puts them in (value desc, id asc)
-// order. The first pass also carries the streaming softmax state
-// (max, sum of exp). Rows are independent and every reduction runs in a
-// fixed order: the result for a row never depends on the other rows of
-// the launch. The ragged vocab tail is masked; V needs no multiple of
-// any block. This first version re-reads the row once per pass (from L2
-// at these sizes) and uses one CTA per row; split-row parallelism and
-// vector loads are left for a later change.
+// Design. A cluster of C CTAs takes one row, CTA r its contiguous slice
+// [r * slice, (r + 1) * slice). C and the slice width are functions of V
+// and the dtype alone (kernels/ops.py `topk_cdf_geometry`: C = 8 at
+// V = 151,936, so 16 rows fill 128 of the 132 SMs; C = 1 at 258), so a
+// row's integers never depend on the other rows or on the card.
+//   1. The slice is copied from HBM once, into shared memory, by 16-byte
+//      `cp.async` where its start is 16-byte aligned and by scalar loads
+//      otherwise (pred-base's 258-wide fp32 rows, a 1,032-byte stride).
+//      A slice too large for shared memory (fp32 beyond V ~ 327K) is
+//      read from global memory on every pass instead.
+//   2. A pass over the copy takes the slice's max (exact in any order)
+//      and a histogram of the keys' top 12 bits (order-preserving float
+//      keys, 4,096 bins, plain shared-memory integer atomics: counts do
+//      not depend on their order).
+//   3. A radix select finds the slice's k-th largest key: bits 31-20,
+//      then 19-8 of the keys that share the prefix, then 7-0 (fp32
+//      only; a bf16 key's low byte follows from its sign). The pass over
+//      bits 19-8 also sums exp(x - max), element i of the slice on
+//      thread (i / 8) % 512 in ascending order, then a fixed tree, so
+//      the order does not depend on the row's alignment. The slice's top
+//      k are the keys above the k-th and the smallest ids among the keys
+//      equal to it (ranked directly when at most 1,024 keys tie, by an
+//      ordered block scan otherwise). The row's top k lie in the union
+//      of the slices' top k.
+//   4. Each CTA sorts its k candidates -- 64-bit words, key above
+//      complemented id, so one compare orders (value desc, id asc) --
+//      and writes the sorted list, its (max, sum) and its count into CTA
+//      0's shared memory (distributed shared memory; a cluster barrier
+//      arrived at the start and waited on here guarantees CTA 0 runs).
+//      After one cluster barrier CTA 0 places each candidate at its rank
+//      in the merged order (its place in its own list plus a binary
+//      search in each other list), so a threshold value tied across two
+//      slices keeps its smallest ids, and merges the (max, sum) pairs in
+//      rank order.
+//   5. CTA 0 emits the escape pmf and the cumulative-rounding CDF as the
+//      Pallas kernel does: the exps and divisions run in parallel, the
+//      three running sums sequentially in slot order.
+// No float atomics; every sum runs in a fixed order. The partial sums'
+// order differs from the one-CTA-per-row kernel this replaced, so a CDF
+// point may differ by one quantum from that kernel's (within the plain
+// version's tolerance either way).
 //
 // Plain C interface, bound from Python with ctypes (kernels/ops.py).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
 constexpr int kMaxK = 256;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxClusters = 8;
+constexpr int kBins = 4096;            // 12-bit digits
+constexpr int kBinsPerThread = kBins / kThreads;
+constexpr int kEqCap = 1024;           // keys tied at the threshold ranked
+                                       // directly; more take the scan
+constexpr int kChunk = 8;              // elements per thread per step
+constexpr size_t kStageLimit = 160 * 1024;
+static_assert(kBinsPerThread * kThreads == kBins, "bins per thread");
+static_assert(kEqCap <= kBins, "tie buffer in hist");
 
-// histogram increment, aggregated over the lanes of a warp that hit the
-// same bin (the top byte of most logits is shared, so plain atomics
-// would serialise on one address)
-__device__ __forceinline__ void hist_add(unsigned* hist, unsigned bin,
-                                         bool active) {
-  const unsigned mask = __ballot_sync(kFull, active);
-  if (!active) return;
-  const unsigned peers = __match_any_sync(mask, bin);
-  if ((int)(threadIdx.x & 31) == __ffs(peers) - 1)
-    atomicAdd(&hist[bin], (unsigned)__popc(peers));
+__device__ __forceinline__ float key_float(uint32_t key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-topk_cdf_kernel(const T* __restrict__ logits, long long row_stride, int V,
-                int k, float budget, int* __restrict__ ids_out,
-                int* __restrict__ cdf_out) {
-  __shared__ unsigned hist[256];
-  __shared__ float red[64];
-  __shared__ int scan[33];
-  __shared__ int sel[2];
-  __shared__ int n_cand;
-  __shared__ float cand_v[kMaxK];
-  __shared__ int cand_i[kMaxK];
-  __shared__ uint32_t cand_key[kMaxK];
-  __shared__ float top_v[kMaxK];
-  __shared__ int top_i[kMaxK];
-  __shared__ float pmf[kMaxK + 1];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
 
-  const int tid = threadIdx.x;
-  const int row = blockIdx.x;
-  const T* x = logits + row * row_stride;
-
-  // pass 0: streaming softmax state + histogram of the keys' top byte
-  for (int i = tid; i < 256; i += kThreads) hist[i] = 0u;
-  if (tid == 0) n_cand = 0;
-  __syncthreads();
-  repro::MaxSum ms = {-INFINITY, 0.0f};
-  for (int base = 0; base < V; base += kThreads) {
-    const int i = base + tid;
-    const bool live = i < V;
-    const float v = live ? repro::to_float(x[i]) : -INFINITY;
-    if (live) ms = repro::maxsum_push(ms, v);
-    hist_add(hist, repro::float_key(v) >> 24, live);
-  }
-  __syncthreads();
-  ms = repro::block_maxsum(ms, red);
-
-  // radix select of the k-th largest key, one byte per pass
-  uint32_t prefix = 0u, pmask = 0u;
-  int rem = k;                       // still to take among prefix matches
-  for (int pass = 0; pass < 4; ++pass) {
-    const int shift = 24 - 8 * pass;
-    if (pass > 0) {
-      for (int i = tid; i < 256; i += kThreads) hist[i] = 0u;
-      __syncthreads();
-      for (int base = 0; base < V; base += kThreads) {
-        const int i = base + tid;
-        uint32_t key = 0u;
-        if (i < V) key = repro::float_key(repro::to_float(x[i]));
-        hist_add(hist, (key >> shift) & 255u,
-                 i < V && (key & pmask) == prefix);
-      }
-      __syncthreads();
+// Elements [8c, 8c + 8) of the slice as floats; those at or past n are
+// read but never used by the callers (they mask by index).
+template <typename T, bool kStaged>
+__device__ __forceinline__ void read8(const T* __restrict__ src, int c,
+                                      int n, float (&v)[kChunk]) {
+  if constexpr (kStaged && sizeof(T) == 2) {
+    const uint4 u = reinterpret_cast<const uint4*>(src)[c];
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = __uint_as_float(w[j] << 16);
+      v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
     }
-    // bins from the top: thread t owns bin 255 - t
-    const int cnt = tid < 256 ? (int)hist[255 - tid] : 0;
-    int total;
-    const int above = repro::block_exclusive_scan_int(cnt, scan, &total);
-    if (tid < 256 && above < rem && above + cnt >= rem) {
-      sel[0] = 255 - tid;
+  } else if constexpr (kStaged) {
+    const float4 a = reinterpret_cast<const float4*>(src)[2 * c];
+    const float4 b = reinterpret_cast<const float4*>(src)[2 * c + 1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      const int i = c * kChunk + j;
+      v[j] = i < n ? repro::to_float(src[i]) : -INFINITY;
+    }
+  }
+}
+
+// The bin holding the rem-th largest key of `hist` (bins counted from the
+// top): sel[0] = bin, sel[1] = keys in the bins above it. Thread t owns
+// bins kBins-1-8t .. kBins-8-8t.
+__device__ __forceinline__ void select_bin(const unsigned* hist, int rem,
+                                           int* sel, int* scan) {
+  const int tid = threadIdx.x;
+  int c[kBinsPerThread];
+  int mine = 0;
+#pragma unroll
+  for (int j = 0; j < kBinsPerThread; ++j) {
+    c[j] = (int)hist[kBins - 1 - kBinsPerThread * tid - j];
+    mine += c[j];
+  }
+  int total;
+  int above = repro::block_exclusive_scan_int(mine, scan, &total);
+#pragma unroll
+  for (int j = 0; j < kBinsPerThread; ++j) {
+    if (above < rem && above + c[j] >= rem) {
+      sel[0] = kBins - 1 - kBinsPerThread * tid - j;
       sel[1] = above;
     }
-    __syncthreads();
+    above += c[j];
+  }
+  __syncthreads();
+}
+
+// A candidate as one 64-bit word: the key above the complement of the id,
+// so that a larger word comes first in lax.top_k's order (value
+// descending, smallest id first among ties) and no two words are equal.
+__device__ __forceinline__ uint64_t pack_cand(uint32_t key, int id) {
+  return ((uint64_t)key << 32) | (uint32_t)~(uint32_t)id;
+}
+
+// Entries of the descending list a[0, n) greater than x.
+__device__ __forceinline__ int count_greater(const uint64_t* a, int n,
+                                             uint64_t x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] > x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Sum of a[0, n) in index order, loads batched ahead of the adds.
+__device__ __forceinline__ float ordered_sum(const float* a, int n) {
+  float s = 0.0f;
+  int t = 0;
+  for (; t + 8 <= n; t += 8) {
+    float q[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) q[j] = a[t + j];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += q[j];
+  }
+  for (; t < n; ++t) s += a[t];
+  return s;
+}
+
+// Block-wide max and ordered sum; every thread gets the result.
+__device__ __forceinline__ float block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = repro::warp_max(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float m = red[0];
+  for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, red[w]);
+  return m;
+}
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = repro::warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  return ordered_sum(red, kThreads / 32);
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+topk_cdf_kernel(const T* __restrict__ logits, long long row_stride, int V,
+                int k, int slice, float budget, int* __restrict__ ids_out,
+                int* __restrict__ cdf_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // the slice
+  __shared__ unsigned hist[kBins];     // histogram; then the tie buffer
+  __shared__ float red_m[kThreads / 32], red_s[kThreads / 32];
+  __shared__ int scan[33];
+  __shared__ int sel[2];
+  __shared__ int n_cand, n_tied;
+  __shared__ uint64_t cand[kMaxK];     // this slice's top k, any order
+  // CTA 0 only, written by every CTA of the cluster: the slices' sorted
+  // lists, their lengths and (max, sum exp) pairs
+  __shared__ uint64_t all_c[kMaxClusters * kMaxK];
+  __shared__ int cnt[kMaxClusters];
+  __shared__ float part_m[kMaxClusters], part_s[kMaxClusters];
+  __shared__ uint64_t top[kMaxK];
+  __shared__ float pmf[kMaxK + 1];
+  __shared__ float tot_s;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  // every CTA must have started before another writes into its shared
+  // memory: arrive now, wait just before the writes
+  cluster_arrive_relaxed();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int row = blockIdx.x / C;
+  const int tid = threadIdx.x;
+  const int lo = rank * slice;
+  const int n = max(0, min(V, lo + slice) - lo);   // live elements
+  const int nch = (n + kChunk - 1) / kChunk;
+  const T* gx = logits + row * row_stride + lo;
+
+  // 1. the slice into shared memory, once
+  const T* src = gx;
+  if constexpr (kStaged) {
+    T* sx = reinterpret_cast<T*>(smem_raw);
+    constexpr int kVec = 16 / sizeof(T);
+    const bool aligned = (reinterpret_cast<uintptr_t>(gx) & 15u) == 0;
+    const int nvec = aligned ? n / kVec : 0;
+    for (int i = tid; i < nvec; i += kThreads)
+      cp_async16(sx + i * kVec, gx + i * kVec);
+    asm volatile("cp.async.commit_group;\n" ::);
+    for (int i = nvec * kVec + tid; i < n; i += kThreads) sx[i] = gx[i];
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    src = sx;
+  }
+  for (int i = tid; i < kBins; i += kThreads) hist[i] = 0u;
+  if (tid == 0) {
+    n_cand = 0;
+    n_tied = 0;
+  }
+  __syncthreads();
+
+  // 2. the slice's max (exact in any order) + histogram of bits 31-20
+  float mx = -INFINITY;
+  for (int c = tid; c < nch; c += kThreads) {
+    float v[kChunk];
+    read8<T, kStaged>(src, c, n, v);
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      if (c * kChunk + j < n) {
+        mx = fmaxf(mx, v[j]);
+        atomicAdd(&hist[repro::float_key(v[j]) >> 20], 1u);
+      }
+    }
+  }
+  const float M = block_max(mx, red_m);     // its barrier publishes hist
+
+  // 3. radix select of the slice's k-th largest key; the pass over bits
+  // 19-8 also sums exp(x - M), each thread over its elements in
+  // ascending order, then a fixed tree
+  const bool take_all = n <= k;
+  constexpr int kPasses = sizeof(T) == 2 ? 2 : 3;
+  int rem = k;
+  uint32_t prefix = 0u;
+  int n_eq = 0;
+  float S = 0.0f;
+  for (int pass = 0; pass < kPasses; ++pass) {
+    if (take_all && pass > 1) break;   // the sum is in; nothing to select
+    if (pass > 0) {
+      for (int i = tid; i < kBins; i += kThreads) hist[i] = 0u;
+      __syncthreads();
+      const int shift = pass == 1 ? 8 : 0;
+      const uint32_t pmask = pass == 1 ? 0xfff00000u : 0xffffff00u;
+      const uint32_t dmask = pass == 1 ? 0xfffu : 0xffu;
+      float acc = 0.0f;
+      for (int c = tid; c < nch; c += kThreads) {
+        float v[kChunk];
+        read8<T, kStaged>(src, c, n, v);
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          if (c * kChunk + j >= n) continue;
+          if (pass == 1 && M > -INFINITY) acc += expf(v[j] - M);
+          const uint32_t key = repro::float_key(v[j]);
+          if (!take_all && (key & pmask) == prefix)
+            atomicAdd(&hist[(key >> shift) & dmask], 1u);
+        }
+      }
+      if (pass == 1) S = block_sum(acc, red_s);  // its barrier publishes hist
+      else __syncthreads();
+    }
+    if (take_all) continue;
+    select_bin(hist, rem, sel, scan);
+    const int shift = pass == 0 ? 20 : (pass == 1 ? 8 : 0);
     rem -= sel[1];
     prefix |= (uint32_t)sel[0] << shift;
-    pmask |= 255u << shift;
+    if (pass == kPasses - 1) n_eq = (int)hist[sel[0]];
     __syncthreads();
   }
-  const uint32_t thr = prefix;       // key of the k-th largest logit
-  const int need_eq = rem;           // how many keys == thr to keep
-  const int n_eq = (int)hist[thr & 255u];
+  // a bf16 key's low 16 bits are all 0 (value >= +0) or all 1
+  if (sizeof(T) == 2) prefix |= (prefix & 0x80000000u) ? 0u : 0xffu;
+  const uint32_t thr = take_all ? 0u : prefix;
+  const int need_eq = rem;
 
-  // gather the k candidates (any order; sorted below)
-  if (n_eq == need_eq) {
-    for (int base = 0; base < V; base += kThreads) {
-      const int i = base + tid;
-      if (i >= V) break;
-      const float v = repro::to_float(x[i]);
-      const uint32_t key = repro::float_key(v);
-      if (key >= thr) {
-        const int s = atomicAdd(&n_cand, 1);
-        cand_v[s] = v;
-        cand_i[s] = i;
-        cand_key[s] = key;
+  // gather this slice's top k (any order; sorted below)
+  const bool all_eq = take_all || n_eq == need_eq;
+  int* tied = reinterpret_cast<int*>(hist);
+  if (all_eq || n_eq <= kEqCap) {
+    for (int c = tid; c < nch; c += kThreads) {
+      float v[kChunk];
+      read8<T, kStaged>(src, c, n, v);
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        const int i = c * kChunk + j;
+        const uint32_t key = repro::float_key(v[j]);
+        if (i >= n) continue;
+        if (key > thr || (all_eq && key == thr))
+          cand[atomicAdd(&n_cand, 1)] = pack_cand(key, lo + i);
+        else if (key == thr)
+          tied[atomicAdd(&n_tied, 1)] = lo + i;
+      }
+    }
+    __syncthreads();
+    if (!all_eq) {
+      // keep the need_eq smallest ids among the tied keys
+      for (int e = tid; e < n_eq; e += kThreads) {
+        const int id = tied[e];
+        int r = 0;
+        for (int f = 0; f < n_eq; ++f) r += tied[f] < id;
+        if (r < need_eq) cand[atomicAdd(&n_cand, 1)] = pack_cand(thr, id);
       }
     }
   } else {
-    // the threshold value is tied past k: keep its smallest ids, found by
-    // an ordered scan over the row
+    // many keys tied at the threshold: an ordered scan keeps the
+    // smallest ids (chunks in order, elements in order inside a chunk)
     int eq_seen = 0;
-    for (int base = 0; base < V; base += kThreads) {
-      const int i = base + tid;
-      const bool live = i < V;
-      const float v = live ? repro::to_float(x[i]) : 0.0f;
-      const uint32_t key = live ? repro::float_key(v) : 0u;
-      const int is_eq = live && key == thr;
+    for (int base = 0; base < nch; base += kThreads) {
+      const int c = base + tid;
+      float v[kChunk];
+      uint32_t key[kChunk];
+      int mine = 0;
+      if (c < nch) read8<T, kStaged>(src, c, n, v);
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        const bool live = c < nch && c * kChunk + j < n;
+        key[j] = live ? repro::float_key(v[j]) : 0u;
+        mine += live && key[j] == thr;
+      }
       int tot;
-      const int r = repro::block_exclusive_scan_int(is_eq, scan, &tot);
-      if ((live && key > thr) || (is_eq && eq_seen + r < need_eq)) {
-        const int s = atomicAdd(&n_cand, 1);
-        cand_v[s] = v;
-        cand_i[s] = i;
-        cand_key[s] = key;
+      int r = repro::block_exclusive_scan_int(mine, scan, &tot);
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        const bool live = c < nch && c * kChunk + j < n;
+        if (!live) continue;
+        bool keep = key[j] > thr;
+        if (key[j] == thr) keep = eq_seen + r++ < need_eq;
+        if (keep)
+          cand[atomicAdd(&n_cand, 1)] = pack_cand(key[j], lo + c * kChunk + j);
       }
       eq_seen += tot;
     }
   }
   __syncthreads();
 
-  // rank sort: value descending, id ascending among ties
-  for (int t = tid; t < k; t += kThreads) {
-    const uint32_t kt = cand_key[t];
-    const int it = cand_i[t];
-    int rank = 0;
-    for (int j = 0; j < k; ++j) {
-      const uint32_t kj = cand_key[j];
-      rank += (kj > kt) || (kj == kt && cand_i[j] < it);
-    }
-    top_v[rank] = cand_v[t];
-    top_i[rank] = it;
+  // 4. sort the slice's candidates into CTA 0's list for this slice
+  cluster_wait();
+  const int nc = n_cand;
+  uint64_t* dst = cluster.map_shared_rank(all_c, 0) + rank * k;
+  for (int t = tid; t < nc; t += kThreads) {
+    const uint64_t x = cand[t];
+    int r = 0;
+#pragma unroll 4
+    for (int j = 0; j < nc; ++j) r += cand[j] > x;
+    dst[r] = x;
+  }
+  if (tid == 0) {
+    *cluster.map_shared_rank(cnt + rank, 0) = nc;
+    *cluster.map_shared_rank(part_m + rank, 0) = M;
+    *cluster.map_shared_rank(part_s + rank, 0) = S;
+  }
+  cluster.sync();                      // the lists are in; others may go
+  if (rank != 0) return;
+
+  // each candidate at its rank in the merged order
+  for (int e = tid; e < C * k; e += kThreads) {
+    const int c = e / k, p = e - c * k;
+    if (p >= cnt[c]) continue;
+    const uint64_t x = all_c[e];
+    int r = p;
+    for (int c2 = 0; c2 < C; ++c2)
+      if (c2 != c) r += count_greater(all_c + c2 * k, cnt[c2], x);
+    if (r < k) top[r] = x;
   }
   __syncthreads();
 
-  // escape pmf + cumulative rounding, as ac_cdf._topk_cdf_kernel's emit
+  // 5. escape pmf + cumulative rounding, as ac_cdf._topk_cdf_kernel's
+  // emit; the row's (max, sum) merged over the slices in rank order
+  repro::MaxSum ms = {part_m[0], part_s[0]};
+  for (int c = 1; c < C; ++c)
+    ms = repro::maxsum_merge(ms, {part_m[c], part_s[c]});
   int* ids = ids_out + (long long)row * k;
   int* cdf = cdf_out + (long long)row * (k + 2);
   for (int t = tid; t < k; t += kThreads) {
-    pmf[t] = expf(top_v[t] - ms.m) / ms.s;
-    ids[t] = top_i[t];
+    pmf[t] = expf(key_float((uint32_t)(top[t] >> 32)) - ms.m) / ms.s;
+    ids[t] = (int)~(uint32_t)top[t];
   }
   __syncthreads();
   if (tid == 0) {
-    float sum = 0.0f;
-    for (int t = 0; t < k; ++t) sum += pmf[t];
-    const float esc = fminf(fmaxf(1.0f - sum, 0.0f), 1.0f);
-    pmf[k] = esc;
-    float tot = 0.0f;
-    for (int t = 0; t <= k; ++t) tot += pmf[t];
+    const float sum = ordered_sum(pmf, k);
+    pmf[k] = fminf(fmaxf(1.0f - sum, 0.0f), 1.0f);      // ESCAPE
+    tot_s = ordered_sum(pmf, k + 1);
+  }
+  __syncthreads();
+  const float tot = tot_s;
+  for (int t = tid; t <= k; t += kThreads) pmf[t] = pmf[t] / tot;
+  __syncthreads();
+  if (tid == 0) {                      // cumulative, in place, slot order
     float run = 0.0f;
-    for (int t = 0; t <= k; ++t) {
-      run += pmf[t] / tot;
-      pmf[t] = run;                  // cumulative, in place
+    int t = 0;
+    for (; t + 8 <= k + 1; t += 8) {
+      float q[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) q[j] = pmf[t + j];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        run += q[j];
+        pmf[t + j] = run;
+      }
     }
-    const float last = pmf[k];
-    cdf[0] = 0;
-    for (int t = 0; t <= k; ++t) {
-      const float c = pmf[t] / last;
-      cdf[t + 1] = (int)floorf(c * budget + 0.5f) + t + 1;
+    for (; t <= k; ++t) {
+      run += pmf[t];
+      pmf[t] = run;
     }
   }
+  __syncthreads();
+  const float last = pmf[k];
+  if (tid == 0) cdf[0] = 0;
+  for (int t = tid; t <= k; t += kThreads) {
+    const float c = pmf[t] / last;
+    cdf[t + 1] = (int)floorf(c * budget + 0.5f) + t + 1;
+  }
+}
+
+template <typename T, bool kStaged>
+cudaError_t launch(const void* logits, long long row_stride, int B, int V,
+                   int k, int clusters, int slice, float budget, int* ids,
+                   int* cdf, cudaStream_t st) {
+  auto kern = topk_cdf_kernel<T, kStaged>;
+  const size_t smem = kStaged ? sizeof(T) * (size_t)slice : 0;
+  // the static arrays count against the 48 KB a block gets without
+  // opting in, so opt in for any dynamic size larger than seen so far
+  static size_t allowed = 0;
+  if (smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    allowed = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(clusters * B), 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = clusters;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(logits), row_stride,
+                     V, k, slice, budget, ids, cdf);
+  return cudaGetLastError();            // also clears a refused launch's
 }
 
 }  // namespace
 
 // logits (B, V) with row stride `row_stride` elements and unit column
-// stride; ids (B, k) and cdf (B, k+2) int32, contiguous. Returns the
+// stride; ids (B, k) and cdf (B, k+2) int32, contiguous. `clusters` CTAs
+// per row, each over `slice` logits (a multiple of 8; the slices cover V
+// and none is empty), staged in shared memory when `staged` != 0: the
+// geometry of kernels/ops.py `topk_cdf_geometry`. Returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int repro_topk_cdf(const void* logits, long long row_stride,
                               int dtype, int B, int V, int k, int precision,
-                              void* ids, void* cdf, void* stream) {
+                              int clusters, int slice, int staged, void* ids,
+                              void* cdf, void* stream) {
   if (k < 1 || k > kMaxK || k > V || precision < 1 || precision > 24 ||
-      (1 << precision) <= k + 1)
+      (1 << precision) <= k + 1 || B < 1 || clusters < 1 ||
+      clusters > kMaxClusters || slice < 1 || slice % kChunk != 0 ||
+      (long long)clusters * slice < V ||
+      (long long)(clusters - 1) * slice >= V ||
+      (long long)clusters * B > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (dtype != repro::kFloat32 && dtype != repro::kBFloat16)
+    return (int)cudaErrorInvalidValue;
+  const size_t el = dtype == repro::kFloat32 ? 4 : 2;
+  if (staged && el * (size_t)slice > kStageLimit)
     return (int)cudaErrorInvalidValue;
   const float budget = (float)((1 << precision) - (k + 1));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* ids_i = static_cast<int*>(ids);
   int* cdf_i = static_cast<int*>(cdf);
+  cudaError_t e;
   if (dtype == repro::kFloat32)
-    topk_cdf_kernel<float><<<B, kThreads, 0, st>>>(
-        static_cast<const float*>(logits), row_stride, V, k, budget, ids_i,
-        cdf_i);
-  else if (dtype == repro::kBFloat16)
-    topk_cdf_kernel<__nv_bfloat16><<<B, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(logits), row_stride, V, k, budget,
-        ids_i, cdf_i);
+    e = staged ? launch<float, true>(logits, row_stride, B, V, k, clusters,
+                                     slice, budget, ids_i, cdf_i, st)
+               : launch<float, false>(logits, row_stride, B, V, k, clusters,
+                                      slice, budget, ids_i, cdf_i, st);
   else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    e = staged ? launch<__nv_bfloat16, true>(logits, row_stride, B, V, k,
+                                             clusters, slice, budget, ids_i,
+                                             cdf_i, st)
+               : launch<__nv_bfloat16, false>(logits, row_stride, B, V, k,
+                                              clusters, slice, budget, ids_i,
+                                              cdf_i, st);
+  return (int)e;
 }

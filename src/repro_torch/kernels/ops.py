@@ -117,6 +117,30 @@ def _check_logits(name: str, logits: torch.Tensor) -> None:
                          f"or bfloat16)")
 
 
+#: logits per CTA below which a row is not split further
+TOPK_SLICE_MIN = 4096
+#: CTAs per row at most (the portable thread-block cluster size)
+TOPK_MAX_CLUSTERS = 8
+#: largest slice, in bytes, that a CTA copies into shared memory; a
+#: larger one is read from global memory on every pass
+TOPK_STAGE_BYTES = 160 * 1024
+
+
+def topk_cdf_geometry(V: int, dtype: torch.dtype) -> tuple[int, int, bool]:
+    """Launch geometry of the top-k kernel for rows of V logits of
+    ``dtype``: (CTAs per row, logits per CTA, whether a CTA stages its
+    slice in shared memory). A function of V and the dtype alone -- never
+    of the row count or the card -- because the kernel's float sums
+    follow it, and compress and decompress must build the same integers
+    whatever else shares the launch. The slices are multiples of 8, cover
+    V, and none is empty."""
+    clusters = max(1, min(TOPK_MAX_CLUSTERS, -(-V // TOPK_SLICE_MIN)))
+    width = -(-V // clusters)
+    width = -(-width // 8) * 8
+    el = torch.empty((), dtype=dtype).element_size()
+    return clusters, width, width * el <= TOPK_STAGE_BYTES
+
+
 def topk_cdf(logits: torch.Tensor, k: int, precision: int):
     """logits (R, V), rows read through their stride -> (ids (R, k)
     int32, cdf (R, k+2) int32) with cdf[:, 0] == 0 and cdf[:, -1] ==
@@ -133,10 +157,11 @@ def topk_cdf(logits: torch.Tensor, k: int, precision: int):
     ids = torch.empty((R, k), dtype=torch.int32, device=logits.device)
     cdf = torch.empty((R, k + 2), dtype=torch.int32, device=logits.device)
     if R:
+        clusters, width, staged = topk_cdf_geometry(V, logits.dtype)
         rc = build.entry("topk_cdf")(
             logits.data_ptr(), logits.stride(0), _DTYPES[logits.dtype], R,
-            V, k, precision, ids.data_ptr(), cdf.data_ptr(),
-            _stream(logits))
+            V, k, precision, clusters, width, int(staged), ids.data_ptr(),
+            cdf.data_ptr(), _stream(logits))
         _raise_on("topk_cdf", rc)
         LAUNCHES["topk_cdf"] += 1
     return ids, cdf
@@ -167,6 +192,26 @@ def _rows_aligned(t: torch.Tensor) -> bool:
     unit = 16 // t.element_size()
     return t.data_ptr() % 16 == 0 and all(s % unit == 0
                                           for s in t.stride()[:-1])
+
+
+#: q rows (head, position) per warp and per CTA of the bf16 flash kernel
+FLASH_WARP_ROWS = 16
+FLASH_ROWS = 128
+
+
+def flash_geometry(Sq: int, G: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(q-heads per CTA, positions per q tile) of the flash kernel for Sq
+    queries and G q-heads per kv-head. bf16: the largest of 8, 4, 2, 1
+    that divides G shares each K/V tile, and the tile is the tallest
+    that fits FLASH_ROWS rows, but no taller than Sq rounded up to a
+    warp's rows (the probe's S = 32 gets 32-position tiles and half the
+    warps). fp32: one head, 32 positions. A function of the static
+    shapes only: a lane's output never depends on the batch."""
+    if dtype != torch.bfloat16:
+        return 1, 32
+    hg = next(d for d in (8, 4, 2, 1) if G % d == 0)
+    w = FLASH_WARP_ROWS
+    return hg, min(FLASH_ROWS // hg, -(-Sq // w) * w)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -207,12 +252,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B == 0 or Sq == 0 or Sk == 0:
         return out.zero_()
     vec = all(_rows_aligned(t) for t in (q, k, v))
+    hg, bq = flash_geometry(Sq, H // K, q.dtype)
     rc = build.entry("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], B, H, K, Sq, Sk, hd, int(bool(causal)),
         int(window or 0), _DTYPES[q.dtype], 1.0 / math.sqrt(hd), int(vec),
-        _stream(q))
+        hg, bq, _stream(q))
     _raise_on("flash_attention", rc)
     LAUNCHES["flash_attention"] += 1
     return out

@@ -75,6 +75,93 @@ def test_topk_cdf_kernel_vs_plain(cuda, R, V, k, dtype):
     _cdf_ok(cdf.cpu().numpy(), 16)
 
 
+def _topk_check(lg, k, prec=16):
+    ids, cdf = ops.topk_cdf(lg, k, prec)
+    ids_r, cdf_r = ref.topk_cdf(lg, k, prec)
+    assert torch.equal(ids, ids_r)
+    assert (cdf - cdf_r).abs().max().item() <= 1
+    _cdf_ok(cdf.cpu().numpy(), prec)
+    return ids, cdf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("V,padded", [
+    (258, None), (1000, None), (4097, None), (50280, None),
+    (151936, 152064), (258, 258 + 5),
+])
+def test_topk_cdf_ragged_slices(cuda, V, padded, dtype):
+    """V that no slice width divides, rows as views of wider (padded)
+    rows, misaligned row starts (a 263-wide stride)."""
+    full = torch.from_numpy(np.random.default_rng(V).normal(
+        size=(16, padded or V)).astype(np.float32) * 3).to(cuda, _DT[dtype])
+    _topk_check(full[:, :V], 48)
+
+
+@pytest.mark.cuda
+def test_topk_cdf_unstaged_slices(cuda):
+    """A slice too large for shared memory is read from global memory."""
+    V = 500_000
+    assert not ops.topk_cdf_geometry(V, torch.float32)[2]
+    lg = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(3, V)).astype(np.float32)).to(cuda)
+    _topk_check(lg, 48)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("V", [4097, 50280, 151936])
+def test_topk_cdf_threshold_tied_across_slices(cuda, V, dtype):
+    """The k-th value sits in several slices: the smallest ids win."""
+    k = 48
+    _, width, _ = ops.topk_cdf_geometry(V, _DT[dtype])
+    rng = np.random.default_rng(V + 1)
+    lg = rng.uniform(-4, 0, size=(4, V)).astype(np.float32)
+    top = rng.choice(V, k - 3, replace=False)
+    lg[:, top] = 4 + rng.uniform(0, 2, size=(4, k - 3))
+    tied = [width - 1, width + 2, width - 5, 2 * width - 1, width + 40,
+            V - 1]
+    lg[:, [i for i in tied if i < V and i not in top]] = 3.0
+    ids, _ = _topk_check(torch.from_numpy(lg).to(cuda, _DT[dtype]), k)
+    assert (ids[:, -3:].cpu().numpy() < 2 * width).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["all_equal", "rounded", "neg_inf_tail",
+                                  "neg_inf_past_half_k"])
+@pytest.mark.parametrize("V", [258, 50280, 151936])
+def test_topk_cdf_degenerate_rows(cuda, V, case, dtype):
+    k = 48
+    rng = np.random.default_rng(V + 2)
+    lg = rng.normal(size=(4, V)).astype(np.float32)
+    if case == "all_equal":
+        lg[:] = 0.25
+    elif case == "rounded":                 # many keys tie at threshold
+        lg = np.round(lg * 2) / 2
+    elif case == "neg_inf_tail":
+        lg[:, V - k:] = -np.inf
+    else:                                   # -inf must fill the top k
+        lg[:, k // 2:] = -np.inf
+    _topk_check(torch.from_numpy(lg).to(cuda, _DT[dtype]), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("V", [258, 50280, 151936])
+def test_topk_cdf_rows_are_independent(cuda, V, dtype):
+    """Permuting the rows permutes ids and CDFs bit for bit, and a row
+    alone gives what it gives among others."""
+    lg = torch.from_numpy(np.random.default_rng(V + 3).normal(
+        size=(7, V)).astype(np.float32) * 3).to(cuda, _DT[dtype])
+    ids, cdf = ops.topk_cdf(lg, 48, 16)
+    perm = torch.tensor([3, 0, 6, 5, 1, 4, 2], device=cuda)
+    ids2, cdf2 = ops.topk_cdf(lg[perm], 48, 16)
+    assert torch.equal(ids[perm], ids2) and torch.equal(cdf[perm], cdf2)
+    ids3, cdf3 = ops.topk_cdf(lg[5:6].clone(), 48, 16)
+    assert torch.equal(ids3, ids[5:6]) and torch.equal(cdf3, cdf[5:6])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,V,prec,dtype", [
     (4, 256, 16, "float32"), (3, 4096, 18, "float32"),
@@ -138,6 +225,50 @@ def test_flash_attention_kernel_vs_plain(cuda, B, H, K, Sq, Sk, hd, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("S", [32, 128, 160])
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_flash_attention_group_shared_tiles(cuda, G, S, hd):
+    """One CTA per group of G q-heads: G = 1, 2, 4 at the scoring
+    lengths, in the model's layout, causal and under a 64-key window."""
+    q, k, v = _flash_inputs(cuda, 3, 2 * G, 2, S, S, hd, "bfloat16",
+                            "bshd")
+    for window in (None, 64):
+        out = ops.flash_attention(q, k, v, True, window)
+        want = ref.flash_attention(q, k, v, True, window)
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,G", [(32, 2), (128, 2), (160, 2), (128, 1),
+                                 (100, 4)])
+def test_flash_attention_bits_do_not_depend_on_the_tiling(cuda, S, G):
+    """Every launch geometry the kernel accepts gives the same bits: the
+    K/V tiles start at key 0 in steps of 64 whatever the q tile, and a
+    tile masked for a whole warp is skipped exactly."""
+    from repro_torch.kernels import build
+    q, k, v = _flash_inputs(cuda, 2, 2 * G, 2, S, S, 64, "bfloat16",
+                            "bshd")
+    want = ops.flash_attention(q, k, v, True, 48)
+    B, H, Sq, hd = q.shape
+    for hg in (d for d in (1, 2, 4) if G % d == 0):
+        for bq in (16, 32, 64, 128):
+            if hg * bq > ops.FLASH_ROWS:
+                continue
+            out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
+                              device=cuda).transpose(1, 2)
+            rc = build.entry("flash_attention")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *out.stride()[:3], B, H, 2, Sq, Sq, hd, 1, 48, 1,
+                1.0 / hd ** 0.5, 1, hg, bq,
+                torch.cuda.current_stream(cuda).cuda_stream)
+            assert rc == 0
+            assert torch.equal(out, want), (hg, bq)
+
+
+@pytest.mark.cuda
 def test_flash_attention_lanes_are_independent(cuda):
     """A lane's output is bit-identical whatever the other lanes hold."""
     q, k, v = _flash_inputs(cuda, 6, 16, 8, 128, 128, 128, "bfloat16")
@@ -146,6 +277,12 @@ def test_flash_attention_lanes_are_independent(cuda):
     b = ops.flash_attention(q[perm], k[perm], v[perm])
     assert torch.equal(a[perm], b)
     assert torch.equal(ops.flash_attention(q[:2], k[:2], v[:2]), a[:2])
+    for S in (32, 160):                 # the probe's and the prefix's
+        q, k, v = _flash_inputs(cuda, 6, 16, 8, S, S, 128, "bfloat16",
+                                "bshd")
+        a = ops.flash_attention(q, k, v)
+        b = ops.flash_attention(q[perm], k[perm], v[perm])
+        assert torch.equal(a[perm], b)
 
 
 @pytest.mark.cuda
