@@ -17,7 +17,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches, held beside the kernel's own device time) and its bound on
    the card (the larger of bytes over 3.35 TB/s and
    operations over the peak rate of their type: the bf16 tensor rate for
-   bf16 inputs, the fp32 rate for fp32). ``flash_attention`` at full
+   bf16 inputs, the fp32 rate for fp32). ``decode_attention`` at
+   qwen3-1.7b's and ``pred-base``'s decode shapes and at zamba2-7b's
+   attention widths over a 512-position cache (32 heads, G = 1, hd 112;
+   the family that comes next). ``flash_attention`` at full
    width (S = 128), at the router probe's shape (S = 32), with a 32-token
    prefix (S = 160), under a sliding window, and at ``pred-base`` width
    in fp32. ``topk_cdf`` at qwen3-1.7b's, mamba2-130m's and
@@ -67,7 +70,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``{"ok": true, "device": {...}}`` as the last line of stdout.
 
 It exits non-zero, printing no result, without a CUDA device or outside
-a checkout of the repository. Built libraries go to ``build/``.
+a checkout of the repository. Built libraries go to ``build/``. It runs
+with ``PYTHONHASHSEED=0`` (re-executing itself once when that is not
+set), as do the processes it starts: ``data/synthetic.py`` seeds its
+text with ``hash(domain)``, so the jobs' texts, and the container sizes,
+would otherwise move from run to run.
 """
 from __future__ import annotations
 
@@ -127,21 +134,28 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float:
     contains ``kernel``, from ``torch.profiler`` over ``iters`` calls:
     the kernel's own time, without the host's launch overhead that a
     CUDA-event mean of back-to-back calls includes when the host cannot
-    keep the device busy."""
+    keep the device busy. A profiler session that records none of the
+    kernel's launches (seen once in a long run: the launches ran, the
+    trace came back without them) is taken again, up to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and kernel in e.key)
-    if not us > 0:
-        fail(f"the profiler saw no device time of {kernel}")
-    return us / 1e3 / iters
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen = [(e.key, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        us = sum(t for k, t in seen if kernel in k)
+        if us > 0:
+            return us / 1e3 / iters
+        log(f"[profiler] session {attempt + 1} saw no device time of "
+            f"{kernel} (device events: {seen})")
+    fail(f"the profiler saw no device time of {kernel} in three sessions")
 
 
 def library_device_ms(fn, iters: int = 20) -> float:
@@ -381,6 +395,8 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
         ("decode_attention@pred-base", check_attention,
          ((16, PRED_BASE.n_heads, PRED_BASE.padded_kv_heads,
            PRED_BASE.head_dim, S), torch.float32, gen)),
+        ("decode_attention@zamba2-S512", check_attention,
+         ((16, 32, 32, 112, 512), torch.bfloat16, gen)),
         ("topk_cdf", check_topk,
          (16, QWEN.vocab_size, torch.bfloat16, gen, 48, 16,
           QWEN.padded_vocab)),
@@ -950,6 +966,10 @@ def phase_cli() -> None:
 
 
 def main() -> int:
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        # the same synthetic texts in every run and in every child
+        os.execve(sys.executable, [sys.executable, *sys.argv],
+                  {**os.environ, "PYTHONHASHSEED": "0"})
     try:
         import torch
     except ImportError:

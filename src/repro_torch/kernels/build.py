@@ -62,13 +62,13 @@ KERNELS = {
     "decode_attention": (
         "decode_attention.cu", [], "repro_decode_attention",
         [_vp, _ll, _ll, _vp, _vp, _ll, _ll, _ll, _vp, _vp,
-         _i, _i, _i, _i, _i, _i, _f, _vp]),
+         _i, _i, _i, _i, _i, _i, _f, _i, _i, _i, _vp]),
     "topk_cdf": (
         "topk_cdf.cu", ["-fmad=false"], "repro_topk_cdf",
         [_vp, _ll] + [_i] * 8 + [_vp, _vp, _vp]),
     "cdf_points": (
         "cdf_points.cu", ["-fmad=false"], "repro_cdf_points",
-        [_vp, _ll, _i, _i, _i, _i, _vp, _vp]),
+        [_vp, _ll] + [_i] * 6 + [_vp, _vp]),
     "flash_attention": (
         "flash_attention.cu", [], "repro_flash_attention",
         [_vp, _vp, _vp, _vp] + [_ll] * 12

@@ -109,6 +109,66 @@ __device__ __forceinline__ MaxSum block_maxsum(MaxSum v, float* scratch) {
   return out;
 }
 
+// 16-byte asynchronous copy from global into shared memory (`cp.async`;
+// both addresses 16-byte aligned). Completes at `cp_async_wait_all`.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Elements [8c, 8c + 8) of a slice as floats. kStaged: `src` is the
+// slice in shared memory, 16-byte aligned; else it is read element by
+// element, and those at or past n read as -inf (callers mask by index).
+template <typename T, bool kStaged>
+__device__ __forceinline__ void read8(const T* __restrict__ src, int c,
+                                      int n, float (&v)[8]) {
+  if constexpr (kStaged && sizeof(T) == 2) {
+    const uint4 u = reinterpret_cast<const uint4*>(src)[c];
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = __uint_as_float(w[j] << 16);
+      v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  } else if constexpr (kStaged) {
+    const float4 a = reinterpret_cast<const float4*>(src)[2 * c];
+    const float4 b = reinterpret_cast<const float4*>(src)[2 * c + 1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = c * 8 + j;
+      v[j] = i < n ? to_float(src[i]) : -INFINITY;
+    }
+  }
+}
+
+// Thread-block cluster barrier in two halves. Every thread of every CTA
+// of the cluster arrives, then waits; `cluster_arrive` releases this
+// thread's earlier memory operations (shared memory of any CTA of the
+// cluster included) to the threads that pass the matching wait, which
+// acquires them. A CTA must not exit while a peer may still read or
+// write its shared memory: such kernels arrive after their last access
+// to a peer and wait before they return.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // Block-wide exclusive prefix sum of one int per thread (exact).
 // `scratch` holds 33 ints; `total` receives the block sum.
 __device__ __forceinline__ int block_exclusive_scan_int(int v, int* scratch,

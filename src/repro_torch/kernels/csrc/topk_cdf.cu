@@ -83,39 +83,6 @@ __device__ __forceinline__ float key_float(uint32_t key) {
   return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-// Elements [8c, 8c + 8) of the slice as floats; those at or past n are
-// read but never used by the callers (they mask by index).
-template <typename T, bool kStaged>
-__device__ __forceinline__ void read8(const T* __restrict__ src, int c,
-                                      int n, float (&v)[kChunk]) {
-  if constexpr (kStaged && sizeof(T) == 2) {
-    const uint4 u = reinterpret_cast<const uint4*>(src)[c];
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[2 * j] = __uint_as_float(w[j] << 16);
-      v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-    }
-  } else if constexpr (kStaged) {
-    const float4 a = reinterpret_cast<const float4*>(src)[2 * c];
-    const float4 b = reinterpret_cast<const float4*>(src)[2 * c + 1];
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const int i = c * kChunk + j;
-      v[j] = i < n ? repro::to_float(src[i]) : -INFINITY;
-    }
-  }
-}
-
 // The bin holding the rem-th largest key of `hist` (bins counted from the
 // top): sel[0] = bin, sel[1] = keys in the bins above it. Thread t owns
 // bins kBins-1-8t .. kBins-8-8t.
@@ -197,14 +164,6 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return ordered_sum(red, kThreads / 32);
 }
 
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
 template <typename T, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 topk_cdf_kernel(const T* __restrict__ logits, long long row_stride, int V,
@@ -229,7 +188,7 @@ topk_cdf_kernel(const T* __restrict__ logits, long long row_stride, int V,
   cg::cluster_group cluster = cg::this_cluster();
   // every CTA must have started before another writes into its shared
   // memory: arrive now, wait just before the writes
-  cluster_arrive_relaxed();
+  repro::cluster_arrive_relaxed();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int row = blockIdx.x / C;
@@ -247,7 +206,7 @@ topk_cdf_kernel(const T* __restrict__ logits, long long row_stride, int V,
     const bool aligned = (reinterpret_cast<uintptr_t>(gx) & 15u) == 0;
     const int nvec = aligned ? n / kVec : 0;
     for (int i = tid; i < nvec; i += kThreads)
-      cp_async16(sx + i * kVec, gx + i * kVec);
+      repro::cp_async16(sx + i * kVec, gx + i * kVec);
     asm volatile("cp.async.commit_group;\n" ::);
     for (int i = nvec * kVec + tid; i < n; i += kThreads) sx[i] = gx[i];
     asm volatile("cp.async.wait_group 0;\n" ::);
@@ -264,7 +223,7 @@ topk_cdf_kernel(const T* __restrict__ logits, long long row_stride, int V,
   float mx = -INFINITY;
   for (int c = tid; c < nch; c += kThreads) {
     float v[kChunk];
-    read8<T, kStaged>(src, c, n, v);
+    repro::read8<T, kStaged>(src, c, n, v);
 #pragma unroll
     for (int j = 0; j < kChunk; ++j) {
       if (c * kChunk + j < n) {
@@ -295,7 +254,7 @@ topk_cdf_kernel(const T* __restrict__ logits, long long row_stride, int V,
       float acc = 0.0f;
       for (int c = tid; c < nch; c += kThreads) {
         float v[kChunk];
-        read8<T, kStaged>(src, c, n, v);
+        repro::read8<T, kStaged>(src, c, n, v);
 #pragma unroll
         for (int j = 0; j < kChunk; ++j) {
           if (c * kChunk + j >= n) continue;
@@ -327,7 +286,7 @@ topk_cdf_kernel(const T* __restrict__ logits, long long row_stride, int V,
   if (all_eq || n_eq <= kEqCap) {
     for (int c = tid; c < nch; c += kThreads) {
       float v[kChunk];
-      read8<T, kStaged>(src, c, n, v);
+      repro::read8<T, kStaged>(src, c, n, v);
 #pragma unroll
       for (int j = 0; j < kChunk; ++j) {
         const int i = c * kChunk + j;
@@ -358,7 +317,7 @@ topk_cdf_kernel(const T* __restrict__ logits, long long row_stride, int V,
       float v[kChunk];
       uint32_t key[kChunk];
       int mine = 0;
-      if (c < nch) read8<T, kStaged>(src, c, n, v);
+      if (c < nch) repro::read8<T, kStaged>(src, c, n, v);
 #pragma unroll
       for (int j = 0; j < kChunk; ++j) {
         const bool live = c < nch && c * kChunk + j < n;
@@ -382,7 +341,7 @@ topk_cdf_kernel(const T* __restrict__ logits, long long row_stride, int V,
   __syncthreads();
 
   // 4. sort the slice's candidates into CTA 0's list for this slice
-  cluster_wait();
+  repro::cluster_wait();
   const int nc = n_cand;
   uint64_t* dst = cluster.map_shared_rank(all_c, 0) + rank * k;
   for (int t = tid; t < nc; t += kThreads) {

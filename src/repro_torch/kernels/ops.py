@@ -62,6 +62,29 @@ def _raise_on(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: kernel launch failed ({rc}: {msg})")
 
 
+#: positions per tile of the decode kernel (one per lane of a warp)
+DECODE_TILE = 32
+#: CTAs per (kv-head, lane) at most (the portable thread-block cluster size)
+DECODE_MAX_CLUSTERS = 8
+
+
+def decode_geometry(S: int, G: int, hd: int,
+                    dtype: torch.dtype) -> tuple[int, int]:
+    """Launch geometry of the decode-attention kernel for a cache of S
+    allocated positions, G q-heads per kv-head and head width hd:
+    (CTAs per (kv-head, lane), positions per CTA). A function of these
+    static shapes alone -- never of the live lengths or the lane count --
+    because the kernel's softmax sums follow it, and a lane's logits must
+    not depend on what else shares the step. The slices are whole tiles of
+    DECODE_TILE positions, cover S, and none is empty: S = 128 takes 4 CTAs
+    of 32 positions, S = 512 takes 8 of 64. (G, hd and the dtype do not
+    move the split today: every case up to G = 8, hd = 256 in fp32 fits a
+    CTA's shared memory with 32-position tiles.)"""
+    least = -(-S // DECODE_MAX_CLUSTERS)      # positions per CTA, at least
+    per = DECODE_TILE * max(1, -(-least // DECODE_TILE))
+    return -(-S // per), per
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
@@ -94,13 +117,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if H // K > 8 or hd > 256:
         raise ValueError(f"decode_attention: G={H // K} > 8 or hd={hd} > "
                          f"256 not supported by the kernel")
+    if B > 65535:
+        raise ValueError(f"decode_attention: B={B} exceeds the grid")
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    if B == 0 or S == 0:
+        return out.zero_()
+    clusters, per = decode_geometry(S, H // K, hd, q.dtype)
+    vec = all(_rows_aligned(t) for t in (q, k_cache, v_cache))
     rc = build.entry("decode_attention")(
         q.data_ptr(), q.stride(0), q.stride(1),
         k_cache.data_ptr(), v_cache.data_ptr(),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         lengths.data_ptr(), out.data_ptr(), B, H, K, S, hd,
-        _DTYPES[q.dtype], 1.0 / math.sqrt(hd), _stream(q))
+        _DTYPES[q.dtype], 1.0 / math.sqrt(hd), clusters, per, int(vec),
+        _stream(q))
     _raise_on("decode_attention", rc)
     LAUNCHES["decode_attention"] += 1
     return out
@@ -167,6 +197,41 @@ def topk_cdf(logits: torch.Tensor, k: int, precision: int):
     return ids, cdf
 
 
+#: logits per warp row of the full-vocabulary CDF kernel (32 lanes x 4)
+CDF_ROW = 128
+#: logits per CTA below which a row is not split further
+CDF_SLICE_MIN = 4096
+#: CTAs per row at most (the portable thread-block cluster size)
+CDF_MAX_CLUSTERS = 8
+#: a slice whose logits and fp32 running sums fit here is staged in
+#: shared memory (csrc/cdf_points.cu kStageLimit); a larger one is read
+#: from global memory on every pass
+CDF_STAGE_BYTES = 192 * 1024
+
+
+def cdf_points_geometry(V: int, dtype: torch.dtype) -> tuple[int, int]:
+    """Launch geometry of the full-vocabulary CDF kernel for rows of V
+    logits of ``dtype``: (CTAs per row, logits per CTA). A function of V
+    and the dtype alone -- never of the row count or the card -- because
+    the kernel's prefix sums follow it, and compress and decompress must
+    build the same integers whatever else shares the launch. The slices
+    are multiples of CDF_ROW, cover V, and none is empty. (The dtype does
+    not move the split today; it decides, with the width, whether a slice
+    is staged in shared memory: ``cdf_points_staged``.)"""
+    clusters = max(1, min(CDF_MAX_CLUSTERS, -(-V // CDF_SLICE_MIN)))
+    width = -(-V // clusters)
+    width = -(-width // CDF_ROW) * CDF_ROW
+    return -(-V // width), width
+
+
+def cdf_points_staged(V: int, dtype: torch.dtype) -> bool:
+    """Whether the CDF kernel stages a slice (its logits and their fp32
+    running sums) in shared memory, as the C entry point decides it."""
+    _, width = cdf_points_geometry(V, dtype)
+    el = torch.empty((), dtype=dtype).element_size()
+    return (el + 4) * width <= CDF_STAGE_BYTES
+
+
 def cdf_points(logits: torch.Tensor, precision: int) -> torch.Tensor:
     """logits (R, V), rows read through their stride -> int32 CDF
     interior points (R, V): strictly increasing, last == 2**precision."""
@@ -179,9 +244,10 @@ def cdf_points(logits: torch.Tensor, precision: int) -> torch.Tensor:
                          f"V={V} (and the kernel takes <= 24)")
     out = torch.empty((R, V), dtype=torch.int32, device=logits.device)
     if R:
+        clusters, width = cdf_points_geometry(V, logits.dtype)
         rc = build.entry("cdf_points")(
             logits.data_ptr(), logits.stride(0), _DTYPES[logits.dtype], R,
-            V, precision, out.data_ptr(), _stream(logits))
+            V, precision, clusters, width, out.data_ptr(), _stream(logits))
         _raise_on("cdf_points", rc)
         LAUNCHES["cdf_points"] += 1
     return out

@@ -383,3 +383,153 @@ def test_ssd_intra_wrapper_refuses(cuda, bad):
                         dtype=dt_).transpose(2, 3)
     with pytest.raises(ValueError):
         ops.ssd_intra(x, dt, A, Bm, Bm.clone())
+
+
+# The cluster kernels of cdf_points and decode_attention (rows split over
+# ops.cdf_points_geometry, cache positions over ops.decode_geometry).
+
+def _cdf_points_check(lg, prec):
+    pts = ops.cdf_points(lg, prec)
+    want = ref.cdf_points(lg, prec)
+    assert (pts - want).abs().max().item() <= 1
+    p = pts.cpu().numpy()
+    assert (np.diff(p, axis=-1) >= 1).all() and (p[:, 0] >= 1).all()
+    assert (p[:, -1] == 1 << prec).all()
+    return pts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["normal", "misaligned", "neg_inf_tail",
+                                  "all_equal"])
+@pytest.mark.parametrize("V", [258, 4097, 50280, 151936])
+def test_cdf_points_cluster_rows(cuda, V, case, dtype):
+    """Slices no 128-row divides, misaligned row starts (a V + 5 stride:
+    263 at pred-base's 258), a -inf tail, all-equal logits."""
+    prec = 18 if V > 65000 else 16
+    rng = np.random.default_rng(V + 11)
+    lg = rng.normal(size=(16, V + 5)).astype(np.float32) * 3
+    if case == "neg_inf_tail":
+        lg[:, V - V // 3:] = -np.inf
+    elif case == "all_equal":
+        lg[:] = 0.25
+    full = torch.from_numpy(lg).to(cuda, _DT[dtype])
+    x = full[:, :V] if case == "misaligned" else full[:, :V].contiguous()
+    _cdf_points_check(x, prec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("V", [258, 50280, 151936])
+def test_cdf_points_rows_are_independent(cuda, V, dtype):
+    """Permuting the rows permutes the points bit for bit, and a row
+    alone gives what it gives among others."""
+    prec = 18 if V > 65000 else 16
+    lg = torch.from_numpy(np.random.default_rng(V + 12).normal(
+        size=(7, V)).astype(np.float32) * 3).to(cuda, _DT[dtype])
+    pts = ops.cdf_points(lg, prec)
+    perm = torch.tensor([3, 0, 6, 5, 1, 4, 2], device=cuda)
+    assert torch.equal(ops.cdf_points(lg[perm], prec), pts[perm])
+    assert torch.equal(ops.cdf_points(lg[5:6].clone(), prec), pts[5:6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cdf_points_unstaged_slices(cuda, dtype):
+    """A slice too large for shared memory is read from global memory,
+    its running sums kept in the output row."""
+    V = 500_000
+    assert not ops.cdf_points_staged(V, _DT[dtype])
+    lg = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(3, V)).astype(np.float32) * 3).to(cuda, _DT[dtype])
+    _cdf_points_check(lg, 20)
+
+
+def _decode_inputs(cuda, B, H, K, S, hd, dtype, seed):
+    rng = np.random.default_rng(seed)
+    t = lambda shape: torch.from_numpy(rng.normal(size=shape).astype(  # noqa
+        np.float32)).to(device=cuda, dtype=_DT[dtype])
+    lens = torch.from_numpy(rng.integers(1, S + 1, B).astype(
+        np.int32)).to(cuda)
+    return t((B, H, hd)), t((B, S, K, hd)), t((B, S, K, hd)), lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,K,S,hd", [(16, 16, 8, 128, 128),
+                                         (16, 8, 4, 128, 32),
+                                         (4, 8, 8, 512, 112)])
+def test_decode_attention_lanes_are_independent(cuda, B, H, K, S, hd,
+                                                dtype):
+    """A lane's output is bit-identical whatever the other lanes hold,
+    whatever their lengths, and whatever the lane count."""
+    q, kc, vc, lens = _decode_inputs(cuda, B, H, K, S, hd, dtype, S + hd)
+    a = ops.decode_attention(q, kc, vc, lens)
+    perm = torch.roll(torch.arange(B, device=cuda), 3)
+    assert torch.equal(ops.decode_attention(q[perm], kc[perm], vc[perm],
+                                            lens[perm]), a[perm])
+    other = lens.clone()
+    other[1:] = torch.flip(lens[1:], (0,)) % S + 1
+    assert torch.equal(ops.decode_attention(q, kc, vc, other)[0], a[0])
+    assert torch.equal(ops.decode_attention(q[:3], kc[:3], vc[:3],
+                                            lens[:3]), a[:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,hd", [(128, 128), (512, 112), (161, 64)])
+def test_decode_attention_masked_slices(cuda, S, hd, dtype):
+    """Lengths that leave whole slices of the cluster without a live
+    position (1, one slice, one slice and one position, ...), and a lane
+    of length 0, which gives 0 as before."""
+    _, per = ops.decode_geometry(S, 2, hd, _DT[dtype])
+    q, kc, vc, _ = _decode_inputs(cuda, 8, 4, 2, S, hd, dtype, S)
+    lens = torch.tensor([1, per - 1, per, per + 1, 2 * per, S - 1, S, 0],
+                        dtype=torch.int32, device=cuda)
+    out = ops.decode_attention(q, kc, vc, lens)
+    want = ref.decode_attention(q, kc, vc, lens)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(out[:7].float().cpu().numpy(),
+                               want[:7].float().cpu().numpy(), atol=tol)
+    assert torch.equal(out[7], torch.zeros_like(out[7]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [128, 512])
+@pytest.mark.parametrize("hd", [112, 120])
+@pytest.mark.parametrize("G", [1, 8])
+def test_decode_attention_widths_groups_and_caches(cuda, G, hd, S, dtype):
+    """hd 112 and 120 (zamba2's and danube's widths), G = 1 and 8, a
+    512-position cache; against the plain version."""
+    K = 2
+    q, kc, vc, lens = _decode_inputs(cuda, 5, G * K, K, S, hd, dtype,
+                                     G + hd + S)
+    out = ops.decode_attention(q, kc, vc, lens)
+    want = ref.decode_attention(q, kc, vc, lens)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,hd,S", [(2, 128, 128), (1, 112, 512),
+                                     (2, 32, 128)])
+def test_decode_attention_misaligned_rows(cuda, G, hd, S, dtype):
+    """q and cache rows that do not start on 16 bytes (views of hd + 1
+    wide rows) take the kernel's scalar copies."""
+    K, B = 2, 5
+    rng = np.random.default_rng(G + hd + S + 1)
+    t = lambda shape: torch.from_numpy(rng.normal(size=shape).astype(  # noqa
+        np.float32)).to(device=cuda, dtype=_DT[dtype])[..., :hd]
+    q, kc, vc = t((B, G * K, hd + 1)), t((B, S, K, hd + 1)), \
+        t((B, S, K, hd + 1))
+    assert not ops._rows_aligned(kc)
+    lens = torch.from_numpy(rng.integers(1, S + 1, B).astype(
+        np.int32)).to(cuda)
+    out = ops.decode_attention(q, kc, vc, lens)
+    want = ref.decode_attention(q, kc, vc, lens)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol)

@@ -189,3 +189,300 @@ def test_wrappers_take_the_plain_version_on_the_cpu(dtype):
         assert torch.equal(ops.flash_attention(q, k, v, True, window),
                            ref.flash_attention(q, k, v, True, window))
     assert all(n == 0 for n in ops.LAUNCHES.values())
+
+
+# ------------------------------------------------ cdf_points, decode_attention
+#
+# The full-vocabulary CDF kernel and the decode-attention kernel split
+# their work by ``ops.cdf_points_geometry(V, dtype)`` and
+# ``ops.decode_geometry(S, G, hd, dtype)``. Below: the same rules as for
+# top-k and flash, and plain-PyTorch replays of each kernel's split and
+# combine, held against the plain versions.
+
+DECODE_CACHES = [1, 16, 31, 32, 33, 96, 128, 129, 160, 161, 256, 257, 512,
+                 513, 1024, 4096]
+
+
+def test_cdf_and_decode_geometry_take_only_static_shapes():
+    assert list(inspect.signature(ops.cdf_points_geometry).parameters) == [
+        "V", "dtype"]
+    assert list(inspect.signature(ops.decode_geometry).parameters) == [
+        "S", "G", "hd", "dtype"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", VOCABS)
+def test_cdf_geometry_slices_cover_the_row(V, dtype):
+    clusters, width = ops.cdf_points_geometry(V, dtype)
+    assert 1 <= clusters <= ops.CDF_MAX_CLUSTERS
+    assert width % ops.CDF_ROW == 0
+    assert clusters * width >= V > (clusters - 1) * width   # none empty
+    el = torch.empty((), dtype=dtype).element_size()
+    assert ops.cdf_points_staged(V, dtype) == (
+        (el + 4) * width <= ops.CDF_STAGE_BYTES)
+
+
+def test_cdf_geometry_at_the_configs_vocabularies():
+    """pred-base's 258 stays in one CTA; qwen3-1.7b's 151,936 takes a
+    cluster of 8 (16 rows: 128 CTAs), staged in shared memory."""
+    assert ops.cdf_points_geometry(258, torch.float32) == (1, 384)
+    assert ops.cdf_points_geometry(151936, torch.bfloat16) == (8, 19072)
+    assert ops.cdf_points_geometry(50280, torch.bfloat16) == (8, 6400)
+    assert ops.cdf_points_staged(151936, torch.bfloat16)
+    assert not ops.cdf_points_staged(500000, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,hd", [(1, 112), (2, 32), (2, 128), (8, 256)])
+@pytest.mark.parametrize("S", DECODE_CACHES)
+def test_decode_geometry_slices_cover_the_cache(S, G, hd, dtype):
+    clusters, per = ops.decode_geometry(S, G, hd, dtype)
+    assert 1 <= clusters <= ops.DECODE_MAX_CLUSTERS
+    assert per % ops.DECODE_TILE == 0
+    assert clusters * per >= S > (clusters - 1) * per        # none empty
+
+
+def test_decode_geometry_at_the_configs_shapes():
+    """qwen3-1.7b's chunk-128 cache: 4 CTAs of 32 positions; the scoring
+    comparison's 161; a 512-position cache: 8 of 64."""
+    bf = torch.bfloat16
+    assert ops.decode_geometry(128, 2, 128, bf) == (4, 32)
+    assert ops.decode_geometry(128, 2, 32, torch.float32) == (4, 32)
+    assert ops.decode_geometry(161, 2, 128, bf) == (6, 32)
+    assert ops.decode_geometry(512, 1, 112, bf) == (8, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", [258, 4097, 50280, 151936])
+def test_cdf_launch_geometry_ignores_the_row_count(launches, V, dtype):
+    n0 = ops.LAUNCHES["cdf_points"]
+    for R in (1, 7, 16, 64):
+        ops.cdf_points(torch.empty((R, V), dtype=dtype, device="meta"), 18)
+    assert ops.LAUNCHES["cdf_points"] == n0 + 4
+    assert [c[3] for c in launches.calls] == [1, 7, 16, 64]
+    assert {c[6:8] for c in launches.calls} == {
+        ops.cdf_points_geometry(V, dtype)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,K,hd", [(128, 16, 8, 128), (128, 8, 4, 32),
+                                      (161, 16, 8, 128), (512, 8, 8, 112)])
+def test_decode_launch_geometry_ignores_lanes_and_lengths(launches, S, H, K,
+                                                          hd, dtype):
+    """The wrapper never reads the lengths, and the split it passes on
+    is the same for every lane count."""
+    for B in (1, 3, 16):
+        q = torch.empty((B, H, hd), dtype=dtype, device="meta")
+        kc = torch.empty((B, S, K, hd), dtype=dtype, device="meta")
+        lens = torch.empty((B,), dtype=torch.int32, device="meta")
+        ops.decode_attention(q, kc, kc.clone(), lens)
+    assert [c[10] for c in launches.calls] == [1, 3, 16]
+    assert {c[17:19] for c in launches.calls} == {
+        ops.decode_geometry(S, H // K, hd, dtype)}
+
+
+def _lane_scan(x):
+    """Inclusive sum over the last axis (32 lanes) in the order of the
+    kernels' shuffle scan: at step d, lane l adds lane l - d's value."""
+    for d in (1, 2, 4, 8, 16):
+        y = torch.nn.functional.pad(x[..., :-d], (d, 0))
+        lane = torch.arange(x.shape[-1], device=x.device)
+        x = torch.where(lane >= d, y + x, x)
+    return x
+
+
+def _shift(x, fill):
+    return torch.cat([torch.full_like(x[..., :1], fill), x[..., :-1]], -1)
+
+
+def _cdf_replay(logits, precision):
+    """The full-vocabulary CDF kernel's arithmetic in plain PyTorch:
+    float32, every operation rounded on its own, in the kernel's order --
+    slices of ``cdf_points_geometry``, 128-element rows of 32 lanes x 4,
+    contiguous runs of rows per warp (16 warps), lane and warp offsets
+    by the shuffle scan, slice offsets chained by the same scan over
+    ranks; each prefix floored by the largest prefix before it and
+    normalised by the row's largest. On the card (the same expf) it
+    gives the kernel's integers bit for bit."""
+    x = logits.float()
+    R, V = x.shape
+    dev = x.device
+    C, width = ops.cdf_points_geometry(V, logits.dtype)
+    M = x.max(dim=-1, keepdim=True).values
+    e = torch.where(x > -np.inf, torch.exp(x - M), torch.zeros_like(x))
+    ninf = torch.tensor(-np.inf, device=dev)
+    u_local, tot, best = [], [], []
+    for r in range(C):
+        n = min(V, r * width + width) - r * width
+        nrow = -(-n // 128)
+        rpw = -(-nrow // 16)
+        es = torch.nn.functional.pad(e[:, r * width:r * width + n],
+                                     (0, nrow * 128 - n))
+        es = es.reshape(R, nrow, 32, 4)
+        a = [es[..., 0]]
+        for k in range(1, 4):
+            a.append(a[-1] + es[..., k])
+        a = torch.stack(a, -1)
+        incl = _lane_scan(a[..., 3])
+        part = _shift(incl, 0.0)[..., None] + a          # (R, nrow, 32, 4)
+        live = (torch.arange(nrow * 128, device=dev) < n).reshape(nrow, 32,
+                                                                  4)
+        v = torch.empty_like(part)
+        wtot = torch.zeros(R, 32, device=dev)
+        wmax = torch.full((R, 32), -np.inf, device=dev)
+        for w in range(16):
+            carry = torch.zeros(R, 1, 1, device=dev)
+            for row in range(w * rpw, min(nrow, (w + 1) * rpw)):
+                v[:, row] = carry + part[:, row]
+                carry = carry + incl[:, row, 31][:, None, None]
+                m = torch.where(live[row], v[:, row], ninf).amax((1, 2))
+                wmax[:, w] = torch.maximum(wmax[:, w], m)
+            wtot[:, w] = carry[:, 0, 0]
+        winc = _lane_scan(wtot)
+        wofs = _shift(winc, 0.0)
+        best.append(torch.where(wmax > -np.inf, wofs + wmax, ninf)
+                    .amax(-1))
+        tot.append(winc[:, 31])
+        rows = torch.arange(nrow, device=dev)
+        u = wofs[:, torch.clamp(rows // rpw, max=15)][:, :, None, None] + v
+        u_local.append(u.reshape(R, -1)[:, :n])
+    tq = torch.nn.functional.pad(torch.stack(tot, -1), (0, 32 - C))
+    ofs = _shift(_lane_scan(tq), 0.0)[:, :C]
+    big = ofs + torch.stack(best, -1)
+    total = big.amax(-1, keepdim=True)
+    u = torch.cat([ofs[:, r:r + 1] + u_local[r] for r in range(C)], -1)
+    c = torch.cummax(u, dim=-1).values / total
+    budget = (1 << precision) - V
+    pts = torch.floor(c * float(budget) + 0.5).to(torch.int32) \
+        + torch.arange(1, V + 1, dtype=torch.int32, device=dev)
+    pts[:, -1] = budget + V
+    return pts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["normal", "neg_inf_tail", "all_equal"])
+@pytest.mark.parametrize("V,prec", [(258, 16), (4097, 16), (50280, 16),
+                                    (151936, 18)])
+def test_cdf_replay_of_the_cluster_split_matches_the_plain_version(
+        V, prec, case, dtype):
+    """Segmented sums, slice offsets in rank order, the floor across
+    slice edges and the normalisation give the plain version's points
+    within one quantum, and every invariant exactly."""
+    x = np.random.default_rng(V + 7).normal(size=(3, V)).astype(
+        np.float32) * 3
+    if case == "neg_inf_tail":
+        x[:, V - V // 3:] = -np.inf
+    elif case == "all_equal":
+        x[:] = 0.25
+    t = torch.from_numpy(x).to(dtype)
+    pts = _cdf_replay(t, prec)
+    want = ref.cdf_points(t, prec)
+    assert (pts - want).abs().max().item() <= 1
+    assert (pts.diff(dim=-1) >= 1).all()
+    assert (pts[:, 0] >= 1).all() and (pts[:, -1] == 1 << prec).all()
+
+
+def _decode_replay(q, kc, vc, lengths):
+    """The decode kernel's split and combine in plain PyTorch: each slice
+    of ``decode_geometry`` runs an online softmax over its tiles of 32
+    positions that hold a live position, from m = -inf, l = 0, acc = 0;
+    the slices' states are merged in rank order with weights
+    exp(m_r - M) (0 for a slice with no live position)."""
+    B, H, hd = q.shape
+    S, K = kc.shape[1], kc.shape[2]
+    G = H // K
+    C, per = ops.decode_geometry(S, G, hd, q.dtype)
+    scale = float(np.float32(1.0 / np.sqrt(hd)))
+    qf = q.float().reshape(B, K, G, hd)
+    kf, vf = kc.float(), vc.float()
+    lens = lengths.long().clamp(max=S)
+    states = []
+    for r in range(C):
+        m = torch.full((B, K, G), -np.inf)
+        l = torch.zeros(B, K, G)
+        acc = torch.zeros(B, K, G, hd)
+        for t0 in range(r * per, min(S, (r + 1) * per), ops.DECODE_TILE):
+            pos = torch.arange(t0, min(S, t0 + ops.DECODE_TILE,
+                                       (r + 1) * per))
+            live = pos[None, :] < lens[:, None]                  # (B, n)
+            upd = live.any(-1)[:, None, None]
+            s = torch.einsum("bkgd,bnkd->bkgn", qf, kf[:, pos]) * scale
+            s = torch.where(live[:, None, None, :], s,
+                            torch.tensor(-np.inf))
+            m_new = torch.maximum(m, s.amax(-1))
+            m_new = torch.where(upd, m_new, m)
+            alpha = torch.where(upd, torch.exp(m - m_new), torch.ones(()))
+            p = torch.where(live[:, None, None, :],
+                            torch.exp(s - m_new[..., None]),
+                            torch.zeros(()))
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgn,bnkd->bkgd", p, vf[:, pos])
+            m = m_new
+        states.append((m, l, acc))
+    M = torch.stack([s[0] for s in states]).amax(0)
+    L = torch.zeros(B, K, G)
+    O = torch.zeros(B, K, G, hd)
+    for m, l, acc in states:
+        a = torch.where(m == -np.inf, torch.zeros(()), torch.exp(m - M))
+        L = L + l * a
+        O = O + acc * a[..., None]
+    return (O / L.clamp(min=1e-30)[..., None]).reshape(B, H, hd)
+
+
+@pytest.mark.parametrize("B,H,K,S,hd", [(16, 16, 8, 128, 128),
+                                         (16, 8, 4, 128, 32),
+                                         (4, 8, 8, 512, 112),
+                                         (3, 16, 2, 161, 64)])
+def test_decode_replay_of_the_cluster_split_matches_the_plain_version(
+        B, H, K, S, hd):
+    """Per-slice softmax states merged in rank order give the plain
+    version's output (fp32, atol 2e-5), lanes whose length leaves whole
+    slices empty included; a lane of length 0 gives 0."""
+    rng = np.random.default_rng(S + hd)
+    t = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32))
+    q, kc, vc = t((B, H, hd)), t((B, S, K, hd)), t((B, S, K, hd))
+    _, per = ops.decode_geometry(S, H // K, hd, torch.float32)
+    lens = rng.integers(1, S + 1, B)
+    lens[:4] = [1, per, per + 1, S][:B]       # slices left empty
+    lens = torch.from_numpy(lens.astype(np.int32))
+    got = _decode_replay(q, kc, vc, lens)
+    want = ref.decode_attention(q, kc, vc, lens)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5)
+    zero = _decode_replay(q[:1], kc[:1], vc[:1],
+                          torch.zeros(1, dtype=torch.int32))
+    assert torch.equal(zero, torch.zeros_like(zero))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cdf_and_decode_wrappers_take_the_plain_version_on_the_cpu(dtype):
+    rng = np.random.default_rng(1)
+    lg = torch.from_numpy(rng.normal(size=(4, 1000)).astype(
+        np.float32)).to(dtype)
+    q, kc, vc = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                 .to(dtype) for s in ((3, 4, 64), (3, 40, 2, 64),
+                                      (3, 40, 2, 64)))
+    lens = torch.tensor([1, 17, 40], dtype=torch.int32)
+    ops.reset_launches()
+    assert torch.equal(ops.cdf_points(lg, 16), ref.cdf_points(lg, 16))
+    assert torch.equal(ops.decode_attention(q, kc, vc, lens),
+                       ref.decode_attention(q, kc, vc, lens))
+    assert all(n == 0 for n in ops.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V,prec,padded", [(258, 16, 263), (4097, 16, None),
+                                           (50280, 16, None),
+                                           (151936, 18, 152064)])
+def test_cdf_kernel_is_its_replay_bit_for_bit(V, prec, padded, dtype):
+    """On the card the replay above, run by PyTorch's own kernels, gives
+    the cluster kernel's integers exactly: it describes the kernel's
+    order of operations, not only its tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel vs its replay)")
+    x = np.random.default_rng(V).normal(size=(5, padded or V)).astype(
+        np.float32) * 3
+    t = torch.from_numpy(x).to("cuda").to(dtype)[:, :V]
+    assert torch.equal(ops.cdf_points(t, prec), _cdf_replay(t, prec))
