@@ -53,7 +53,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    probe), decompressed by another service run in the other order, byte
    identity required; the per-codec decisions and the probe's time.
 6. ``--topk 0`` (full-vocabulary CDF kernel) round trip at ``pred-base``
-   width, counts read the same way.
+   width, counts read the same way. Then a ``pred-base`` top-k archive
+   decoded under another seed's weights through ``LLMCompressor`` and
+   ``CompressionService``: ``ContainerError`` from both, and the same
+   CUDA context decodes it under the writer's weights byte for byte.
 7. ``python -m repro_torch.cli compress`` / ``decompress`` on a small
    file, plain and with ``--route auto``, and byte comparisons.
 8. Phase 3 again for ``mamba2-130m`` (the ssm family at full width: 24
@@ -136,7 +139,10 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float:
     CUDA-event mean of back-to-back calls includes when the host cannot
     keep the device busy. A profiler session that records none of the
     kernel's launches (seen once in a long run: the launches ran, the
-    trace came back without them) is taken again, up to three times."""
+    trace came back without them) is taken again, up to three times. For
+    a named kernel (one launch per call) the mean is over the launches
+    the session recorded, so a trace that lost some of them does not
+    read low; the loss is logged."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -147,12 +153,18 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        seen = [(e.key, e.self_device_time_total)
+        seen = [(e.key, e.self_device_time_total, e.count)
                 for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
-        us = sum(t for k, t in seen if kernel in k)
+        us = sum(t for k, t, _ in seen if kernel in k)
         if us > 0:
-            return us / 1e3 / iters
+            if not kernel:
+                return us / 1e3 / iters
+            n = sum(c for k, _, c in seen if kernel in k)
+            if n != iters:
+                log(f"[profiler] recorded {n} of {iters} launches of "
+                    f"{kernel}")
+            return us / 1e3 / n
         log(f"[profiler] session {attempt + 1} saw no device time of "
             f"{kernel} (device events: {seen})")
     fail(f"the profiler saw no device time of {kernel} in three sessions")
@@ -928,6 +940,52 @@ def phase_full_cdf() -> dict:
     return dict(launches=launches)
 
 
+def phase_mismatch() -> dict:
+    """A pred-base top-k archive decoded under another seed's weights:
+    ``LLMCompressor`` and ``CompressionService`` raise ``ContainerError``
+    (an escape id past the vocabulary is caught on the host, before the
+    embedding gather would assert on the card), and the CUDA context
+    then decodes the archive under the right weights byte for byte."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_predictors import PRED_BASE
+    from repro_torch.core import LLMCompressor
+    from repro_torch.core.compressor import ContainerError
+    from repro_torch.serve.engine import ModelPredictor
+    from repro_torch.service import CompressionService
+    # 16 chunks: the archive records 16 lanes, the services' slot count
+    toks = np.random.default_rng(7).integers(0, 256, 2048).astype(np.int32)
+    kw = dict(chunk_size=128, topk=48)
+    writer = ModelPredictor.random_init(PRED_BASE, seed=0, device="cuda")
+    other = ModelPredictor.random_init(PRED_BASE, seed=1, device="cuda")
+    blob, _ = LLMCompressor(writer, decode_batch=16, container_version=4,
+                            **kw).compress(toks)
+    errors = {}
+    for what, run in (
+            ("LLMCompressor", lambda: LLMCompressor(
+                other, decode_batch=16, **kw).decompress(blob)),
+            ("CompressionService", lambda: CompressionService(
+                other, slots=16, **kw).submit_decompress(blob).result())):
+        try:
+            run()
+        except ContainerError as e:
+            errors[what] = str(e)
+        else:
+            fail(f"{what} decoded a top-k archive under other weights "
+                 f"without ContainerError")
+    torch.cuda.synchronize()        # a device-side assert would show here
+    back = CompressionService(writer, slots=16, **kw).submit_decompress(
+        blob).result()
+    torch.cuda.synchronize()
+    if not np.array_equal(back, toks):
+        fail("the right weights failed to decode after a mismatched one")
+    for what, msg in errors.items():
+        log(f"[mismatch] {what}: ContainerError: {msg}")
+    log("[mismatch] the CUDA context then decoded the archive under the "
+        "writer's weights byte for byte")
+    return errors
+
+
 # ----------------------------------------------------------- phase 7
 def phase_cli() -> None:
     import numpy as np
@@ -1020,6 +1078,7 @@ def main() -> int:
     del pred
     torch.cuda.empty_cache()
     full = phase_full_cdf()
+    phase_mismatch()
     phase_cli()
     phase_service("mamba2-130m")
     pred = ModelPredictor.random_init(get_config("mamba2-130m"), seed=0,

@@ -112,7 +112,9 @@ def full_cdf_lookup(logits, slots, precision: int = DEFAULT_PRECISION):
     pts = ops.cdf_points(x, precision)                      # (R, V)
     s = as_tensor(slots).to(device=pts.device, dtype=torch.int32)
     s = s.reshape(-1, 1).contiguous()
-    syms = torch.searchsorted(pts, s, right=True)[:, 0]
+    # as in topk_cdf_lookup: a slot >= 2**precision would index pts[V]
+    syms = torch.searchsorted(pts, s, right=True)[:, 0].clamp_(
+        max=pts.shape[1] - 1)
     ends = torch.gather(pts, 1, syms[:, None])[:, 0]
     starts = torch.gather(pts, 1, (syms - 1).clamp(min=0)[:, None])[:, 0]
     starts = torch.where(syms > 0, starts, torch.zeros_like(starts))
@@ -150,7 +152,11 @@ def topk_cdf_lookup(logits, slots, k: int,
     are that symbol's interval."""
     ids, cdf = topk_cdf(logits, k, precision)
     s = as_tensor(slots).to(device=cdf.device, dtype=torch.int32)
-    syms = (cdf[..., 1:] <= s[..., None]).sum(dim=-1)
+    # a slot at or above cdf[-1] == 2**precision would count k + 1 and
+    # gather cdf[k + 2], past the row (a device-side assert on the card);
+    # the decoder's peeked slots are below 2**precision, so the clamp
+    # never binds for them, and it costs no host sync
+    syms = (cdf[..., 1:] <= s[..., None]).sum(dim=-1).clamp_(max=k)
     starts = torch.gather(cdf, -1, syms[..., None])[..., 0]
     ends = torch.gather(cdf, -1, syms[..., None] + 1)[..., 0]
     return ids, cdf, syms, starts, ends - starts

@@ -183,6 +183,31 @@ class ContainerError(ValueError):
     truncated blob."""
 
 
+def escape_error(chunk: int, token_id: int, vocab: int) -> ContainerError:
+    """The error of an escape that decoded to ``token_id`` >= ``vocab``:
+    the rANS escape codes a token id uniformly over 2**uniform_bits(V)
+    values, so a stream decoded under other weights or another kernel
+    version than its encoder's can land on an id that is no token. It is
+    caught on the host, before the id reaches the next step's embedding
+    gather (on the card an out-of-range gather is a device-side assert
+    that poisons the process's CUDA context)."""
+    return ContainerError(
+        f"chunk {chunk}: an escape decoded to token id {token_id}, outside "
+        f"the model's vocabulary of {vocab} -- the archive was most likely "
+        f"written with another model (weights, seed) or another kernel "
+        f"version than this decoder's")
+
+
+class _BadEscape(Exception):
+    """Raised inside a decode group: lane ``lane`` decoded escape id
+    ``token_id`` >= V. ``_decode_group`` turns it into ``escape_error``
+    naming the lane's chunk."""
+
+    def __init__(self, lane: int, token_id: int):
+        super().__init__(lane, token_id)
+        self.lane, self.token_id = lane, token_id
+
+
 class PredictorAdapter(Protocol):
     """What the compressor needs from a model. See serve/engine.py for the
     production implementation over the model zoo."""
@@ -1616,7 +1641,8 @@ class LLMCompressor:
                 toks = self._decode_group(group, v, info.codec,
                                           chunk_offset=sel[0][1],
                                           ctx=ctx, ctx_len=ctx_len,
-                                          budget=info.ctx_budget)
+                                          budget=info.ctx_budget,
+                                          lane_chunks=dict(sel))
                 for lane, j in sel:
                     decoded[j] = toks[lane, :entries[j].n_tokens].copy()
         return decoded
@@ -1668,7 +1694,8 @@ class LLMCompressor:
                 v[:len(sel)] = [info.entries[j].n_tokens for j in sel]
                 toks = self._decode_group(group, v, info.codec,
                                           chunk_offset=sel[0],
-                                          budget=info.ctx_budget)
+                                          budget=info.ctx_budget,
+                                          lane_chunks=sel)
                 for k, j in enumerate(sel):
                     nt = info.entries[j].n_tokens
                     out[j * C:j * C + nt] = toks[k, :nt]
@@ -1727,7 +1754,8 @@ class LLMCompressor:
                 group[j - g_lo] = s
                 v[j - g_lo] = e.n_tokens
             toks = self._decode_group(group, v, info.codec,
-                                      budget=info.ctx_budget)
+                                      budget=info.ctx_budget,
+                                      lane_chunks=range(g_lo, g_lo + B))
             for j in range(sel_lo, sel_hi):
                 b = j - g_lo
                 out[total:total + int(v[b])] = toks[b, :int(v[b])]
@@ -1787,7 +1815,8 @@ class LLMCompressor:
             v[:len(grp)] = [info.entries[j].n_tokens for j, _ in grp]
             toks = self._decode_group(group, v, info.codec,
                                       chunk_offset=grp[0][0],
-                                      budget=info.ctx_budget)
+                                      budget=info.ctx_budget,
+                                      lane_chunks=[j for j, _ in grp])
             for k, (j, _) in enumerate(grp):
                 toks_by_chunk[j] = toks[k, :info.entries[j].n_tokens]
         total = 0
@@ -1802,21 +1831,40 @@ class LLMCompressor:
     # the continuous-batching scheduler's drain path.
     def _decode_group(self, streams, valid: np.ndarray, codec: int,
                       chunk_offset: int = 0, ctx=None, ctx_len=None,
-                      budget: int = 0):
-        with obs.span("decode.group", self._registry):
-            if codec == CODEC_RANS:
-                if ctx is None and self.draft_k > 0 \
-                        and hasattr(self.predictor, "verify_steps"):
-                    # speculative decode stays context-free: a lane's
-                    # draft/verify frontier and its context prefill don't
-                    # compose, so recipe groups take the lock-step path
-                    return self._decode_group_rans_spec(streams, valid,
-                                                        chunk_offset,
-                                                        budget)
-                return self._decode_group_rans(streams, valid, ctx,
-                                               ctx_len, budget)
-            return self._decode_group_ac(streams, valid, ctx, ctx_len,
-                                         budget)
+                      budget: int = 0, lane_chunks=None):
+        """``lane_chunks[lane]`` names the chunk a lane decodes (default
+        ``chunk_offset + lane``), for the error of an escape outside the
+        vocabulary."""
+        try:
+            with obs.span("decode.group", self._registry):
+                if codec == CODEC_RANS:
+                    if ctx is None and self.draft_k > 0 \
+                            and hasattr(self.predictor, "verify_steps"):
+                        # speculative decode stays context-free: a lane's
+                        # draft/verify frontier and its context prefill
+                        # don't compose, so recipe groups take the
+                        # lock-step path
+                        return self._decode_group_rans_spec(
+                            streams, valid, chunk_offset, budget)
+                    return self._decode_group_rans(streams, valid, ctx,
+                                                   ctx_len, budget)
+                return self._decode_group_ac(streams, valid, ctx, ctx_len,
+                                             budget)
+        except _BadEscape as e:
+            chunk = chunk_offset + e.lane if lane_chunks is None \
+                else lane_chunks[e.lane]
+            raise escape_error(chunk, e.token_id,
+                               self.predictor.vocab_size) from None
+
+    def _escape_ids(self, dec, esc) -> np.ndarray:
+        """Decode the escaped lanes' token ids (uniform over
+        2**_esc_bits) and raise ``_BadEscape`` for the first active lane
+        whose id is no token of the model's vocabulary."""
+        u = dec.get_uniform(self._esc_bits, esc)
+        bad = np.nonzero(esc & (u >= self.predictor.vocab_size))[0]
+        if bad.size:
+            raise _BadEscape(int(bad[0]), int(u[bad[0]]))
+        return u
 
     def _begin_group(self, B, C, ctx=None, ctx_len=None, live=None,
                      budget: int = 0):
@@ -1871,7 +1919,7 @@ class LLMCompressor:
                 ids, np.minimum(slots, self.topk - 1)[:, None],
                 axis=-1)[:, 0].astype(np.int64)
             if esc.any():
-                u = dec.get_uniform(self._esc_bits, esc)
+                u = self._escape_ids(dec, esc)
                 syms = np.where(esc, u, syms)
                 self._c_dec_escapes.inc(int(esc.sum()))
         else:
@@ -1913,7 +1961,7 @@ class LLMCompressor:
             syms = ids[lanes, np.minimum(syms, self.topk - 1)].astype(
                 np.int64)
             if esc.any():
-                u = dec.get_uniform(self._esc_bits, esc)
+                u = self._escape_ids(dec, esc)
                 syms = np.where(esc, u, syms)
                 self._c_dec_escapes.inc(int(esc.sum()))
         return np.where(m, syms, 0)

@@ -75,7 +75,7 @@ KERNELS = {
         + [_i] * 9 + [_f, _i, _i, _i, _vp]),
     "ssd_intra": (
         "ssd_intra.cu", [], "repro_ssd_intra",
-        [_vp] * 7 + [_ll] * 10 + [_i] * 7 + [_vp]),
+        [_vp] * 7 + [_ll] * 10 + [_i] * 11 + [_vp]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -330,6 +330,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+#: rows of a y tile (and positions of a j tile) of the bf16 SSD kernel
+SSD_ROWS = 64
+
+
+def ssd_geometry(Q: int, H: int, P: int, N: int,
+                 dtype: torch.dtype) -> tuple[int, int, int, int]:
+    """Launch geometry of the SSD kernel: (rows per y tile, heads per CTA,
+    y tiles per chunk, state CTAs per chunk and head group). The grid is
+    (R, ceil(H / heads), y tiles + state CTAs): a CTA takes one chunk,
+    one group of heads, and either a tile of y's rows for all the group's
+    heads or the chunk-end state of two of them. bf16: 64-row tiles, 4
+    heads from H = 4 up (2 below: a CTA's two warp halves take a head
+    each at a step, and 2 above Q = 2048, where three (heads, Q) fp32
+    arrays leave too little shared memory for 4), heads / 2 state CTAs.
+    At mamba2-130m's scoring shape (Q = 128, H = 24) a chunk takes (2 +
+    2) x 6 = 24 CTAs of 256 threads, so R = 16 chunks launch 384, two
+    resident per SM: 1.45 waves of the 132 SMs, the heaviest CTAs first.
+    fp32 (the fp32 twin's check): 32-row tiles, one head, one state CTA.
+    A function of the static shapes only, never of R (P and N do not
+    move it today). No sum depends on the head grouping, and each chunk's
+    bits depend on that chunk alone."""
+    if dtype != torch.bfloat16:
+        return 32, 1, -(-Q // 32), 1
+    heads = 4 if H >= 4 and Q <= 2048 else 2
+    return SSD_ROWS, heads, -(-Q // SSD_ROWS), heads // 2
+
+
 def ssd_intra(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
               Bm: torch.Tensor, Cm: torch.Tensor):
     """Mamba2 SSD over R independent chunks with a zero entering state:
@@ -376,7 +403,8 @@ def ssd_intra(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), y.data_ptr(), state.data_ptr(), *x.stride()[:3],
         *dt.stride(), *Bm.stride()[:2], *Cm.stride()[:2], R, Q, H, P, N,
-        _DTYPES[x.dtype], int(vec), _stream(x))
+        _DTYPES[x.dtype], int(vec), *ssd_geometry(Q, H, P, N, x.dtype),
+        _stream(x))
     _raise_on("ssd_intra", rc)
     LAUNCHES["ssd_intra"] += 1
     return y, state

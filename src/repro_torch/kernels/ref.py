@@ -106,10 +106,16 @@ def cumulative_round(pmf, precision: int):
     """pmf (..., A) -> int32 CDF interior points (..., A) by cumulative
     rounding: floor(cum / cum[-1] * (2**precision - A) + 0.5) + i + 1.
     Strictly increasing, and the last point is exactly 2**precision. The
-    prefix sum runs in XLA's CPU order (``blocked_cumsum``)."""
+    prefix sum runs in XLA's CPU order (``blocked_cumsum``), whose block
+    offsets can round a prefix below the one before it on a peaky row;
+    so each prefix is floored by the largest before it (a running max,
+    as ``csrc/cdf_points.cu`` floors its pieces) before it is normalised
+    by the last, which keeps every symbol at one quantum or more. Where
+    the prefix is already monotone the max changes nothing; where it is
+    not, these integers differ from JAX's, whose points there repeat."""
     A = pmf.shape[-1]
     budget = float((1 << precision) - A)
-    cum = blocked_cumsum(pmf)
+    cum = torch.cummax(blocked_cumsum(pmf), dim=-1).values
     cum = cum / cum[..., -1:]
     pts = torch.floor(cum * budget + 0.5).to(torch.int32)
     return pts + torch.arange(1, A + 1, dtype=torch.int32, device=pmf.device)

@@ -67,6 +67,12 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None):
         Bm.reshape(Bsz * nc, Q, N), Cm.reshape(Bsz * nc, Q, N))
     y_intra = y_intra.reshape(Bsz, nc, Q, H, P)
     s_in = s_in.reshape(Bsz, nc, H, P, N)
+    if initial_state is None and nc == 1:
+        # a fresh single chunk (scoring, the router probe): the entering
+        # state is zero, so the inter-chunk part below adds exactly
+        # nothing (0 * decay + s_in is s_in, y + 0 is y)
+        y = y_intra.reshape(Bsz, S, H, P)[:, :S0]
+        return y.to(x.dtype), s_in[:, 0].to(x.dtype)
 
     # the kernel keeps the TPU kernel's contract (y, state): what the
     # inter-chunk part needs of cum is recomputed here

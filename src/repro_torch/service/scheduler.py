@@ -47,7 +47,7 @@ from repro_torch import obs
 from repro_torch.core import rans
 from repro_torch.core.cdf import (DEFAULT_PRECISION, full_cdf, to_numpy,
                                   topk_cdf)
-from repro_torch.core.compressor import ContainerError
+from repro_torch.core.compressor import ContainerError, escape_error
 from repro_torch.obs import ChunkDiagnostics, MetricsRegistry
 from .session import COMPRESS, ChunkTask
 
@@ -425,6 +425,17 @@ class SlotScheduler:
                         axis=-1)[:, 0].astype(np.int64)
                     if esc.any():
                         u = self._dec.get_uniform(self._esc_bits, esc)
+                        # an id past the vocabulary (a wrong model or
+                        # kernel version) fails its chunk here, on the
+                        # host, before it can reach the embedding gather
+                        bad = esc & (u >= self.predictor.vocab_size)
+                        for b in np.nonzero(bad)[0]:
+                            self._finish_slot(int(b), escape_error(
+                                self._tasks[b].chunk_index, int(u[b]),
+                                self.predictor.vocab_size))
+                        if bad.any():
+                            esc &= ~bad
+                            m, dm, am = m & ~bad, dm & ~bad, am & ~bad
                         syms = np.where(esc, u, syms)
                         self._c_escapes.inc(int(esc.sum()))
                         if tel:
@@ -500,10 +511,14 @@ class SlotScheduler:
                     failures=self._c_failures.value)
         return True
 
-    def _finish_slot(self, b: int) -> None:
+    def _finish_slot(self, b: int, error: Exception | None = None) -> None:
+        """Complete slot ``b``'s task and free the slot; with ``error``,
+        fail the task with it instead."""
         task = self._tasks[b]
         codec = None
         try:
+            if error is not None:
+                raise error
             coded = 0.0
             tel = self.registry.enabled
             if task.kind == COMPRESS:

@@ -167,3 +167,75 @@ def test_coding_cost_bits_matches_jax():
     toks = np.random.default_rng(30).integers(0, 64, 8)
     assert cdf.coding_cost_bits(lg, toks) == pytest.approx(
         jcdf.coding_cost_bits(lg, toks), rel=1e-5)
+
+
+def _r3_pmf():
+    """The row of tests/test_ac.py::test_quantization_invariants at
+    vocab=1871, seed=4594: XLA's CPU prefix sum of it (which
+    ``ref.blocked_cumsum`` reproduces) falls at index 1519."""
+    rng = np.random.default_rng(4594)
+    pmf = rng.random(1871) ** 4 + 1e-9
+    return pmf / pmf.sum()
+
+
+def _old_cumulative_round(pmf, precision):
+    """cumulative_round as it stood without the running max."""
+    from repro_torch.kernels import ref
+    A = pmf.shape[-1]
+    cum = ref.blocked_cumsum(pmf)
+    cum = cum / cum[..., -1:]
+    pts = torch.floor(cum * float((1 << precision) - A) + 0.5)
+    return pts.to(torch.int32) + torch.arange(1, A + 1, dtype=torch.int32)
+
+
+def test_plain_cdf_is_strictly_increasing_where_the_prefix_falls():
+    from repro_torch.core import rans
+    from repro_torch.kernels import ref
+    pmf = _r3_pmf()
+    p32 = torch.from_numpy(pmf.astype(np.float32))
+    assert (ref.blocked_cumsum(p32).diff() < 0).any()      # the R3 row
+    for pts in (cdf.to_numpy(cdf.quantize_cdf_points(pmf, 18)),
+                ref.cumulative_round(p32, 18).numpy()):
+        assert pts[-1] == 1 << 18 and pts[0] >= 1
+        assert (np.diff(pts) >= 1).all()
+    # the symbols around the fall code and decode
+    c = np.concatenate([[0], pts]).astype(np.int64)
+    syms = list(range(1515, 1525))
+    blob = rans.encode_sequence(syms, [c] * len(syms), 18)
+    assert rans.decode_sequence(blob, [c] * len(syms), 18) == syms
+    # the full-vocabulary plain CDF takes the same floor
+    lg = np.log(pmf).astype(np.float32)[None]
+    full = cdf.to_numpy(cdf.full_cdf(lg, 18))
+    _invariants(full, 18)
+
+
+def test_plain_cdf_is_strictly_increasing_on_wide_flat_rows():
+    """At mamba2-130m's V = 50280 the blocked prefix sum has three levels
+    of blocks, and a flat row falls too; its points still rise, and
+    differ from the formula without the running max only after a fall."""
+    from repro_torch.kernels import ref
+    pmf = np.random.default_rng(50298).dirichlet(np.ones(50280), size=4)
+    p = torch.from_numpy(pmf.astype(np.float32))
+    falls = ref.blocked_cumsum(p).diff(dim=-1) < 0
+    assert falls.any()
+    new, old = ref.cumulative_round(p, 18), _old_cumulative_round(p, 18)
+    _invariants(np.concatenate([np.zeros((4, 1), np.int32), new.numpy()],
+                               axis=1), 18)
+    for r in range(4):
+        first = int(falls[r].int().argmax()) if falls[r].any() else 50279
+        assert torch.equal(new[r, :first + 1], old[r, :first + 1])
+
+
+@pytest.mark.parametrize("A,prec,rows", [(49, 16, 64), (259, 16, 16),
+                                         (1000, 18, 8), (20000, 18, 2)])
+def test_running_max_leaves_monotone_rows_unchanged(A, prec, rows):
+    """Where the prefix sum rises, the running max is the identity: the
+    integers equal the formula without it (every top-k row and every
+    golden the port decodes)."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(A + prec)
+    pmf = rng.dirichlet(np.ones(A), size=rows).astype(np.float32)
+    p = torch.from_numpy(pmf)
+    assert (ref.blocked_cumsum(p).diff(dim=-1) >= 0).all()
+    assert torch.equal(ref.cumulative_round(p, prec),
+                       _old_cumulative_round(p, prec))

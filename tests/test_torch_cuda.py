@@ -310,6 +310,12 @@ SSD_CASES = [
     (16, 16, 8, 16, 16),        # the tiny test width
     (3, 23, 2, 8, 4),           # ragged Q, P and N
     (2, 100, 3, 40, 72),
+    (1, 1, 24, 64, 128),        # one position, one chunk
+    (4, 33, 24, 64, 128),       # odd Q
+    (1, 160, 5, 32, 64),        # P < 64, N = 64, a partial head group
+    (2, 256, 4, 48, 96),        # Q = 256, P and N ragged in their tiles
+    (1, 65, 1, 8, 65),          # rows not on 16 bytes: scalar copies
+    (2, 64, 25, 64, 128),       # one head past the last full group
 ]
 
 
@@ -362,6 +368,23 @@ def test_ssd_intra_chunks_are_independent(cuda):
     assert torch.equal(y[perm], y2) and torch.equal(s[perm], s2)
     y3, s3 = ops.ssd_intra(x[:2], dt[:2], A, Bm[:2], Cm[:2])
     assert torch.equal(y3, y[:2]) and torch.equal(s3, s[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [128, 161])
+def test_single_chunk_ssd_chunked_is_the_general_path_bit_for_bit(cuda, S):
+    """mamba2-130m's scoring shapes (16 lanes of 128 positions, fresh and
+    under a 32-token prefix; chunk 256, so one chunk): the shortcut for a
+    fresh single chunk gives the bits the general path gives from an
+    explicit zero entering state."""
+    from repro_torch.models.mamba2 import ssd_chunked
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, 16, S, 24, 64, 128, "bfloat16",
+                                   True)
+    y, s = ssd_chunked(x, dt, A, Bm, Cm, chunk=256)
+    zero = torch.zeros((16, 24, 64, 128), dtype=torch.bfloat16,
+                       device=cuda)
+    y0, s0 = ssd_chunked(x, dt, A, Bm, Cm, chunk=256, initial_state=zero)
+    assert torch.equal(y, y0) and torch.equal(s, s0)
 
 
 @pytest.mark.cuda

@@ -486,3 +486,156 @@ def test_cdf_kernel_is_its_replay_bit_for_bit(V, prec, padded, dtype):
         np.float32) * 3
     t = torch.from_numpy(x).to("cuda").to(dtype)[:, :V]
     assert torch.equal(ops.cdf_points(t, prec), _cdf_replay(t, prec))
+
+
+# ---------------------------------------------------------------- ssd_intra
+# The bf16 SSD kernel splits a chunk over CTAs by ops.ssd_geometry: a
+# group of heads and a 64-row tile of y, or the chunk-end state of two of
+# the group's heads. The split follows the static shapes only, and the
+# plain replay below holds its order (G once per (row tile, column tile)
+# for the group, y over j tiles in order, the state over j tiles in
+# order) to the plain version.
+
+def test_ssd_geometry_takes_only_static_shapes():
+    assert list(inspect.signature(ops.ssd_geometry).parameters) == [
+        "Q", "H", "P", "N", "dtype"]
+    assert ops.ssd_geometry(128, 24, 64, 128, torch.bfloat16) == (64, 4, 2, 2)
+    assert ops.ssd_geometry(32, 24, 64, 128, torch.bfloat16) == (64, 4, 1, 2)
+    assert ops.ssd_geometry(160, 24, 64, 128, torch.bfloat16) == (64, 4, 3,
+                                                                    2)
+    assert ops.ssd_geometry(4096, 24, 64, 128, torch.bfloat16) == (64, 2, 64,
+                                                                     1)
+    assert ops.ssd_geometry(128, 3, 64, 128, torch.bfloat16) == (64, 2, 2, 1)
+    assert ops.ssd_geometry(16, 8, 16, 16, torch.float32) == (32, 1, 1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q", [1, 23, 32, 64, 65, 128, 160, 256, 4096])
+@pytest.mark.parametrize("H,P,N", [(1, 8, 4), (2, 16, 16), (3, 40, 72),
+                                   (24, 64, 128), (25, 64, 65)])
+def test_ssd_geometry_covers_the_chunk(Q, H, P, N, dtype):
+    rows, heads, ytiles, parts = ops.ssd_geometry(Q, H, P, N, dtype)
+    assert (ytiles - 1) * rows < Q <= ytiles * rows
+    groups = -(-H // heads)
+    assert (groups - 1) * heads < H <= groups * heads
+    if dtype == torch.bfloat16:
+        assert rows == ops.SSD_ROWS and heads in (2, 4)
+        assert parts * 2 == heads           # two heads per state CTA
+    else:
+        assert (rows, heads, parts) == (32, 1, 1)
+
+
+def test_ssd_grid_fills_the_card_at_the_scoring_shapes():
+    """mamba2-130m (H = 24, P = 64, N = 128) on 132 SMs, two CTAs of 256
+    threads resident on each: 16 chunks of 128 launch 384 CTAs, the
+    probe's 23 x 32 launch 414, the prefix's 16 x 160 launch 480."""
+    for R, Q, want in ((16, 128, 384), (23, 32, 414), (16, 160, 480)):
+        rows, heads, ytiles, parts = ops.ssd_geometry(Q, 24, 64, 128,
+                                                      torch.bfloat16)
+        ctas = (ytiles + parts) * (-(-24 // heads)) * R
+        assert ctas == want and ctas >= 2 * 132
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q,H,P,N", [(128, 24, 64, 128), (32, 24, 64, 128),
+                                     (23, 3, 40, 72), (16, 8, 16, 16)])
+def test_ssd_launch_geometry_ignores_the_chunk_count(launches, Q, H, P, N,
+                                                     dtype):
+    n0 = ops.LAUNCHES["ssd_intra"]
+    for R in (1, 5, 16):
+        conv = torch.empty((R, Q, H * P + 2 * N), dtype=dtype,
+                           device="meta")
+        x, Bm, Cm = torch.split(conv, [H * P, N, N], dim=-1)
+        ops.ssd_intra(x.reshape(R, Q, H, P),
+                      torch.empty((R, Q, H), dtype=dtype, device="meta"),
+                      torch.empty((H,), device="meta"), Bm, Cm)
+    assert ops.LAUNCHES["ssd_intra"] == n0 + 3
+    assert [c[17] for c in launches.calls] == [1, 5, 16]
+    assert {c[24:28] for c in launches.calls} == {
+        ops.ssd_geometry(Q, H, P, N, dtype)}
+
+
+def _ssd_inputs(seed, R, Q, H, P, N):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32))
+    return (f(R, Q, H, P), torch.from_numpy(rng.uniform(
+        0.05, 0.8, (R, Q, H)).astype(np.float32)), torch.from_numpy(
+        -rng.uniform(0.3, 2.0, (H,)).astype(np.float32)), f(R, Q, N),
+        f(R, Q, N))
+
+
+def _split(v, on):
+    """The kernel's bf16 (hi, lo) parts of an fp32 factor, as floats."""
+    if not on:
+        return [v]
+    hi = v.bfloat16().float()
+    return [hi, (v - hi).bfloat16().float()]
+
+
+def ssd_replay(x, dt, A, Bm, Cm, split=False):
+    """The bf16 kernel's split of the work, in plain fp32 PyTorch: for
+    each head group and 64-row tile of y, G = C_i B_j^T once per j tile,
+    then per head W = G exp(cum_i - cum_j) dt_j and y_i += W x_j, j tiles
+    in order; the exp taken per entry in 16 x 16 blocks on the diagonal
+    (exponent -inf where j > i), and below them as exp(cum_i - cum_r) b_j
+    with r the j block's last position and b_j = exp(cum_r - cum_j) dt_j.
+    For each head, the state S += (x_j e_j)^T B_j, j tiles in order.
+    ``split``: the fp32 factors W and x e as the kernel feeds them to the
+    tensor cores, a bf16 high part and a bf16 remainder."""
+    R, Q, H, P = x.shape
+    N = Bm.shape[2]
+    rows, heads, ytiles, _ = ops.ssd_geometry(Q, H, P, N, torch.bfloat16)
+    x, dt, Bm, Cm = (t.float() for t in (x, dt, Bm, Cm))
+    cum = torch.cumsum(dt * A, dim=1)                         # (R, Q, H)
+    y = torch.zeros((R, Q, H, P))
+    state = torch.zeros((R, H, P, N))
+    tiles = [slice(k * rows, min(Q, (k + 1) * rows)) for k in range(ytiles)]
+    pos = torch.arange(Q)
+    ref_pos = torch.clamp(pos // 16 * 16 + 15, max=Q - 1)    # r of each j
+    fb = torch.exp(cum[:, ref_pos] - cum) * dt                # b_j
+    for g0 in range(0, H, heads):
+        hs = slice(g0, min(H, g0 + heads))
+        for it, i in enumerate(tiles):
+            for j in tiles[:it + 1]:
+                G = torch.einsum("rin,rjn->rij", Cm[:, i], Bm[:, j])
+                seg = cum[:, i, None, hs] - cum[:, None, j, hs]
+                seg = torch.where((pos[j][None, :] <= pos[i][:, None])
+                                  [None, :, :, None], seg,
+                                  torch.tensor(float("-inf")))
+                direct = torch.exp(seg) * dt[:, None, j, hs]
+                fa = torch.exp(cum[:, i, None, hs]
+                               - cum[:, None, ref_pos[j], hs])
+                below = (pos[j][None, :] // 16 < pos[i][:, None] // 16)
+                L = torch.where(below[None, :, :, None],
+                                fa * fb[:, None, j, hs], direct)
+                W = G[..., None] * L
+                for part in _split(W, split):
+                    y[:, i, hs] += torch.einsum("rijh,rjhp->rihp", part,
+                                                x[:, j, hs])
+        for j in tiles:
+            e = torch.exp(cum[:, Q - 1:Q, hs] - cum[:, j, hs]) * dt[:, j, hs]
+            for part in _split(x[:, j, hs] * e[..., None], split):
+                state[:, hs] += torch.einsum("rjhp,rjn->rhpn", part,
+                                             Bm[:, j])
+    return y, state
+
+
+@pytest.mark.parametrize("R,Q,H,P,N", [(2, 128, 8, 64, 128), (3, 23, 3, 8, 4),
+                                       (2, 160, 5, 40, 72),
+                                       (1, 256, 4, 64, 128),
+                                       (2, 1, 2, 16, 16), (1, 65, 1, 8, 65)])
+def test_ssd_replay_of_the_split_matches_the_plain_version(R, Q, H, P, N):
+    """fp32 factors: within 2e-5 of the plain version's scale (the order
+    of sums differs). bf16 inputs with the kernel's hi/lo split of W and
+    x e: within 1e-4, the card's tolerance for the bf16 kernel."""
+    args = _ssd_inputs(R * Q + N, R, Q, H, P, N)
+    for split, tol in ((False, 2e-5), (True, 1e-4)):
+        if split:
+            args = tuple(a if k == 2 else a.bfloat16().float()
+                         for k, a in enumerate(args))
+        y, s = ssd_replay(*args, split=split)
+        yr, sr = ref.ssd_intra(*args)
+        scale = max(1.0, yr.abs().max().item(), sr.abs().max().item())
+        assert (y - yr).abs().max().item() <= tol * scale
+        assert (s - sr).abs().max().item() <= tol * scale

@@ -99,6 +99,25 @@ def test_ssd_chunked_matches_jax(S, chunk, init):
     np.testing.assert_allclose(fin.numpy(), np.asarray(jfin), atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,chunk", [(16, 16), (11, 16), (1, 8), (40, 64)])
+def test_fresh_single_chunk_skips_the_inter_chunk_part_bit_for_bit(
+        S, chunk, dtype):
+    """With no entering state and one chunk, ssd_chunked returns the
+    kernel's y and state as they are; the general path, given an explicit
+    zero entering state, computes the same bits the long way."""
+    B, H, P, N = 2, 3, 8, 5
+    x, dt, A, Bm, Cm = (T(a) for a in _ssd_inputs(S + chunk, B, S, H, P,
+                                                     N))
+    x, dt, Bm, Cm = (t.to(dtype) for t in (x, dt, Bm, Cm))
+    y, fin = mamba2.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+    zero = torch.zeros((B, H, P, N), dtype=dtype)
+    y0, fin0 = mamba2.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk,
+                                  initial_state=zero)
+    assert y.dtype == fin.dtype == dtype
+    assert torch.equal(y, y0) and torch.equal(fin, fin0)
+
+
 @pytest.fixture(scope="module")
 def weights():
     """Tiny mamba2 (2 layers, d=64, N=16, P=16, chunk 16) in both
