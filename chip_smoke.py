@@ -34,13 +34,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``CompressionService(slots=16, chunk_size=128, topk=48)``: a few
    compress jobs of mixed length, then decompression by another service
    run in another order (so chunks land on other lanes), byte identity
-   required. The kernel launch counts are reset just before and read
-   just after. Then five bare decode steps under ``torch.profiler``
-   (device time and launches per step), and the containers decompressed
-   once more by a fresh process that rebuilds the predictor from the
-   seed, in a third order: compress and decompress are separate
-   processes in the user's flow. Digests of the weights and of one
-   decode step let runs on other cards be compared.
+   required. Every model step is the replay of the captured decode step
+   (``serve/graphs.py``). The kernel launch counts and the graph counts
+   are reset just before and read just after: each service step must be
+   a replay, and a kernel captured in the step must count (replays +
+   warm-up steps) x its launches per step. Then 16 replays held against
+   16 eager steps on a twin cache, bit for bit (logits and every cache
+   leaf, two lanes reset half way), the bytes of one lane's snapshot,
+   the captured and the eager step timed side by side (host ms, and
+   under ``torch.profiler`` device ms, idle share, kernels and host
+   launch calls per step), and the four jobs traced each way through a
+   ``PhaseReport`` (the model's share of a service step against the CDF
+   -> rANS coder's and the scheduler's). Then phase 10, and the
+   containers decompressed once more by a fresh process that rebuilds
+   the predictor from the seed, in a third order: compress and
+   decompress are separate processes in the user's flow. Digests of the
+   weights and of one decode step let runs on other cards be compared.
 4. Teacher-forced scoring at full width: ``score_chunks`` on 16 chunks
    x 128 against the decode program's logits for the same chunks, fresh
    and under a 32-token prefix (max |logit difference| and the share of
@@ -58,18 +67,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``CompressionService``: ``ContainerError`` from both, and the same
    CUDA context decodes it under the writer's weights byte for byte.
 7. ``python -m repro_torch.cli compress`` / ``decompress`` on a small
-   file, plain and with ``--route auto``, and byte comparisons.
+   file, plain, with ``--route auto``, and with the context flags and
+   ``--draft``, and byte comparisons.
 8. Phase 3 again for ``mamba2-130m`` (the ssm family at full width: 24
    layers, d=768, N=128, P=64, V=50280, bf16; random weights from seed
-   0): the recurrent decode step and ``topk_cdf``, the same jobs, the
-   other lane order and the fresh process.
+   0): the captured recurrent decode step and ``topk_cdf``, the same
+   jobs, checks and timings, phase 10, the fresh process.
 9. Phases 4 and 5 again for ``mamba2-130m``: ``score_chunks`` against
    the decode program, fresh and under a prefix (held in fp32 through a
    twin of the same seed, and in bf16 against that twin: see
    ``SCORE_TOL_FP32``), ``compress(exact=False)`` and the routed
    service, with ``ssd_intra`` launched once per layer of every
    teacher-forced ``forward``.
-10. One JSON line describing every kernel, then the result line
+10. Speculative decompression at full width, run inside phases 3 and 8
+   on their predictor and containers: ``LLMCompressor(decode_batch=16)``
+   lock-step, then with ``draft_k=4`` (one captured verify program of 5
+   steps per round, each lane rolled back to what it accepted); byte
+   identity both ways, rounds against verify replays, lock-step steps,
+   draft acceptance and the wall time of each.
+11. Shared prefix at full width (``qwen3-1.7b``, after phase 5): two jobs
+   through one service with the same 32-token shared prefix; the second
+   must hit the radix prefix cache, both must round-trip, and a fresh
+   service (a cache miss) must write the second's container byte for
+   byte. Phase 7 also runs ``compress --context-window 16
+   --shared-prefix`` and ``decompress --draft 4`` through the CLI.
+12. One JSON line describing every kernel, then the result line
    ``{"ok": true, "device": {...}}`` as the last line of stdout.
 
 It exits non-zero, printing no result, without a CUDA device or outside
@@ -132,23 +154,28 @@ def time_ms(fn, iters: int = 50) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 20) -> float:
+def device_ms(fn, kernel: str, iters: int = 20):
     """Mean device milliseconds per call of the CUDA kernels whose name
     contains ``kernel``, from ``torch.profiler`` over ``iters`` calls:
     the kernel's own time, without the host's launch overhead that a
     CUDA-event mean of back-to-back calls includes when the host cannot
     keep the device busy. A profiler session that records none of the
-    kernel's launches (seen once in a long run: the launches ran, the
-    trace came back without them) is taken again, up to three times. For
-    a named kernel (one launch per call) the mean is over the launches
-    the session recorded, so a trace that lost some of them does not
-    read low; the loss is logged."""
+    kernel's launches (the launches ran, the trace came back without
+    them: seen in long runs, once three sessions in a row) is taken
+    again, up to five times, a second apart; then the time is "not
+    measured" (None), which is logged: the profiler's loss is no fault of
+    the kernel, whose checks and event times stand. For a named kernel
+    (one launch per call) the mean is over the launches the session
+    recorded, so a trace that lost some of them does not read low; the
+    loss is logged."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    for attempt in range(5):
+        if attempt:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -166,8 +193,15 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float:
                     f"{kernel}")
             return us / 1e3 / n
         log(f"[profiler] session {attempt + 1} saw no device time of "
-            f"{kernel} (device events: {seen})")
-    fail(f"the profiler saw no device time of {kernel} in three sessions")
+            f"{kernel or 'the call'} (device events: {seen})")
+    log(f"[profiler] {kernel or 'the call'}: device time not measured "
+        f"(five sessions recorded none of it)")
+    return None
+
+
+def _ms(x, digits: int = 4) -> str:
+    """A time in ms, or "not measured" (a profiler that lost it)."""
+    return "not measured" if x is None else f"{x:.{digits}f} ms"
 
 
 def library_device_ms(fn, iters: int = 20) -> float:
@@ -441,13 +475,15 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
     ]:
         r = fn(*args)
         res[name] = r
+        dev, ldev = r["device_ms"], r["library_device_ms"]
+        ratio = "" if dev is None or ldev is None \
+            else f"; kernel / library on the device {dev / ldev:.2f}"
         lib = "none" if r["library_ms"] is None \
             else (f"{r['library_ms']:.4f} ms (on the device "
-                  f"{r['library_device_ms']:.4f} ms; kernel / library on "
-                  f"the device {r['device_ms'] / r['library_device_ms']:.2f})")
+                  f"{_ms(ldev)}{ratio})")
         log(f"[kernel] {name}: max_err {r['max_abs_err']:.3g} (tol "
             f"{r['tol']:.3g}) kernel {r['ms']:.4f} ms (on the device "
-            f"{r['device_ms']:.4f} ms), plain "
+            f"{_ms(dev)}), plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return res
@@ -457,17 +493,99 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
 # kernels the decode path of each family launches on every step
 DECODE_KERNELS = {"dense": ("decode_attention", "topk_cdf"),
                   "ssm": ("topk_cdf",)}
+# the kernel captured in each family's decode step, n_layers a step
+STEP_KERNELS = {"dense": "decode_attention", "ssm": None}
+
+
+def _check_captured_launches(cfg, launches, stats, steps: int,
+                             what: str) -> None:
+    """The launch counts of a window against the captured programs: every
+    one of ``steps`` service steps a replay of the captured step, and a
+    kernel captured in the step counted (replayed steps + warm-up steps)
+    x its launches per step; ``topk_cdf``, outside the graph, once per
+    step."""
+    if stats["step_replays"] != steps:
+        fail(f"{what}: {steps} model steps but {stats['step_replays']} "
+             f"replays of the captured step")
+    k = STEP_KERNELS[cfg.family]
+    if k and launches[k] != cfg.n_layers * (steps + stats["warmup_steps"]):
+        fail(f"{what}: {k} launches {launches[k]} != {cfg.n_layers} x "
+             f"({steps} replayed + {stats['warmup_steps']} warm-up steps)")
+    if launches["topk_cdf"] != steps:
+        fail(f"{what}: topk_cdf launches {launches['topk_cdf']} != "
+             f"{steps} steps")
+
+
+def graph_against_eager(pred, B: int = 16, S: int = 128, n: int = 16):
+    """n replays of the captured step against n eager steps on a twin
+    cache, from the same inputs, with two lanes reset in the middle:
+    logits and every cache leaf bit for bit."""
+    import numpy as np
+    import torch
+    pred.set_decode_len(S)
+    g, e = pred.begin_decode(B), pred._init_cache(B, S)
+    rng = np.random.default_rng(0)
+    for t in range(n):
+        if t == n // 2:
+            mask = np.isin(np.arange(B), (3, 7))
+            pred.reset_slots(g, mask)
+            pred.reset_slots(e, mask)
+        prev = rng.integers(0, pred.vocab_size - 1, B)
+        lg, _ = pred.decode_step(g, prev)
+        le, _ = pred._eager_decode_step(e, prev)
+        if not torch.equal(lg, le):
+            fail(f"captured step {t}: logits differ from the eager step")
+        for k in g:
+            if not torch.equal(g[k], e[k]):
+                fail(f"captured step {t}: cache leaf {k} differs from the "
+                     f"eager step's")
+    log(f"[graph] {pred.cfg.name}: {n} replays of the captured step equal "
+        f"{n} eager steps bit for bit (logits and every cache leaf; lanes "
+        f"3 and 7 reset after step {n // 2})")
+    return g, e
+
+
+def time_steps(pred, g, e, n: int = 20) -> dict:
+    """Host ms per step (a host clock around ``n`` steps ending in a
+    synchronise) of the captured and the eager step at B lanes, and each
+    one's device ms, idle share and kernels per step from
+    ``torch.profiler`` over 5 steps."""
+    import numpy as np
+    import torch
+    prev = np.zeros(g["pos"].shape[0], np.int64)
+    out = {}
+    for name, fn in (("captured", lambda: pred.decode_step(g, prev)),
+                     ("eager", lambda: pred._eager_decode_step(e, prev))):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / n * 1e3
+        dev, kernels, api = profile_calls(fn, 5)
+        out[name] = dict(host_ms=host, device_ms=dev, kernels=kernels,
+                         host_launch_calls=api)
+        log(f"[graph] {pred.cfg.name} {name} step (B={prev.size}): host "
+            f"{host:.3f} ms, device {_ms(dev, 3)} (idle "
+            f"{_idle(dev, host)}), {_count(kernels)} kernels and {api:.0f} "
+            f"host launch calls per step")
+    return out
 
 
 def phase_service(arch: str) -> dict:
     """The service round trip of config ``arch`` at full width (phase 3
-    for qwen3-1.7b, phase 8 for mamba2-130m)."""
+    for qwen3-1.7b, phase 8 for mamba2-130m), then the same containers
+    through speculative decompression (phase 10)."""
     import numpy as np
     import torch
+    from repro_torch import obs
     from repro_torch.configs.registry import get_config
     from repro_torch.data.synthetic import human_like
     from repro_torch.data.tokenizer import encode
     from repro_torch.kernels import ops
+    from repro_torch.serve import graphs
     from repro_torch.serve.engine import ModelPredictor
     from repro_torch.service import CompressionService
     cfg = get_config(arch)
@@ -477,27 +595,32 @@ def phase_service(arch: str) -> dict:
     log(f"[service] {arch} random init (seed 0, {cfg.dtype}): "
         f"{sum(t.numel() for t in _leaves(pred.params)) / 1e9:.3f} B "
         f"params in {time.perf_counter() - t0:.1f} s")
+    graphs.reset_stats()
 
     # cuBLAS + kernels at a fixed batch: a lane's logits must not depend
-    # on which lane it is. Permute the lanes of one decode step.
+    # on which lane it is. Permute the lanes of one decode step. (Each
+    # logits buffer is the captured step's own: copy it out.)
     B = 16
     pred.set_decode_len(128)
     toks = np.arange(B, dtype=np.int64) * 37 % cfg.vocab_size
     perm = np.roll(np.arange(B), 5)
-    la, _ = pred.decode_step(pred.begin_decode(B), toks)
+    la = pred.decode_step(pred.begin_decode(B), toks)[0].clone()
+    first_capture_ms = graphs.STATS["capture_ms"]
     lb, _ = pred.decode_step(pred.begin_decode(B), toks[perm])
     if not torch.equal(la[torch.as_tensor(perm, device="cuda")], lb):
         fail("decode-step logits change with the lane a sequence runs on")
     log("[service] lane permutation: decode-step logits bit-identical")
     log(f"[service] digests: weights {_digest(_leaves(pred.params))}, "
         f"first decode-step logits {_digest([la])}")
-
+    log(f"[graph] {arch}: first capture of the step (B=16, S=128) "
+        f"{first_capture_ms:.1f} ms, its eager warm-up included")
     svc = CompressionService(pred, slots=16, chunk_size=128, topk=48)
     sizes = [(d, n, s) for d, n, s in (("wiki", 3000, 1), ("code", 2200, 2),
                                         ("web", 4000, 3), ("math", 2600, 4))]
     texts = [human_like(d, n, seed=s) for d, n, s in sizes]
     n_tok = sum(len(t) for t in texts)
     ops.reset_launches()
+    graphs.reset_stats()
     steps0 = svc.stats.model_steps
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -516,49 +639,71 @@ def phase_service(arch: str) -> dict:
     t_d = time.perf_counter() - t0
     steps_d = svc.stats.model_steps
     launches = dict(ops.LAUNCHES)
+    stats = dict(graphs.STATS)
     for i, t in enumerate(texts):
         if not np.array_equal(outs[i], encode(t)):
             fail(f"service round trip: job {i} differs after decompress")
     for k in DECODE_KERNELS[cfg.family]:
         if launches[k] <= 0:
             fail(f"main path launched {k} {launches[k]} times")
-    if cfg.family == "dense" and launches["decode_attention"] \
-            != cfg.n_layers * (steps_c + steps_d):
-        fail(f"decode_attention launches {launches['decode_attention']} != "
-             f"{cfg.n_layers} x {steps_c + steps_d} steps")
+    _check_captured_launches(cfg, launches, stats, steps_c + steps_d,
+                             "service round trip")
 
-    # decode step alone at 16 lanes, then under torch.profiler
-    state = pred.begin_decode(B)
-    prev = np.zeros(B, np.int64)
-    for _ in range(3):
-        _, state = pred.decode_step(state, prev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    n = 20
-    for _ in range(n):
-        _, state = pred.decode_step(state, prev)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / n * 1e3
-    prof = profile_steps(pred, state, prev)
+    # bare steps: captured against eager, bit for bit, then timed: the
+    # before and after in one run
+    g, e = graph_against_eager(pred)
+    snap = pred.snapshot_slot(g, 0)
+    snap_bytes = sum(t.numel() * t.element_size() for t in snap.values())
+    log(f"[prefix] {arch}: one lane's snapshot (S=128) is {snap_bytes} B "
+        f"on the card")
+    steps = time_steps(pred, g, e)
+    del g, e, snap
+    # the host's share of a service step outside the model: a PhaseReport
+    # over the four jobs each way, traced (the model span waits for the
+    # device while a timeline records). The round trip's services are let
+    # go first, so the traced ones take over their cache and graphs.
+    del svc, handles
+    phases = {}
+    for kind in ("compress", "decompress"):
+        rec = obs.TimelineRecorder()
+        tsvc = CompressionService(pred, slots=16, chunk_size=128, topk=48,
+                                  trace=rec)
+        hs = [tsvc.submit_compress(encode(t)) for t in texts] \
+            if kind == "compress" else \
+            [tsvc.submit_decompress(b) for b in blobs]
+        for h in hs:
+            h.result()
+        tsvc.close()
+        rep = obs.PhaseReport.from_events(rec.events(), dropped=rec.dropped)
+        phases[kind] = dict(total_ms=rep.total_s * 1e3,
+                            coverage=rep.coverage,
+                            share={k: v / rep.total_s
+                                   for k, v in rep.phases.items()})
+        log(f"[phases] {arch} {kind} of the 4 jobs, traced "
+            f"({rep.total_s * 1e3:.1f} ms, coverage {rep.coverage:.1%}): "
+            + ", ".join(f"{k} {v:.1%}" for k, v in sorted(
+                phases[kind]["share"].items()) if v > 0))
     out = dict(tokens=n_tok, bytes_in=n_tok,
                bytes_out=sum(len(b) for b in blobs),
                compress_s=t_c, decompress_s=t_d,
                compress_tok_s=n_tok / t_c, decompress_tok_s=n_tok / t_d,
                compress_steps=steps_c, decompress_steps=steps_d,
                service_step_ms=(t_c + t_d) / (steps_c + steps_d) * 1e3,
-               decode_step_ms=step_ms, launches=launches, **prof)
+               steps=steps, graph_stats=stats, launches=launches,
+               phases=phases, snapshot_bytes=snap_bytes)
     log(f"[service] {len(texts)} jobs, {n_tok} tokens: compress "
         f"{t_c:.2f} s ({n_tok / t_c:.0f} tok/s, {steps_c} steps), "
         f"decompress {t_d:.2f} s ({n_tok / t_d:.0f} tok/s, {steps_d} steps)"
         f", {out['bytes_out']} container bytes; byte-identical in reorder "
         f"{order}")
     log(f"[service] mean service step {out['service_step_ms']:.2f} ms; "
-        f"decode_step alone (B=16) {step_ms:.2f} ms, of it on the device "
-        f"{prof['device_ms_per_step']:.3f} ms (idle "
-        f"{1 - prof['device_ms_per_step'] / step_ms:.1%}), "
-        f"{prof['launches_per_step']:.0f} kernel launches per step; "
-        f"launches {launches} over {steps_c + steps_d} steps")
-    del pred, svc, state
+        f"captured step alone {steps['captured']['host_ms']:.3f} ms (eager "
+        f"{steps['eager']['host_ms']:.3f} ms); graphs in the round trip: "
+        f"{stats['captures']} captures ({stats['capture_ms']:.1f} ms), "
+        f"{stats['step_replays']} replays, {stats['warmup_steps']} warm-up "
+        f"steps; launches {launches} = per step x (replays + warm-ups)")
+    out["spec"] = phase_speculative(pred, blobs, texts)
+    del pred, tsvc
     torch.cuda.empty_cache()
 
     # the user's flow: decompression in a process of its own, which
@@ -587,35 +732,105 @@ def phase_service(arch: str) -> dict:
     return out
 
 
-def profile_calls(fn, n: int = 5) -> tuple[float, float]:
+# ---------------------------------------------------------- phase 10
+def phase_speculative(pred, blobs, texts) -> dict:
+    """The service's containers through the grouped decompressor, lock-
+    step and speculative (``draft_k=4``: the suffix self-draft, one
+    captured verify program over 5 positions per round, each lane rolled
+    back to what it accepted): byte identity, rounds, verify programs
+    against lock-step steps, draft acceptance and wall time."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import LLMCompressor
+    from repro_torch.data.tokenizer import encode
+    from repro_torch.kernels import ops
+    from repro_torch.serve import graphs
+    res = {}
+    for name, k in (("lock-step", 0), ("speculative", 4)):
+        reg = obs.MetricsRegistry()
+        comp = LLMCompressor(pred, chunk_size=128, topk=48, decode_batch=16,
+                             draft_k=k, registry=reg)
+        ops.reset_launches()
+        graphs.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [comp.decompress(b) for b in blobs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for i, t in enumerate(texts):
+            if not np.array_equal(outs[i], encode(t)):
+                fail(f"{name} grouped decompression: job {i} differs")
+        st = dict(graphs.STATS)
+        offered = reg.value("spec.drafted_tokens")
+        res[name] = dict(
+            wall_s=wall, step_replays=st["step_replays"],
+            verify_replays=st["verify_replays"], captures=st["captures"],
+            capture_ms=st["capture_ms"], rounds=reg.value("spec.rounds"),
+            offered=offered, accepted=reg.value("spec.drafted_accepted"),
+            fallthroughs=reg.value("spec.lockstep_fallthroughs"),
+            launches=dict(ops.LAUNCHES))
+    lock, spec = res["lock-step"], res["speculative"]
+    if spec["verify_replays"] <= 0 or spec["rounds"] != \
+            spec["verify_replays"]:
+        fail(f"speculative decode: {spec['rounds']} rounds but "
+             f"{spec['verify_replays']} verify replays")
+    acc = spec["accepted"] / spec["offered"] if spec["offered"] else 0.0
+    log(f"[spec] {pred.cfg.name} grouped decompress of {len(blobs)} "
+        f"containers, byte-identical both ways: lock-step "
+        f"{lock['wall_s'] * 1e3:.0f} ms ({lock['step_replays']} captured "
+        f"steps); speculative (draft_k=4) {spec['wall_s'] * 1e3:.0f} ms "
+        f"({spec['wall_s'] / lock['wall_s']:.2f}x): {spec['rounds']} "
+        f"rounds = {spec['verify_replays']} verify replays + "
+        f"{spec['step_replays']} lock-step steps (fall-throughs "
+        f"{spec['fallthroughs']}), draft acceptance {acc:.1%} "
+        f"({spec['accepted']} of {spec['offered']}); captures "
+        f"{spec['captures']} ({spec['capture_ms']:.0f} ms); launches "
+        f"{spec['launches']}")
+    return res
+
+
+def profile_calls(fn, n: int = 5):
     """torch.profiler over ``n`` calls of ``fn``: logs the operators by
-    device time; returns device ms and kernel launches per call."""
+    device time; returns, per call, device ms, kernels run on the device
+    and host launch calls (kernel launches and graph launches). A session
+    whose trace came back without device events is taken again, as in
+    ``device_ms``; after five, device ms and kernels are None (not
+    measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for attempt in range(5):
+        if attempt:
+            time.sleep(1.0)
         torch.cuda.synchronize()
-    ka = prof.key_averages()
-    log(ka.table(sort_by="self_cuda_time_total", row_limit=20))
-    dev_us = sum(e.self_device_time_total for e in ka
-                 if e.device_type == DeviceType.CUDA)
-    n_launch = sum(e.count for e in ka
-                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
-    return dev_us / 1e3 / n, n_launch / n
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        api = sum(e.count for e in ka if e.key.startswith(
+            ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch")))
+        dev = [e for e in ka if e.device_type == DeviceType.CUDA]
+        dev_us = sum(e.self_device_time_total for e in dev)
+        if dev_us > 0:
+            log(ka.table(sort_by="self_cuda_time_total", row_limit=12))
+            kernels = sum(e.count for e in dev
+                          if not e.key.startswith(("Memcpy", "Memset")))
+            return dev_us / 1e3 / n, kernels / n, api / n
+        log(f"[profiler] session {attempt + 1} saw no device events")
+    log("[profiler] device time not measured (five sessions recorded no "
+        "device events)")
+    return None, None, api / n
 
 
-def profile_steps(pred, state, prev, n: int = 5) -> dict:
-    """``profile_calls`` over ``n`` decode steps."""
-    box = [state]
+def _idle(dev, host: float) -> str:
+    return "not measured" if dev is None else f"{1 - dev / host:.1%}"
 
-    def step():
-        box[0] = pred.decode_step(box[0], prev)[1]
-    dev_ms, launches = profile_calls(step, n)
-    return dict(device_ms_per_step=dev_ms, launches_per_step=launches)
+
+def _count(x) -> str:
+    return "not measured" if x is None else f"{x:.0f}"
 
 
 def decompress_in_fresh_process(work: str, arch: str, order) -> int:
@@ -733,7 +948,7 @@ def _decode_logits(pred, chunks, prefix=None):
     out = []
     for t in range(C):
         lg, state = pred.decode_step(state, prev)
-        out.append(lg)
+        out.append(lg.clone())       # the captured step's buffer: copy it
         prev = chunks[:, t]
     return torch.stack(out, dim=1)
 
@@ -767,7 +982,7 @@ def phase_scoring(pred) -> dict:
         pred.score_chunks(chunks)
     torch.cuda.synchronize()
     score_ms = (time.perf_counter() - t0) / 5 * 1e3
-    score_dev_ms, score_launches = profile_calls(
+    score_dev_ms, score_launches, _ = profile_calls(
         lambda: pred.score_chunks(chunks), 3)
     if pred.cfg.family == "dense":
         fresh = _compare_logits("fresh context", scored,
@@ -787,8 +1002,8 @@ def phase_scoring(pred) -> dict:
              f"{ops.LAUNCHES[kern]} times")
     log(f"[score] {pred.cfg.name} score_chunks ({B} x {C}) "
         f"{score_ms:.2f} ms, of it on the "
-        f"device {score_dev_ms:.2f} ms (idle "
-        f"{1 - score_dev_ms / score_ms:.1%}), {score_launches:.0f} kernel "
+        f"device {_ms(score_dev_ms, 2)} (idle "
+        f"{_idle(score_dev_ms, score_ms)}), {_count(score_launches)} kernel "
         f"launches; "
         f"compress(exact=True) {len(blob_x)} B, compress(exact=False) "
         f"{len(blob_e)} B ({len(blob_e) / len(blob_x) - 1:+.4%}); ideal "
@@ -910,6 +1125,58 @@ def phase_routed(pred) -> dict:
                 probe_estimate_ms=(t2 - t1) * 1e3)
 
 
+# ---------------------------------------------------------- phase 11
+def phase_shared_prefix(pred) -> dict:
+    """Two jobs through one service with the same 32-token shared prefix:
+    the second restores the prefilled cache lane from the radix prefix
+    cache (``prefix_cache.hits`` rises while it runs), both round-trip
+    byte for byte, and the second's container equals the one a fresh
+    service, whose cache misses, writes for it."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import human_like
+    from repro_torch.data.tokenizer import encode
+    from repro_torch.service import CompressionService
+    sp = encode(human_like("article", 64, seed=21))[:32]
+    jobs = [encode(human_like("wiki", 1500, seed=31)),
+            encode(human_like("web", 1200, seed=32))]
+    kw = dict(slots=16, chunk_size=128, topk=48)
+    svc = CompressionService(pred, **kw)
+    reg = svc.registry
+    t0 = time.perf_counter()
+    blob0 = svc.submit_compress(jobs[0], shared_prefix=sp).result()[0]
+    hits0 = reg.value("prefix_cache.hits")
+    blob1 = svc.submit_compress(jobs[1], shared_prefix=sp).result()[0]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    hits1 = reg.value("prefix_cache.hits") - hits0
+    if hits1 < 1:
+        fail(f"shared prefix: the second job hit the prefix cache {hits1} "
+             f"times")
+    for i, blob in enumerate((blob0, blob1)):
+        if not np.array_equal(svc.submit_decompress(blob).result(),
+                              jobs[i]):
+            fail(f"shared prefix: job {i} differs after decompress")
+    fresh = CompressionService(pred, **kw)
+    again = fresh.submit_compress(jobs[1], shared_prefix=sp).result()[0]
+    if again != blob1:
+        fail("shared prefix: a fresh service (cache miss) writes another "
+             "container for the second job")
+    if not np.array_equal(CompressionService(pred, **kw).submit_decompress(
+            blob1).result(), jobs[1]):
+        fail("shared prefix: a fresh service decodes job 1 differently")
+    snap = svc.prefix_cache.lookup(sp)[1]
+    snap_bytes = sum(t.numel() * t.element_size() for t in snap.values())
+    log(f"[prefix] {pred.cfg.name}: 2 jobs with one 32-token shared "
+        f"prefix in {dt:.2f} s; the second hit the cache {hits1} times "
+        f"(hits {reg.value('prefix_cache.hits')}, misses "
+        f"{reg.value('prefix_cache.misses')}, tokens reused "
+        f"{reg.value('prefix_cache.tokens_reused')}); both round-trip, "
+        f"and a fresh service writes job 1's {len(blob1)} B byte for "
+        f"byte; a stored snapshot (S=160) is {snap_bytes} B on the card")
+    return dict(hits=hits1, snapshot_bytes=snap_bytes)
+
+
 # ----------------------------------------------------------- phase 6
 def phase_full_cdf() -> dict:
     import numpy as np
@@ -998,29 +1265,36 @@ def phase_cli() -> None:
     rng = np.random.default_rng(9)
     mixed = human_like("novel", 1200, seed=8) + bytes(
         rng.integers(0, 256, 600).astype(np.uint8)) + b"=" * 500
-    for tag, data, extra in (("", human_like("novel", 1500, seed=7), []),
-                             ("routed", mixed, ["--route", "auto"])):
+    pref = work / "prefix.txt"
+    pref.write_bytes(b"Chapter one of a novel, as the corpus stores it.")
+    ctx = ["--context-window", "16", "--shared-prefix", str(pref)]
+    for tag, data, extra, dextra in (
+            ("", human_like("novel", 1500, seed=7), [], []),
+            ("routed", mixed, ["--route", "auto"], []),
+            ("context", human_like("novel", 1500, seed=6), ctx,
+             ["--draft", "4"])):
         src = work / f"in{tag}.txt"
         arc, back = work / f"in{tag}.llmc", work / f"back{tag}.txt"
         src.write_bytes(data)
         for cmd in (["compress", str(src), str(arc), *extra],
-                    ["decompress", str(arc), str(back)]):
+                    ["decompress", str(arc), str(back), *dextra]):
             t0 = time.perf_counter()
             r = subprocess.run([sys.executable, "-m", "repro_torch.cli",
                                 *cmd, "--predictor", "pred-base"], env=env,
                                cwd=ROOT, capture_output=True, text=True,
                                timeout=600)
+            flags = " ".join([cmd[0]] + cmd[3:])
             if r.returncode != 0:
-                fail(f"llmc-torch {' '.join(cmd[:1] + extra)} exited "
+                fail(f"llmc-torch {flags} exited "
                      f"{r.returncode}:\n{r.stdout}\n{r.stderr}")
-            log(f"[cli] {' '.join(cmd[:1] + extra)}: {r.stdout.strip()} "
+            log(f"[cli] {flags}: {r.stdout.strip()} "
                 f"({time.perf_counter() - t0:.1f} s with start-up)")
         if src.read_bytes() != back.read_bytes():
             fail(f"CLI {tag or 'plain'} round trip: decompressed file "
                  f"differs")
-        log(f"[cli] {' '.join(['compress', *extra])} -> decompress "
-            f"byte-identical ({src.stat().st_size} B -> "
-            f"{arc.stat().st_size} B)")
+        log(f"[cli] {' '.join(['compress', *extra])} -> "
+            f"{' '.join(['decompress', *dextra])} byte-identical "
+            f"({src.stat().st_size} B -> {arc.stat().st_size} B)")
 
 
 def main() -> int:
@@ -1075,6 +1349,7 @@ def main() -> int:
                                       device="cuda")
     phase_scoring(pred)
     routed = phase_routed(pred)
+    phase_shared_prefix(pred)
     del pred
     torch.cuda.empty_cache()
     full = phase_full_cdf()

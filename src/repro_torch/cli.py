@@ -4,8 +4,9 @@
                                  [--slots B] [--chunk N] [--topk K]
                                  [--codec rans|ac]
                                  [--route llm|auto|zstd|lzma|raw]
+                                 [--context-window W] [--shared-prefix F]
     llmc-torch decompress IN OUT [--predictor NAME] [--seed S] [--device D]
-                                 [--slots B]
+                                 [--slots B] [--draft K]
     llmc-torch info       IN
 
 ``compress``/``decompress`` run through the continuous-batching
@@ -17,7 +18,15 @@ flash-attention kernel on the card) and sends each chunk the model fits
 badly to its best fallback byte codec; a codec name forces that fallback
 for every chunk; both write a v5 mixed-codec container. ``llm`` (the
 default) keeps the v4 path.
-``info`` prints header + index without any model.
+``--context-window W`` carries each chunk's W-token tail into the next
+chunk of its stripe, and ``--shared-prefix FILE`` conditions the
+stripe-head chunks on FILE's tokens (jobs that share it restore one
+prefilled cache lane from the radix prefix cache); either writes a v6
+container, and both need the service path. ``decompress --draft K``
+decodes speculatively on the grouped path: a self-draft of K tokens per
+lane, one verify program over K + 1 positions, the same bytes.
+``info`` prints header + index (and a v6 container's context recipes and
+shared prefixes) without any model.
 
 Predictors: ``--predictor`` names a ``pred-*`` predictor or a registered
 config (``qwen3-1.7b``, ``mamba2-130m``); the port has no trained weights
@@ -46,7 +55,8 @@ def _predictor(args):
 
 def _cmd_info(args) -> int:
     from repro_torch.core import read_header, read_index
-    from repro_torch.core.compressor import VERSION_V4, VERSION_V5
+    from repro_torch.core.compressor import (VERSION_V4, VERSION_V5,
+                                             VERSION_V6)
     blob = open(args.input, "rb").read()
     info = read_header(blob)
     print(f"{args.input}: LLMC v{info.version} codec={info.codec_name} "
@@ -56,13 +66,28 @@ def _cmd_info(args) -> int:
     if info.version >= VERSION_V4:
         info = read_index(blob, info)
         tagged = info.version >= VERSION_V5
-        print(f"index: footer verified; encode_batch={info.encode_batch}; "
-              f"per-chunk (offset, bytes, tokens, xxh64"
-              f"{', codec' if tagged else ''}):")
+        ctxed = info.version >= VERSION_V6
+        cols = "offset, bytes, tokens, xxh64" + (", codec" if tagged else "") \
+            + (", context" if ctxed else "")
+        budget = f" ctx_budget={info.ctx_budget};" if ctxed else ""
+        print(f"index: footer verified; encode_batch={info.encode_batch};"
+              f"{budget} per-chunk ({cols}):")
         for i, e in enumerate(info.entries):
             tag = f"  {e.codec_name}" if tagged else ""
+            rec = f"  {e.recipe_name}" if ctxed else ""
             print(f"  chunk {i:4d}: {e.offset:8d} {e.length:6d} "
-                  f"{e.n_tokens:5d} {e.checksum:016x}{tag}")
+                  f"{e.n_tokens:5d} {e.checksum:016x}{tag}{rec}")
+        if ctxed:
+            counts = {}
+            for e in info.entries:
+                name = e.recipe_name.split("(")[0].split("[")[0]
+                counts[name] = counts.get(name, 0) + 1
+            mix = "  ".join(f"{n}×{r}" for r, n in sorted(counts.items()))
+            print(f"contexts: {mix}" if mix else "contexts: (empty)")
+            for j, (name, toks) in enumerate(info.shared_prefixes):
+                print(f"shared prefix [{j}]: {name!r} ({len(toks)} tokens)")
+            if not info.shared_prefixes:
+                print("shared prefixes: none")
     else:
         print("index: none (v2/v3 container — no random access)")
     return 0
@@ -85,9 +110,15 @@ def _cmd_compress(args) -> int:
         # routing needs v5 codec tags, which the ac path never writes
         raise SystemExit("llmc-torch: --route requires the default "
                          "service path (rans codec)")
+    if args.codec == "ac" and (args.context_window or args.shared_prefix):
+        raise SystemExit("llmc-torch: context options need the default "
+                         "service path (rans codec): they write a v6 "
+                         "container")
     pred = _predictor(args)
     data = open(args.input, "rb").read()
     toks = encode(data)
+    sp = encode(open(args.shared_prefix, "rb").read()) \
+        if args.shared_prefix else None
     t0 = time.time()
     if args.codec == "ac":
         comp = LLMCompressor(pred, chunk_size=args.chunk, topk=args.topk,
@@ -96,7 +127,9 @@ def _cmd_compress(args) -> int:
         blob, stats = comp.compress(toks)
     else:
         svc = _service(args, pred, args.chunk, args.topk, DEFAULT_PRECISION)
-        blob, stats = svc.submit_compress(toks).result()
+        blob, stats = svc.submit_compress(
+            toks, shared_prefix=sp,
+            context_window=args.context_window).result()
     open(args.output, "wb").write(blob)
     print(f"{len(data)}B -> {len(blob)}B "
           f"({len(data) / max(1, len(blob)):.2f}x, "
@@ -114,10 +147,14 @@ def _cmd_decompress(args) -> int:
     args.slots = args.slots or info.encode_batch or 16
     pred = _predictor(args)
     t0 = time.time()
-    if info.codec_name == "ac":
+    if info.codec_name == "ac" or args.draft:
+        # the ac codec has no service path; --draft decodes speculatively
+        # on the grouped path (the same tokens, fewer model programs on
+        # predictable text)
         comp = LLMCompressor(pred, chunk_size=info.chunk_size,
                              topk=info.topk, precision=info.precision,
-                             codec="ac", decode_batch=args.slots)
+                             codec=info.codec_name, decode_batch=args.slots,
+                             draft_k=args.draft)
         toks = comp.decompress(blob)
     else:
         svc = _service(args, pred, info.chunk_size, info.topk,
@@ -159,12 +196,24 @@ def main(argv=None) -> int:
                         "per chunk and writes a v5 mixed-codec container; "
                         "a codec name forces that fallback for every "
                         "chunk; 'llm' (default) keeps the v4 path")
+    p.add_argument("--context-window", type=int, default=0, metavar="W",
+                   help="carry each chunk's W-token tail into the next "
+                        "chunk of its stripe (a v6 container with "
+                        "per-chunk context recipes)")
+    p.add_argument("--shared-prefix", default="", metavar="FILE",
+                   help="condition stripe-head chunks on FILE's tokens as "
+                        "a named shared prefix (v6; jobs sharing the "
+                        "prefix restore one prefilled cache lane)")
     p.set_defaults(fn=_cmd_compress)
 
     p = sub.add_parser("decompress", help=".llmc container -> file")
     p.add_argument("input")
     p.add_argument("output")
     model_args(p)
+    p.add_argument("--draft", type=int, default=0, metavar="K",
+                   help="speculative decode on the grouped path: self-"
+                        "draft K tokens per verify program (0 = the "
+                        "service's lock-step)")
     p.set_defaults(fn=_cmd_decompress)
 
     p = sub.add_parser("info", help="print header + index (no model)")

@@ -1367,13 +1367,18 @@ class LLMCompressor:
         # tensor for the port's models): only CDF tables cross to the host
         if ctx is None or consumed.any():
             # fresh context, or the prefix was prefilled device-side —
-            # every lane codes position t at step t
-            steps = []
+            # every lane codes position t at step t. Each step's logits
+            # are copied out at once: a captured step's output buffer is
+            # overwritten by the next step.
+            logits = None
             for t in range(C):
                 lg, state = self.predictor.decode_step(state, prev)
-                steps.append(as_tensor(lg))
+                lg = as_tensor(lg)
+                if logits is None:
+                    logits = lg.new_empty((B, C, lg.shape[-1]))
+                logits[:, t] = lg
                 prev = batch[:, t]
-            return torch.stack(steps, dim=1)
+            return logits
         cl = np.asarray(ctx_len, np.int64)
         lanes = np.arange(B)
         logits = None

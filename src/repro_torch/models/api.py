@@ -37,5 +37,12 @@ def decode_step(params, cfg: ModelConfig, cache, prev_tokens):
     return module_for(cfg).decode_step(params, cfg, cache, prev_tokens)
 
 
-__all__ = ["forward", "init_cache", "decode_step", "module_for",
-           "init_params", "from_jax", "count_params", "schema"]
+def rollback_leaves(cfg: ModelConfig) -> tuple[str, ...]:
+    """The cache leaves that a speculative rollback restores per lane
+    (the rest need no copy: see each family's ``ROLLBACK_LEAVES``)."""
+    return module_for(cfg).ROLLBACK_LEAVES
+
+
+__all__ = ["forward", "init_cache", "decode_step", "rollback_leaves",
+           "module_for", "init_params", "from_jax", "count_params",
+           "schema"]

@@ -15,8 +15,9 @@ recurrent state stays fp32 and is cast to x's dtype in the output
 product; a sequence is padded to a chunk multiple with dt = 0.
 
 One deliberate difference: JAX is functional and returns a new cache;
-here ``decode_step`` writes the conv and SSM states into the cache
-tensors in place, as the dense family does with its K/V.
+here ``decode_step`` writes the conv and SSM states and ``pos`` into the
+cache tensors in place, as the dense family does with its K/V, so a
+captured CUDA graph of the step reads and writes fixed addresses.
 """
 from __future__ import annotations
 
@@ -134,6 +135,11 @@ def forward(params, cfg: ModelConfig, batch: dict):
 
 
 # ------------------------------------------------------------------ decode
+#: the cache leaves a speculative rollback restores per lane: the
+#: recurrence carries its whole context in them
+ROLLBACK_LEAVES = ("conv", "state", "pos")
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None):
     """Recurrent cache {"conv": (L, B, K-1, di+2N) in the model dtype,
@@ -185,5 +191,5 @@ def decode_step(params, cfg: ModelConfig, cache, prev_tokens):
                             cache["conv"][layer], cache["state"][layer])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(cfg, params, x)[:, 0]
-    cache["pos"] = cache["pos"] + 1
+    cache["pos"].add_(1)    # in place: every cache leaf keeps its storage
     return logits, cache

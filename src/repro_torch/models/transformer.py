@@ -14,8 +14,9 @@ neither ``pred-*`` nor ``qwen3-1.7b`` uses them.
 One deliberate difference: JAX is functional and returns a new cache;
 here ``decode_step`` writes the new K/V into the cache tensors in place
 (a full-width cache is hundreds of MB, and a copy per step would double
-the step's memory traffic) and returns the same dict with ``pos``
-advanced.
+the step's memory traffic) and advances ``pos`` in place, so every cache
+leaf keeps its storage: a captured CUDA graph of the step
+(``serve/graphs.py``) reads and writes fixed addresses.
 """
 from __future__ import annotations
 
@@ -62,8 +63,9 @@ def lm_logits(cfg: ModelConfig, params, x):
     if cfg.padded_vocab != cfg.vocab_size:  # mask padding ids
         pad = torch.arange(cfg.padded_vocab, device=x.device) \
             >= cfg.vocab_size
-        logits = torch.where(pad, torch.tensor(NEG_INF, device=x.device),
-                             logits.float()).to(logits.dtype)
+        # a Python scalar, not a tensor made on the host: the decode step
+        # runs under CUDA-graph capture, where a host copy is refused
+        logits = logits.float().masked_fill(pad, NEG_INF).to(logits.dtype)
     return logits
 
 
@@ -109,6 +111,13 @@ def forward(params, cfg: ModelConfig, batch: dict):
                         positions=positions)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(cfg, params, x)
+
+
+#: the cache leaves a speculative rollback restores per lane: only
+#: ``pos``. K/V rows past a lane's ``pos`` are hidden from attention by
+#: ``lengths = pos + 1`` (the kernel and its plain version skip them
+#: exactly) and the next step's write overwrites them.
+ROLLBACK_LEAVES = ("pos",)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
@@ -173,5 +182,5 @@ def decode_step(params, cfg: ModelConfig, cache, prev_tokens):
                        lp["wo_mlp"][layer])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(cfg, params, x)[:, 0]
-    cache["pos"] = pos + 1
+    pos.add_(1)             # in place: every cache leaf keeps its storage
     return logits, cache

@@ -15,16 +15,25 @@ as the JAX package's ``serve/engine.py`` does over its model zoo:
   * ``decode_step`` — one token for every lane. The logits come back as
     a **device tensor** (B, V): the CDF kernels read them on the card,
     and only the small (ids, cdf) tables cross to the host;
+  * ``verify_steps`` / ``rollback`` — speculative decode: T steps in one
+    program, and each lane rewound, in place, to the state after the
+    inputs it accepted;
+  * ``snapshot_slot`` / ``restore_slot`` — one lane copied out, and
+    written back into masked lanes in place (the radix prefix cache);
   * ``reset_slots`` / ``set_decode_len`` — the continuous-batching
     scheduler's slot refill and cache geometry.
+
+On the card every decode step is the replay of a captured CUDA graph
+(``serve/graphs.py``), the counterpart of the JAX engine's jitted step:
+``decode_step``, the prefill of ``begin_decode(prefix=...)`` and, T steps
+to a graph, ``verify_steps``. Their outputs live in the graphs' static
+buffers and the next call on the same cache overwrites them. Every call
+here writes the cache in place, so its leaves keep their storage, which
+the graphs need. On the CPU the same step runs eagerly.
 
 The BOS convention: the model input for chunk tokens x_0..x_{C-1} is
 [BOS, x_0, .., x_{C-2}], so logits[t] parameterizes P(x_t | x_<t) with a
 fresh context per chunk — the paper's chunked setup (§5.4).
-
-Not ported yet (they raise ``NotImplementedError``):
-``verify_steps``/``rollback`` (speculative decode) and
-``snapshot_slot``/``restore_slot`` (the radix prefix cache).
 
 Determinism: TF32 matrix products are switched off explicitly
 (``torch.backends.cuda.matmul.allow_tf32 = False``), and bf16 products
@@ -40,6 +49,7 @@ from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import api as model_api
+from . import graphs
 
 
 class ModelPredictor:
@@ -61,6 +71,10 @@ class ModelPredictor:
         self.vocab_size = cfg.vocab_size
         self.bos_id = bos_id if bos_id is not None else cfg.vocab_size - 1
         self._decode_max_len = 1024
+        self._programs = None if self.device.type == "cpu" else \
+            graphs.DecodePrograms(self._init_cache, self._step_body,
+                                  model_api.rollback_leaves(cfg),
+                                  self.device)
 
     @classmethod
     def random_init(cls, cfg: ModelConfig, *, seed: int = 0, device=None,
@@ -75,11 +89,28 @@ class ModelPredictor:
         return torch.as_tensor(np.asarray(tokens, np.int64),
                                device=self.device)
 
+    def _init_cache(self, batch: int, max_len: int) -> dict:
+        return model_api.init_cache(self.cfg, batch, max_len,
+                                    device=self.device)
+
+    def _step_body(self, cache, prev: torch.Tensor) -> torch.Tensor:
+        """The decode step's body: the cache advanced in place, logits
+        (B, V) returned. What the card captures, and what the CPU runs."""
+        logits, _ = model_api.decode_step(self.params, self.cfg, cache, prev)
+        return logits[..., :self.cfg.vocab_size]
+
     @torch.no_grad()
-    def _decode(self, cache, prev: torch.Tensor):
-        logits, cache = model_api.decode_step(self.params, self.cfg, cache,
-                                              prev)
-        return logits[..., :self.cfg.vocab_size], cache
+    def _step(self, state, prev) -> torch.Tensor:
+        if self._programs is None:
+            return self._step_body(state, self._tokens(prev))
+        return self._programs.step(state, prev)
+
+    @torch.no_grad()
+    def _eager_decode_step(self, state, prev_tokens: np.ndarray):
+        """``decode_step`` run eagerly on any device, for holding the
+        captured step against it (the card tests, ``chip_smoke.py``):
+        (logits (B, V), state), the state advanced in place."""
+        return self._step_body(state, self._tokens(prev_tokens)), state
 
     # --------------------------------------------------- PredictorAdapter
     @torch.no_grad()
@@ -112,9 +143,12 @@ class ModelPredictor:
         or (P,), the cache has consumed [BOS, prefix[:, :-1]] through the
         decode step itself (bit-identical to sequential decode_step
         calls); the caller feeds prefix[:, -1] as the first decode_step
-        input."""
-        cache = model_api.init_cache(self.cfg, batch, self._decode_max_len,
-                                     device=self.device)
+        input. On the card a cache that no caller holds any longer is
+        handed out again, zeroed in place, with the graphs captured over
+        it."""
+        cache = self._init_cache(batch, self._decode_max_len) \
+            if self._programs is None else \
+            self._programs.fresh_cache(batch, self._decode_max_len)
         if prefix is not None:
             prefix = np.asarray(prefix, np.int64)
             if prefix.ndim == 1:
@@ -125,15 +159,81 @@ class ModelPredictor:
                  prefix[:, :-1]], axis=1)
             with obs.span("model.prefill"):
                 for t in range(inp.shape[1]):
-                    _, cache = self._decode(cache, self._tokens(inp[:, t]))
+                    self._step(cache, inp[:, t])
         return cache
 
     def set_decode_len(self, n: int):
         self._decode_max_len = int(n)
 
     def decode_step(self, state, prev_tokens: np.ndarray):
+        """One step of every lane: (logits (B, V), state), the state
+        advanced in place. On the card the logits are the captured step's
+        static output: the next call on this state overwrites them."""
         with obs.span("model.decode_step"):
-            return self._decode(state, self._tokens(prev_tokens))
+            logits = self._step(state, prev_tokens)
+            if self._programs is not None \
+                    and obs.timeline.active() is not None:
+                # a recorded timeline counts the device's time of the step
+                # as model time: wait for it inside the span
+                torch.cuda.current_stream(self.device).synchronize()
+            return logits, state
+
+    @torch.no_grad()
+    def verify_steps(self, state, seq: np.ndarray):
+        """Speculative-decode verify program: seq (B, T) -- column 0 is
+        each lane's previous token, columns 1..T-1 its drafted
+        continuation -- through T decode steps, on the card in one
+        captured graph. Returns (logits (B, T, V), bit-identical to T
+        ``decode_step`` calls, and the opaque snapshots ``rollback``
+        takes). The state has consumed all T inputs; on the card the
+        logits and snapshots are static and the next verify overwrites
+        them."""
+        with obs.span("model.verify"):
+            seq = np.asarray(seq, np.int64)
+            if self._programs is not None:
+                return self._programs.verify(state, seq)
+            logits, snaps = graphs.verify_body(
+                self._step_body, state, self._tokens(seq.T),
+                model_api.rollback_leaves(self.cfg))
+            return logits, graphs.Snapshots(state, snaps)
+
+    @torch.no_grad()
+    def rollback(self, snapshots, accepted: np.ndarray):
+        """Rewind each lane, in place, to the state after it consumed
+        ``accepted[b]`` of the last verify's inputs (0 = before them).
+        Dense lanes rewind ``pos`` (K/V rows past it are hidden and
+        overwritten); ssm lanes also take back their conv and SSM state.
+        Returns the state."""
+        with obs.span("model.rollback"):
+            return graphs.rollback(snapshots, accepted)
+
+    @torch.no_grad()
+    def snapshot_slot(self, state, lane: int) -> dict:
+        """Copies of lane ``lane`` of every cache leaf: the value a radix
+        prefix cache stores for a prefilled shared prefix. Leaves are
+        (L, B, ...) with the lane on axis 1; ``pos`` is (B,). The live
+        cache is untouched."""
+        with obs.span("model.snapshot_slot"):
+            return {name: (leaf[lane] if name == "pos" else
+                           leaf[:, lane]).clone()
+                    for name, leaf in state.items()}
+
+    @torch.no_grad()
+    def restore_slot(self, state, snapshot: dict, mask: np.ndarray):
+        """Write ``snapshot`` (from ``snapshot_slot``) into every cache lane
+        selected by ``mask`` (B,) bool, in place -- the prefix-cache-hit
+        path that replaces re-prefilling those lanes. Returns the same
+        state."""
+        with obs.span("model.restore_slot"):
+            lanes = torch.as_tensor(np.nonzero(np.asarray(mask, bool))[0],
+                                    device=self.device)
+            if lanes.numel():
+                for name, leaf in state.items():
+                    if name == "pos":
+                        leaf[lanes] = snapshot[name]
+                    else:
+                        leaf[:, lanes] = snapshot[name].unsqueeze(1)
+            return state
 
     @torch.no_grad()
     def reset_slots(self, state, mask: np.ndarray):
@@ -154,20 +254,3 @@ class ModelPredictor:
                     else:
                         leaf[:, lanes] = 0
             return state
-
-    # ------------------------------------------------- not ported yet
-    def verify_steps(self, state, seq):
-        raise NotImplementedError(
-            "verify_steps (speculative decode) is not ported yet")
-
-    def rollback(self, snapshots, accepted):
-        raise NotImplementedError(
-            "rollback (speculative decode) is not ported yet")
-
-    def snapshot_slot(self, state, lane: int):
-        raise NotImplementedError(
-            "snapshot_slot (radix prefix cache) is not ported yet")
-
-    def restore_slot(self, state, snapshot, mask):
-        raise NotImplementedError(
-            "restore_slot (radix prefix cache) is not ported yet")

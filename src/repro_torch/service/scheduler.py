@@ -408,64 +408,71 @@ class SlotScheduler:
             cm = am & ~self._is_dec
             tq = self._t % self.C
             truth = self._tok_buf[self._lanes, tq]
-            if self.topk:
-                # fused device top-k -> quantized CDF (kernels/ac_cdf.py on
-                # TPU): no host pmf cumsum per step; same integers
-                ids, cdfs = topk_cdf(logits, self.topk, self.precision)
-                ids = to_numpy(ids)
-                cdfs = to_numpy(cdfs).astype(np.int64)           # (B, K+2)
-                syms = np.zeros(self.B, np.int64)
-                if dm.any():
-                    slots = self._dec.get(cdfs, self.precision, dm)
-                    if tel:   # coder-computed interval freqs, one write
-                        self._fbuf[self._lanes, tq] = self._dec.last_freq
-                    esc = dm & (slots == self.topk)
-                    syms = np.take_along_axis(
-                        ids, np.minimum(slots, self.topk - 1)[:, None],
-                        axis=-1)[:, 0].astype(np.int64)
-                    if esc.any():
-                        u = self._dec.get_uniform(self._esc_bits, esc)
-                        # an id past the vocabulary (a wrong model or
-                        # kernel version) fails its chunk here, on the
-                        # host, before it can reach the embedding gather
-                        bad = esc & (u >= self.predictor.vocab_size)
-                        for b in np.nonzero(bad)[0]:
-                            self._finish_slot(int(b), escape_error(
-                                self._tasks[b].chunk_index, int(u[b]),
-                                self.predictor.vocab_size))
-                        if bad.any():
-                            esc &= ~bad
-                            m, dm, am = m & ~bad, dm & ~bad, am & ~bad
-                        syms = np.where(esc, u, syms)
-                        self._c_escapes.inc(int(esc.sum()))
+            # timeline-only span: the CDF tables' build and transfer and
+            # the host rANS step (the "coder" phase of a PhaseReport)
+            csp = obs.span("coder.step", self.registry, mirror=False) \
+                if rec is not None else obs.trace.NULL
+            with csp:
+                if self.topk:
+                    # fused device top-k -> quantized CDF (kernels/ac_cdf.py on
+                    # TPU): no host pmf cumsum per step; same integers
+                    ids, cdfs = topk_cdf(logits, self.topk, self.precision)
+                    ids = to_numpy(ids)
+                    cdfs = to_numpy(cdfs).astype(np.int64)           # (B, K+2)
+                    syms = np.zeros(self.B, np.int64)
+                    if dm.any():
+                        slots = self._dec.get(cdfs, self.precision, dm)
+                        if tel:   # coder-computed interval freqs, one write
+                            self._fbuf[self._lanes, tq] = self._dec.last_freq
+                        esc = dm & (slots == self.topk)
+                        syms = np.take_along_axis(
+                            ids, np.minimum(slots, self.topk - 1)[:, None],
+                            axis=-1)[:, 0].astype(np.int64)
+                        if esc.any():
+                            u = self._dec.get_uniform(self._esc_bits, esc)
+                            # an id past the vocabulary (a wrong model or
+                            # kernel version) fails its chunk here, on the
+                            # host, before it can reach the embedding gather
+                            bad = esc & (u >= self.predictor.vocab_size)
+                            for b in np.nonzero(bad)[0]:
+                                self._finish_slot(int(b), escape_error(
+                                    self._tasks[b].chunk_index, int(u[b]),
+                                    self.predictor.vocab_size))
+                            if bad.any():
+                                esc &= ~bad
+                                m, dm, am = m & ~bad, dm & ~bad, am & ~bad
+                            syms = np.where(esc, u, syms)
+                            self._c_escapes.inc(int(esc.sum()))
+                            if tel:
+                                self._nesc[esc] += 1
+                    if cm.any():
+                        match = ids == truth[:, None]
+                        has = match.any(axis=-1)
+                        slot_e = np.where(has, match.argmax(axis=-1),
+                                          self.topk)
+                        starts = np.take_along_axis(cdfs, slot_e[:, None],
+                                                    axis=1)[:, 0]
+                        ends = np.take_along_axis(cdfs, slot_e[:, None] + 1,
+                                                  axis=1)[:, 0]
+                        self._enc.put(starts, ends - starts, self.precision,
+                                      cm)
+                        em = cm & ~has
+                        if em.any():
+                            self._enc.put_uniform(truth, self._esc_bits, em)
+                            self._c_escapes.inc(int(em.sum()))
+                            if tel:
+                                self._nesc[em] += 1
+                else:
+                    cdfs = to_numpy(full_cdf(logits, self.precision)
+                                    ).astype(np.int64)            # (B, V+1)
+                    syms = np.zeros(self.B, np.int64)
+                    if dm.any():
+                        syms = self._dec.get(cdfs, self.precision, dm)
                         if tel:
-                            self._nesc[esc] += 1
-                if cm.any():
-                    match = ids == truth[:, None]
-                    has = match.any(axis=-1)
-                    slot_e = np.where(has, match.argmax(axis=-1), self.topk)
-                    starts = np.take_along_axis(cdfs, slot_e[:, None],
-                                                axis=1)[:, 0]
-                    ends = np.take_along_axis(cdfs, slot_e[:, None] + 1,
-                                              axis=1)[:, 0]
-                    self._enc.put(starts, ends - starts, self.precision, cm)
-                    em = cm & ~has
-                    if em.any():
-                        self._enc.put_uniform(truth, self._esc_bits, em)
-                        self._c_escapes.inc(int(em.sum()))
-                        if tel:
-                            self._nesc[em] += 1
-            else:
-                cdfs = to_numpy(full_cdf(logits, self.precision)).astype(
-                    np.int64)                                     # (B, V+1)
-                syms = np.zeros(self.B, np.int64)
-                if dm.any():
-                    syms = self._dec.get(cdfs, self.precision, dm)
-                    if tel:
-                        self._fbuf[self._lanes, tq] = self._dec.last_freq
-                if cm.any():
-                    self._enc.put_symbols(truth.astype(np.int64), cdfs,
-                                          self.precision, cm)
+                            self._fbuf[self._lanes, tq] = self._dec.last_freq
+                    if cm.any():
+                        self._enc.put_symbols(truth.astype(np.int64), cdfs,
+                                              self.precision, cm)
             # write decoded tokens; advance every coding lane. Prefill
             # lanes feed their next context token instead — their logits
             # this step are discarded (context conditioning only).

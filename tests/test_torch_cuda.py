@@ -16,13 +16,26 @@ last bit), invariants exact. ``ssd_intra`` within 2e-5 (fp32) and 1e-4
 in fp32 from the same inputs, in another order; the bf16 kernel splits
 its fp32 factors into two bf16 parts for the tensor cores, which keeps
 ~16 of their 24 bits.
+
+The captured decode programs (``serve/graphs.py``) are held against the
+eager step bit for bit (logits and every cache leaf), for both families
+in fp32 and bf16, on fresh lanes, after a lane reset, after
+``restore_slot`` and after a speculative ``rollback``; the launch
+counters against captured launches x replays; and a cache of another
+length against its own capture.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import base as pbase  # noqa: E402
+from repro_torch.configs import mamba2_130m as pmamba  # noqa: E402
+from repro_torch.configs import qwen3_1_7b as pqwen  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import api as model_api  # noqa: E402
+from repro_torch.serve import graphs  # noqa: E402
+from repro_torch.serve.engine import ModelPredictor  # noqa: E402
 
 _DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 DECODE_SHAPES = [(2, 4, 2, 64, 16), (3, 4, 4, 128, 32), (2, 2, 1, 96, 16),
@@ -556,3 +569,120 @@ def test_decode_attention_misaligned_rows(cuda, G, hd, S, dtype):
     tol = 2e-5 if dtype == "float32" else 3e-2
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=tol)
+
+
+# ------------------------------------------------ captured decode programs
+GRAPH_CFGS = {f"{fam}-{dt}": pbase.tiny_variant(cfg).with_(dtype=dt)
+              for fam, cfg in (("dense", pqwen.CONFIG),
+                               ("ssm", pmamba.CONFIG))
+              for dt in ("float32", "bfloat16")}
+
+
+def _same_cache(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GRAPH_CFGS))
+def test_captured_step_equals_eager_bit_for_bit(cuda, name):
+    """Replays of the captured step against the eager step on a twin
+    cache: logits and every leaf bit for bit, on fresh lanes, after a lane
+    reset, after restore_slot, and through verify_steps + rollback."""
+    cfg = GRAPH_CFGS[name]
+    pred = ModelPredictor.random_init(cfg, seed=0, device=cuda)
+    B, S, T = 4, 32, 4
+    pred.set_decode_len(S)
+    rng = np.random.default_rng(7)
+    tok = lambda *shape: rng.integers(0, cfg.vocab_size - 1,  # noqa: E731
+                                      shape)
+    g = pred.begin_decode(B)
+    e = pred._init_cache(B, S)
+
+    def steps(n):
+        for _ in range(n):
+            prev = tok(B)
+            lg, _ = pred.decode_step(g, prev)
+            le, _ = pred._eager_decode_step(e, prev)
+            assert torch.equal(lg, le)
+            _same_cache(g, e)
+
+    steps(5)
+    mask = np.array([False, True, False, True])
+    pred.reset_slots(g, mask)
+    pred.reset_slots(e, mask)
+    steps(3)
+    snap = pred.snapshot_slot(g, 0)
+    pred.restore_slot(g, snap, mask)
+    pred.restore_slot(e, snap, mask)
+    steps(3)
+    seq = tok(B, T)
+    lg, snaps = pred.verify_steps(g, seq)
+    le, esnaps = graphs.verify_body(pred._step_body, e,
+                                    pred._tokens(seq.T),
+                                    model_api.rollback_leaves(cfg))
+    assert torch.equal(lg, le)
+    acc = np.array([0, 1, T, 2])
+    pred.rollback(snaps, acc)
+    graphs.rollback(graphs.Snapshots(e, esnaps), acc)
+    _same_cache(g, e)
+    steps(4)
+    assert graphs.STATS["captures"] >= 2
+
+
+@pytest.mark.cuda
+def test_launch_counts_are_captured_launches_times_replays(cuda):
+    cfg = GRAPH_CFGS["dense-bfloat16"]
+    pred = ModelPredictor.random_init(cfg, seed=0, device=cuda)
+    pred.set_decode_len(16)
+    state = pred.begin_decode(2)
+    ops.reset_launches()
+    graphs.reset_stats()
+    n = 6
+    for _ in range(n):
+        pred.decode_step(state, np.array([1, 2]))
+    prog = state.slot.step
+    assert prog.launches == {"decode_attention": cfg.n_layers}
+    assert graphs.STATS["captures"] == 1
+    assert graphs.STATS["step_replays"] == n
+    # the eager warm-up before capture launches for real, once
+    assert ops.LAUNCHES["decode_attention"] == cfg.n_layers * (n + 1)
+    seq = np.ones((2, 3), np.int64)
+    ops.reset_launches()
+    for _ in range(2):
+        _, snaps = pred.verify_steps(state, seq)
+        pred.rollback(snaps, np.array([1, 3]))
+    prog = state.slot.verify[3][1]
+    assert prog.launches == {"decode_attention": 3 * cfg.n_layers}
+    assert ops.LAUNCHES["decode_attention"] == 3 * cfg.n_layers * (2 + 1)
+
+
+@pytest.mark.cuda
+def test_each_cache_length_and_holder_has_its_own_capture(cuda):
+    """A cache of another length captures its own graph; a cache that is
+    let go is handed out again, zeroed, with its graph; a cache still
+    held is not."""
+    cfg = GRAPH_CFGS["dense-float32"]
+    pred = ModelPredictor.random_init(cfg, seed=0, device=cuda)
+    graphs.reset_stats()
+    out = {}
+    for S in (16, 48):
+        pred.set_decode_len(S)
+        g, e = pred.begin_decode(2), pred._init_cache(2, S)
+        for t in range(3):
+            prev = np.array([t, t + 5])
+            lg, _ = pred.decode_step(g, prev)
+            le, _ = pred._eager_decode_step(e, prev)
+            assert torch.equal(lg, le)
+        out[S] = g.slot
+    assert graphs.STATS["captures"] == 2
+    del g
+    a = pred.begin_decode(2)                  # S = 48 again: reused
+    assert a.slot is out[48] and int(a["pos"].abs().sum()) == 0
+    assert float(a["k"].abs().sum()) == 0
+    pred.decode_step(a, np.array([1, 1]))
+    b = pred.begin_decode(2)                  # a is held: a new cache
+    assert b.slot is not a.slot
+    pred.decode_step(b, np.array([1, 1]))
+    assert graphs.STATS["captures"] == 3

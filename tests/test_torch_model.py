@@ -175,16 +175,6 @@ def test_unported_cache_variants_raise(override):
         api.init_cache(cfg, 2, 8)
 
 
-def test_unported_predictor_paths_raise():
-    pred = ModelPredictor.random_init(ppp.PRED_TINY, seed=0, device="cpu")
-    for call in (lambda: pred.verify_steps(None, np.zeros((1, 2))),
-                 lambda: pred.rollback(None, np.zeros(1)),
-                 lambda: pred.snapshot_slot(None, 0),
-                 lambda: pred.restore_slot(None, None, np.ones(1, bool))):
-        with pytest.raises(NotImplementedError):
-            call()
-
-
 def test_registry_resolves_predictors_and_configs():
     assert get_config("pred-base") is ppp.PRED_BASE
     assert get_config("qwen3-1.7b") == pqwen.CONFIG

@@ -1,7 +1,9 @@
 """The port's slice as a whole on the CPU: predictor, service, CLI.
 
 * A JAX ``ModelPredictor`` and the port's, on converted weights, see the
-  same chunks: per-step top-k ids equal and CDFs within one quantum.
+  same chunks: per-step top-k ids equal (a near tie of JAX logits may be
+  ordered either way) and CDFs within one quantum, also on the text that
+  puts a near tie into the top 48.
 * The port's service round trip is lossless, its bytes equal the port's
   grouped-path bytes, chunks decode on other lanes, and ``--topk 0``
   (full-vocabulary CDF) round-trips.
@@ -26,7 +28,7 @@ from repro_torch.cli import main as cli_main  # noqa: E402
 from repro_torch.configs import paper_predictors as ppp  # noqa: E402
 from repro_torch.core import LLMCompressor  # noqa: E402
 from repro_torch.core import cdf  # noqa: E402
-from repro_torch.data.synthetic import human_like  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.data.tokenizer import decode, encode  # noqa: E402
 from repro_torch.models import schema  # noqa: E402
 from repro_torch.serve.engine import ModelPredictor  # noqa: E402
@@ -49,29 +51,74 @@ def port_pred():
 
 
 def _text(n, seed=1, domain="wiki"):
-    return encode(human_like(domain, n, seed=seed))
+    return encode(synthetic.human_like(domain, n, seed=seed))
 
 
-@pytest.mark.parametrize("k", [8, 48])
-def test_predictors_give_the_same_cdfs(predictors, k):
+LOGIT_ATOL = 1e-4
+
+
+def _assert_same_topk(jl, k, ids_p, cdf_p, ids_j, cdf_j):
+    """The port's top-k CDF rows against JAX's, row by row. Ids come in
+    JAX's order, except inside a run of ids whose JAX logits lie within
+    ``LOGIT_ATOL`` (the logits' own tolerance) of their neighbour's: the
+    two packages may order a near tie either way, so inside a run the
+    id sets match. Each id's interval width (its quantized probability)
+    is within one quantum of JAX's, and so is every CDF point that does
+    not fall strictly inside a run."""
+    for r in range(ids_j.shape[0]):
+        lj = jl[r, ids_j[r]]
+        starts = np.r_[0, np.nonzero(np.abs(np.diff(lj)) > LOGIT_ATOL)[0]
+                       + 1, k]
+        for a, b in zip(starts[:-1], starts[1:]):
+            assert set(ids_p[r, a:b]) == set(ids_j[r, a:b]), (r, a, b)
+        wj = dict(zip(ids_j[r].tolist(), np.diff(cdf_j[r])[:k]))
+        wp = dict(zip(ids_p[r].tolist(), np.diff(cdf_p[r])[:k]))
+        assert all(abs(int(wp[i]) - int(wj[i])) <= 1 for i in wj), r
+        edge = np.zeros(k + 2, bool)
+        edge[starts] = True
+        edge[k + 1] = True
+        assert np.abs(cdf_p[r, edge] - cdf_j[r, edge]).max() <= 1, r
+
+
+def _same_cdfs(predictors, k, chunks):
+    """Both predictors decode ``chunks`` (B, C) step by step; returns the
+    number of near ties (adjacent top-k JAX logits within LOGIT_ATOL)."""
     jpred, ppred = predictors
-    B, C = 3, 12
-    chunks = _text(B * C, seed=2).reshape(B, C)
+    B, C = chunks.shape
     for pred in predictors:
         pred.set_decode_len(C)
     js, ps = jpred.begin_decode(B), ppred.begin_decode(B)
     prev = np.full(B, jpred.bos_id, np.int32)
     assert ppred.bos_id == jpred.bos_id and ppred.vocab_size == 258
+    ties = 0
     for t in range(C):
         jl, js = jpred.decode_step(js, prev)
         pl, ps = ppred.decode_step(ps, prev)
         assert isinstance(pl, torch.Tensor) and pl.shape == jl.shape
-        np.testing.assert_allclose(pl.numpy(), jl, atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(pl.numpy(), jl, atol=LOGIT_ATOL,
+                                   rtol=1e-4)
         ids_j, cdf_j = (np.asarray(a) for a in jcdf.topk_cdf_jit(jl, k, 16))
         ids_p, cdf_p = (cdf.to_numpy(a) for a in cdf.topk_cdf(pl, k, 16))
-        assert np.array_equal(ids_p, ids_j)
-        assert np.abs(cdf_p - cdf_j).max() <= 1
+        _assert_same_topk(jl, k, ids_p, cdf_p, ids_j, cdf_j)
+        ties += int((np.abs(np.diff(np.take_along_axis(jl, ids_j, 1)))
+                     <= LOGIT_ATOL).sum())
         prev = chunks[:, t]
+    return ties
+
+
+@pytest.mark.parametrize("k", [8, 48])
+def test_predictors_give_the_same_cdfs(predictors, k):
+    _same_cdfs(predictors, k, _text(3 * 12, seed=2).reshape(3, 12))
+
+
+def test_predictors_give_the_same_cdfs_at_a_near_tie(predictors,
+                                                     monkeypatch):
+    """The text ``human_like`` draws when ``hash('wiki') % 2**16`` is 173:
+    at step 8, lane 0, ids 187 and 145 sit at top-48 positions 37-38 with
+    JAX logits 2.4e-7 apart, which the port rounds to one value."""
+    monkeypatch.setattr(synthetic, "hash", lambda s: 173, raising=False)
+    assert _same_cdfs(predictors, 48,
+                      _text(3 * 12, seed=2).reshape(3, 12)) >= 1
 
 
 def test_service_round_trip_other_lanes_and_grouped_bytes(port_pred):
@@ -114,7 +161,7 @@ def test_grouped_ac_codec_round_trip(port_pred):
 
 def test_cli_round_trip(tmp_path, capsys):
     src = tmp_path / "in.txt"
-    src.write_bytes(human_like("novel", 200, seed=8))
+    src.write_bytes(synthetic.human_like("novel", 200, seed=8))
     arc, back = tmp_path / "in.llmc", tmp_path / "back.txt"
     common = ["--predictor", "pred-tiny", "--device", "cpu", "--slots", "4"]
     assert cli_main(["compress", str(src), str(arc), "--chunk", "32",
