@@ -91,8 +91,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    service (a cache miss) must write the second's container byte for
    byte. Phase 7 also runs ``compress --context-window 16
    --shared-prefix`` and ``decompress --draft 4`` through the CLI.
-12. One JSON line describing every kernel, then the result line
+13. The paper's experiment (``pred-base``, fp32, into a fresh cache):
+   every leaf's gradient finite and nonzero at step 0 of the recipe,
+   then ``train/prep.py``'s recipe (220 AdamW steps of 16 x 192 tokens;
+   the loss every 50 steps, the mean of the last 10 held below that of
+   the first 10, and no kernel launched by training), the checkpoint
+   reloaded bit for bit, a train step timed (host and device ms, tokens/s,
+   peak memory); ``llm_dataset("wiki", 4096)`` generated through the
+   captured step (sampled tokens/s; ``decode_attention`` = n_layers x
+   (replays + warm-up steps)); that text compressed by
+   ``LLMCompressor(chunk_size=64, topk=32, decode_batch=16)`` and by
+   ``llmc-torch compress`` (CLI defaults, v4), both decompressed byte for
+   byte by fresh processes that load the checkpoint; the ratio held above
+   ``gzip_ratio`` (``tests/test_system.py``'s headline check). Printed,
+   not held: chunks 16 and 128, own text against ``human_like_ood``,
+   ``exact=False`` against exact, ``entropy.analyze`` of the text.
+14. Five AdamW steps of ``qwen3-1.7b`` at full width (bf16 parameters,
+   fp32 moments, remat per layer) on one fixed 8 x 256 batch: every
+   leaf's gradient finite and nonzero at step 1, the loss lower at step
+   5 than at step 1; step ms, tokens/s, peak memory and 6 N tokens /
+   step time as a share of 989 TFLOP/s.
+12. Last, one JSON line describing every kernel, then the result line
    ``{"ok": true, "device": {...}}`` as the last line of stdout.
+
+The CLI's ``pred-*`` predictors train at first use: phase 7 trains
+``pred-base`` into ``build/chip_smoke/torch_cache`` (``$REPRO_TORCH_CACHE``
+for the whole run), phase 13 into a cache of its own.
 
 It exits non-zero, printing no result, without a CUDA device or outside
 a checkout of the repository. Built libraries go to ``build/``. It runs
@@ -1297,6 +1321,337 @@ def phase_cli() -> None:
             f"({src.stat().st_size} B -> {arc.stat().st_size} B)")
 
 
+# ---------------------------------------------------------- phase 13
+def _named(tree, prefix=""):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _named(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def check_grads(grads, what: str) -> None:
+    """Every leaf's gradient finite and nonzero, each leaf named."""
+    import torch
+    rows = []
+    for name, g in _named(grads):
+        finite = bool(torch.isfinite(g).all())
+        amax = float(g.float().abs().max())
+        rows.append(f"{name} {amax:.3g}")
+        if not finite or amax == 0.0:
+            fail(f"{what}: gradient of {name} is "
+                 f"{'not finite' if not finite else 'zero'}")
+    log(f"[train] {what}: every leaf's gradient finite and nonzero (max "
+        f"|g|): " + ", ".join(rows))
+
+
+def time_train_steps(step_fn, params, opt_state, batch, n: int = 10):
+    """Host ms per train step (a synchronised host clock over ``n``
+    steps, after 2 warm-up steps), device ms and kernels per step
+    (``torch.profiler``, 3 steps) and the peak memory of the window."""
+    import torch
+    state = [params, opt_state]
+
+    def one():
+        state[0], state[1], m = step_fn(state[0], state[1], batch)
+        return m
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        one()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) / n * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    dev, kernels, api = profile_calls(one, 3)
+    return dict(host_ms=host, device_ms=dev, kernels=kernels,
+                host_launch_calls=api, peak_bytes=peak)
+
+
+def phase_paper() -> dict:
+    """The paper's experiment on the card at the JAX recipe's sizes:
+    ``pred-base`` trained by ``train/prep.py`` into a fresh cache, its
+    checkpoint reloaded bit for bit, ``llm_dataset("wiki", 4096)``
+    generated through the captured decode step, compressed by
+    ``LLMCompressor(chunk_size=64, topk=32, decode_batch=16)`` and by
+    ``llmc-torch compress`` (CLI defaults), both decompressed by fresh
+    processes that load the checkpoint; the ratio held above gzip's
+    (``tests/test_system.py``'s headline check)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_predictors import PRED_BASE
+    from repro_torch.core import LLMCompressor, entropy
+    from repro_torch.core.baselines import gzip_ratio
+    from repro_torch.data.synthetic import human_like_ood
+    from repro_torch.data.tokenizer import encode
+    from repro_torch.kernels import ops
+    from repro_torch.models import api as model_api
+    from repro_torch.serve import graphs
+    from repro_torch.train import prep
+    from repro_torch.train.checkpoint import restore_latest
+    from repro_torch.train.optimizer import AdamWConfig, tree_map
+    from repro_torch.train.train_loop import (init_train_state,
+                                              make_train_step,
+                                              value_and_grad)
+    name, cfg = "pred-base", PRED_BASE
+    work = ROOT / "build" / "chip_smoke" / "paper"
+    shutil.rmtree(work, ignore_errors=True)
+    cache = work / "cache"
+    cache.mkdir(parents=True)
+    out = {}
+
+    # step 0: the recipe's first batch on the recipe's initial weights
+    pipe = prep.corpus_pipeline(0)
+    batch0 = {"tokens": pipe.global_batch_array(0)}
+    params0 = model_api.init_params(cfg, 0, "cuda")
+    before = dict(ops.LAUNCHES)
+    loss0, grads0 = value_and_grad(params0, cfg, batch0)
+    check_grads(grads0, f"{name} step 0 (loss {float(loss0):.4f})")
+    del grads0, params0
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, _ = prep.train_predictor(name, seed=0, device="cuda",
+                                     cache_dir=cache, log=log)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    if ops.LAUNCHES != before:
+        fail(f"training launched kernels: {before} -> {ops.LAUNCHES}")
+    steps = prep.TRAIN_STEPS[name]
+    restored, step = restore_latest(
+        prep.checkpoint_dir(name, 0, cache),
+        {"params": params, "losses": torch.zeros(steps)})
+    if restored is None or step != steps:
+        fail(f"checkpoint of {name} not found after training ({step})")
+    for (k, a), (_, b) in zip(_named(params), _named(restored["params"])):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"reloaded checkpoint: {k} differs from the trained leaf")
+    losses = restored["losses"].numpy()
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    if not last < first:
+        fail(f"{name} loss did not fall: first 10 steps {first:.4f}, last "
+             f"10 {last:.4f}")
+    tok_step = prep.BATCH * (prep.SEQ_LEN + 1)
+    log(f"[train] {name}: {steps} steps in {out['train_s']:.1f} s "
+        f"(corpus build and checkpoint included); loss mean of the first "
+        f"10 steps {first:.4f}, last 10 {last:.4f}; every 50: "
+        + ", ".join(f"{i}: {losses[i]:.4f}" for i in range(0, steps, 50))
+        + f"; checkpoint reloaded bit for bit")
+
+    opt = AdamWConfig(learning_rate=3e-3, warmup_steps=20,
+                      total_steps=steps)
+    _, opt_state = init_train_state(cfg, 0, "cuda", opt)
+    tr = time_train_steps(make_train_step(cfg, opt=opt),
+                          tree_map(lambda p: p.clone(), params), opt_state,
+                          {"tokens": pipe.global_batch_array(1)})
+    tr["tokens_per_s"] = tok_step / tr["host_ms"] * 1e3
+    out["step"] = tr
+    log(f"[train] {name} train step (16 x 193 tokens, fp32): host "
+        f"{tr['host_ms']:.3f} ms, device {_ms(tr['device_ms'], 3)} (idle "
+        f"{_idle(tr['device_ms'], tr['host_ms'])}), {_count(tr['kernels'])}"
+        f" kernels and {tr['host_launch_calls']:.0f} host launch calls per "
+        f"step; {tr['tokens_per_s']:.0f} tokens/s; peak memory "
+        f"{tr['peak_bytes'] / 2**20:.1f} MiB")
+    del params, opt_state
+
+    # generation through the captured decode step
+    ops.reset_launches()
+    graphs.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = prep.llm_dataset("wiki", 4096, device="cuda", cache_dir=cache)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches, st = dict(ops.LAUNCHES), dict(graphs.STATS)
+    want = cfg.n_layers * (st["step_replays"] + st["warmup_steps"])
+    if launches["decode_attention"] != want or launches["decode_attention"] \
+            <= 0:
+        fail(f"generation: decode_attention launches "
+             f"{launches['decode_attention']} != {cfg.n_layers} x "
+             f"({st['step_replays']} replays + {st['warmup_steps']} "
+             f"warm-up steps)")
+    n_docs = -(-4096 // 384)
+    gen_tokens = n_docs * (384 - 128)
+    out["generate"] = dict(seconds=gen_s, tokens=gen_tokens,
+                           tokens_per_s=gen_tokens / gen_s,
+                           launches=launches, graph_stats=st)
+    log(f"[generate] llm_dataset('wiki', 4096): {n_docs} documents x (128 "
+        f"prompt + 256 sampled) tokens in {gen_s:.2f} s (checkpoint load "
+        f"and capture included): {gen_tokens / gen_s:.0f} sampled tokens/s;"
+        f" {st['step_replays']} replays + {st['warmup_steps']} warm-up "
+        f"steps, decode_attention {launches['decode_attention']} = "
+        f"{cfg.n_layers} x {st['step_replays'] + st['warmup_steps']}")
+
+    pred = prep.predictor(name, device="cuda", cache_dir=cache, log=log)
+    data = encode(raw)
+    gz = gzip_ratio(raw)
+    ops.reset_launches()
+    comp = LLMCompressor(pred, chunk_size=64, topk=32, decode_batch=16)
+    blob, _ = comp.compress(data)
+    out["launches"] = dict(ops.LAUNCHES)
+    if not np.array_equal(comp.decompress(blob), data):
+        fail("LLMCompressor round trip of the generated text differs")
+    ratio = len(raw) / len(blob)
+    (work / "gen.txt").write_bytes(raw)
+    (work / "gen64.llmc").write_bytes(blob)
+
+    # the CLI, defaults (pred-base, chunk 128, top-k 48, 16 slots, v4)
+    env = dict(os.environ, REPRO_TORCH_CACHE=str(cache))
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    for cmd in (["compress", "gen.txt", "gen.llmc"],
+                ["decompress", "gen.llmc", "back.txt"]):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.cli", *cmd],
+                           env=env, cwd=work, capture_output=True, text=True,
+                           timeout=600)
+        if r.returncode != 0 or "loaded" not in r.stderr \
+                or "training" in r.stderr:
+            fail(f"llmc-torch {cmd[0]} (exit {r.returncode}) did not load "
+                 f"the trained checkpoint:\n{r.stdout}\n{r.stderr}")
+        log(f"[paper] llmc-torch {cmd[0]}: {r.stdout.strip()} "
+            f"({time.perf_counter() - t0:.1f} s with start-up)")
+    if (work / "back.txt").read_bytes() != raw:
+        fail("CLI round trip of the generated text differs")
+    cli_ratio = len(raw) / (work / "gen.llmc").stat().st_size
+    r = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke"
+         ".decompress_paper_in_fresh_process(sys.argv[1]))", str(work)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0 or "loaded" not in r.stderr:
+        fail(f"fresh-process decompression of the LLMCompressor archive "
+             f"exited {r.returncode}:\n{r.stdout}\n{r.stderr}")
+    if not np.array_equal(np.load(work / "gen64.npy"), data):
+        fail("fresh-process decompression of the generated text differs")
+    log(f"[paper] {len(raw)} B of pred-base's own wiki text: "
+        f"LLMCompressor(chunk 64, top-k 32, 16 lanes) {len(blob)} B, ratio "
+        f"{ratio:.3f}; CLI defaults (chunk 128, top-k 48, v4) ratio "
+        f"{cli_ratio:.3f}; gzip_ratio {gz:.3f}; both decompressed byte for "
+        f"byte by fresh processes that loaded the checkpoint; launches "
+        f"{out['launches']}")
+    if not ratio > gz:
+        fail(f"trained pred-base's ratio {ratio:.3f} on its own text is not "
+             f"above gzip's {gz:.3f}")
+
+    # printed, not held
+    by_chunk = {}
+    for c in (16, 128):
+        b, _ = LLMCompressor(pred, chunk_size=c, topk=32,
+                             decode_batch=16).compress(data)
+        by_chunk[c] = len(raw) / len(b)
+    human = encode(human_like_ood("wiki", 3072, seed=99))
+    b_h, _ = comp.compress(human)
+    b_o, _ = comp.compress(data[:3072])
+    est, _ = comp.compress(data, exact=False)
+    ana = entropy.analyze(raw.decode("utf-8", "replace"))
+    out.update(ratio=ratio, cli_ratio=cli_ratio, gzip_ratio=gz,
+               ratio_chunk16=by_chunk[16], ratio_chunk128=by_chunk[128],
+               own_ratio_3072=3072 / len(b_o),
+               human_ood_ratio_3072=3072 / len(b_h),
+               exact_bytes=len(blob), estimate_bytes=len(est),
+               entropy=ana)
+    log(f"[paper] ratio at chunk 16 {by_chunk[16]:.3f}, 64 {ratio:.3f}, 128 "
+        f"{by_chunk[128]:.3f}; own text (3072 B) {out['own_ratio_3072']:.3f}"
+        f" against human_like_ood('wiki', 3072, seed=99) "
+        f"{out['human_ood_ratio_3072']:.3f}; exact=True {len(blob)} B, "
+        f"exact=False {len(est)} B ({len(est) / len(blob) - 1:+.2%}); "
+        f"entropy.analyze {ana}")
+    del pred, comp
+    torch.cuda.empty_cache()
+    return out
+
+
+def decompress_paper_in_fresh_process(work: str) -> int:
+    """Phase 13's LLMCompressor archive decoded by a new interpreter that
+    loads the trained pred-base from the cache."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    from repro_torch.core import LLMCompressor
+    from repro_torch.train import prep
+    work = pathlib.Path(work)
+    pred = prep.predictor("pred-base", device="cuda", cache_dir=work / "cache")
+    comp = LLMCompressor(pred, chunk_size=64, topk=32, decode_batch=16)
+    np.save(work / "gen64.npy",
+            comp.decompress((work / "gen64.llmc").read_bytes()))
+    return 0
+
+
+# ---------------------------------------------------------- phase 14
+def phase_train_full_width() -> dict:
+    """Five AdamW steps of qwen3-1.7b at full width (bf16 parameters, fp32
+    moments, per-layer remat) on one fixed 8 x 256 batch: every leaf's
+    gradient finite and nonzero at step 1, the loss falling from step 1
+    to step 5, the step's time, tokens/s, peak memory and model FLOP
+    share."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.schema import count_params
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import (init_train_state,
+                                              make_train_step,
+                                              value_and_grad)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-1.7b")
+    B, S = 8, 256
+    batch = {"tokens": np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (B, S))}
+    # lr 1e-3: an update below half a bf16 ulp of its weight (2**-9
+    # relative) would round away
+    opt = AdamWConfig(learning_rate=1e-3, warmup_steps=1, total_steps=5)
+    params, opt_state = init_train_state(cfg, 0, "cuda", opt)
+    before = dict(ops.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    loss1, grads = value_and_grad(params, cfg, batch)
+    check_grads(grads, f"qwen3-1.7b step 1 (loss {float(loss1):.4f})")
+    del grads
+    step = make_train_step(cfg, opt=opt)
+    losses, host = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        host.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    dev, kernels, _ = profile_calls(lambda: step(params, opt_state, batch),
+                                    1)
+    if ops.LAUNCHES != before:
+        fail(f"full-width training launched kernels: {before} -> "
+             f"{ops.LAUNCHES}")
+    if not losses[-1] < losses[0]:
+        fail(f"qwen3-1.7b loss did not fall over 5 steps: {losses}")
+    n = count_params(cfg)
+    # the input embedding is a lookup, no matmul: N counts the rest
+    n_mm = n - cfg.padded_vocab * cfg.d_model
+    step_ms = float(np.median(host[1:]))
+    mfu = 6 * n_mm * B * S / (step_ms / 1e3) / BF16_FLOPS
+    log(f"[train] qwen3-1.7b full width ({n / 1e9:.3f} B params, bf16, fp32"
+        f" m/v, remat per layer), {B} x {S} tokens: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; step host ms " + ", ".join(f"{x:.1f}" for x in host)
+        + f" (median of steps 2-5 {step_ms:.1f} ms, "
+        f"{B * S / step_ms * 1e3:.0f} tokens/s); peak memory "
+        f"{peak / 2**30:.2f} GiB; 6 N tokens / step time (N = "
+        f"{n_mm / 1e9:.3f} B without the input embedding) = "
+        f"{mfu:.1%} of 989 TFLOP/s; one more step under the profiler: "
+        f"device {_ms(dev, 1)} (idle {_idle(dev, step_ms)}), "
+        f"{_count(kernels)} kernels")
+    del params, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_host_ms=host, step_ms=step_ms,
+                tokens_per_s=B * S / step_ms * 1e3, peak_bytes=peak,
+                params=n, matmul_params=n_mm, mfu=mfu, device_ms=dev,
+                kernels=kernels)
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the same synthetic texts in every run and in every child
@@ -1316,6 +1671,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
+    # the CLI's pred-* predictors train at first use: into a cache of this
+    # run's own, by the full recipe
+    cache = ROOT / "build" / "chip_smoke" / "torch_cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    os.environ["REPRO_TORCH_CACHE"] = str(cache)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1362,6 +1722,8 @@ def main() -> int:
     routed_ssm = phase_routed(pred)
     del pred
     torch.cuda.empty_cache()
+    phase_paper()
+    phase_train_full_width()
 
     paths = {"cdf_points": full, "flash_attention": routed,
              "ssd_intra": routed_ssm}

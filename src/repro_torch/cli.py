@@ -29,11 +29,20 @@ lane, one verify program over K + 1 positions, the same bytes.
 shared prefixes) without any model.
 
 Predictors: ``--predictor`` names a ``pred-*`` predictor or a registered
-config (``qwen3-1.7b``, ``mamba2-130m``); the port has no trained weights
-yet, so the model is a **random init made from ``--seed``** (default 0), on
-``--device`` (default ``cuda``; ``cpu`` on request). Decompress needs the
-same predictor, seed and device as compress: the engine and its weights
-are part of the coding geometry.
+config (``qwen3-1.7b``, ``mamba2-130m``), on ``--device`` (default
+``cuda``; ``cpu`` on request).
+
+* A ``pred-*`` predictor is **trained**, as the JAX package's ``llmc``
+  has it: the first use trains it by the recipe of ``train/prep.py``
+  (``--seed`` is the training seed) and saves a checkpoint in the cache
+  (``results/torch_cache/`` in the checkout, or ``$REPRO_TORCH_CACHE``);
+  every later process loads that checkpoint and never trains again.
+* A registered full-width config is a **random init made from
+  ``--seed``** (default 0): no trained weights exist for it, and its
+  ratios fall below 1.
+
+Decompress needs the same predictor, seed, cache and device as compress:
+the engine and its weights are part of the coding geometry.
 """
 from __future__ import annotations
 
@@ -43,9 +52,14 @@ import time
 
 
 def _predictor(args):
-    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.registry import PREDICTORS, get_config
+    from repro_torch.device import resolve_device
     from repro_torch.serve.engine import ModelPredictor
     cfg = get_config(args.predictor)
+    resolve_device(args.device)             # no card: raise before training
+    if args.predictor in PREDICTORS:
+        from repro_torch.train.prep import predictor
+        return predictor(args.predictor, seed=args.seed, device=args.device)
     print(f"llmc-torch: note: {args.predictor} runs with UNTRAINED random "
           f"weights (seed {args.seed}); expect ratios below 1",
           file=sys.stderr)
@@ -169,14 +183,21 @@ def _cmd_decompress(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="llmc-torch",
-        description="LLM next-token-prediction compressor (PyTorch port)")
+        description="LLM next-token-prediction compressor (PyTorch port)",
+        epilog="pred-* predictors are trained at first use and loaded from "
+               "the cache (results/torch_cache/ in the checkout, or "
+               "$REPRO_TORCH_CACHE) ever after; registered configs "
+               "(qwen3-1.7b, mamba2-130m) are random weights from --seed.")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     def model_args(p):
         p.add_argument("--predictor", default="pred-base",
-                       help="pred-* predictor or registered config name")
+                       help="pred-* predictor (trained at first use and "
+                            "cached) or registered config name (random "
+                            "weights)")
         p.add_argument("--seed", type=int, default=0,
-                       help="seed of the random-init weights")
+                       help="training seed of a pred-* predictor; seed of "
+                            "a registered config's random weights")
         p.add_argument("--device", default="cuda",
                        help="torch device (default cuda; cpu on request)")
         # default: 16 for compress; for decompress, the v4 container's

@@ -5,6 +5,12 @@ plain PyTorch version (``kernels/ref.py``), a CUDA tensor to the kernel,
 launched on the current stream -- or to an exception. There is no
 fallback from a CUDA tensor to the plain version.
 
+No kernel has a backward. A wrapper therefore refuses, on the CPU as on
+the card, an input that requires a gradient while grad mode is on: on
+the card its result, written through ``data_ptr()``, would carry no
+``grad_fn``, and training would lose that gradient without an error.
+The training forward runs ``models/layers.py attention_masked`` instead.
+
 Each wrapper checks device, dtype, shape and strides, launches, checks
 the ``cudaError_t`` the C entry point returns (a refused launch never
 runs, and a later synchronise would not report it), and adds one to its
@@ -53,6 +59,14 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
 
 
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires a gradient, and the kernel has no "
+            f"backward (call it under torch.no_grad(); the training forward "
+            f"uses attention_masked)")
+
+
 def _raise_on(name: str, rc: int) -> None:
     if rc != 0:
         lib = build.library(name)
@@ -91,6 +105,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q (B, H, hd); k/v cache of one layer (B, S, K, hd), read through
     its strides; lengths (B,) int32 valid prefix per lane -> (B, H, hd)
     in q's dtype."""
+    _refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return ref.decode_attention(q, k_cache, v_cache, lengths)
     _check_cuda("decode_attention", q, k_cache, v_cache, lengths)
@@ -175,6 +190,7 @@ def topk_cdf(logits: torch.Tensor, k: int, precision: int):
     """logits (R, V), rows read through their stride -> (ids (R, k)
     int32, cdf (R, k+2) int32) with cdf[:, 0] == 0 and cdf[:, -1] ==
     2**precision."""
+    _refuse_grad("topk_cdf", logits)
     if logits.device.type == "cpu":
         return ref.topk_cdf(logits, k, precision)
     _check_logits("topk_cdf", logits)
@@ -235,6 +251,7 @@ def cdf_points_staged(V: int, dtype: torch.dtype) -> bool:
 def cdf_points(logits: torch.Tensor, precision: int) -> torch.Tensor:
     """logits (R, V), rows read through their stride -> int32 CDF
     interior points (R, V): strictly increasing, last == 2**precision."""
+    _refuse_grad("cdf_points", logits)
     if logits.device.type == "cpu":
         return ref.cdf_points(logits, precision)
     _check_logits("cdf_points", logits)
@@ -289,6 +306,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     so the caller's transpose back to the model's layout is free. Any Sq
     and Sk; hd a multiple of 8 up to 128; H % K == 0; ``window`` None or
     >= 1."""
+    _refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal, window)
     _check_cuda("flash_attention", q, k, v)
@@ -365,6 +383,7 @@ def ssd_intra(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     views of its conv output) -> (y (R, Q, H, P), chunk-end state (R, H,
     P, N)), both float32. Any Q up to 4096, P <= 64, N <= 128; x, dt, Bm
     and Cm share the dtype."""
+    _refuse_grad("ssd_intra", x, dt, A, Bm, Cm)
     if x.device.type == "cpu":
         return ref.ssd_intra(x, dt, A, Bm, Cm)
     _check_cuda("ssd_intra", x, dt, A, Bm, Cm)

@@ -65,7 +65,9 @@ def flash_attention(q, k, v, causal: bool = True, window=None):
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) \
         * (1.0 / math.sqrt(hd))
     mask = attention_mask(Sq, Sk, causal, window, q.device)
-    s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
+    # a scalar fill: a tensor made from a host value would be a copy to
+    # the card that waits for its stream, in every layer of a train step
+    s = s.masked_fill(~mask, NEG_INF)
     m = s.max(dim=-1, keepdim=True).values
     p = torch.exp(s - m) * mask
     l = p.sum(dim=-1, keepdim=True)

@@ -5,9 +5,12 @@ Float32 inside normalisation, rotary embedding and attention, activations
 in the config dtype — cast where the JAX layers cast, so a bf16 config
 computes as the reference does. Decode attention and prefill attention
 run in the port's CUDA kernels (``kernels/ops.py``) on the card and in
-their plain versions on the CPU. The JAX module's sharding hints,
-explicit-TP down projection, residual barrier and environment switches
-belong to the multi-GPU slice and are not ported yet.
+their plain versions on the CPU; the kernels have no backward, so the
+training forward takes ``attention_masked``, plain PyTorch on either
+device, as the JAX training path takes its XLA ``attention_masked``.
+The JAX module's sharding hints, explicit-TP down projection, residual
+barrier and environment switches belong to the multi-GPU slice and are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 NEG_INF = -1e30
 
@@ -61,6 +64,18 @@ def decode_attention(q, k_cache, v_cache, pos):
     lengths = (pos + 1).clamp(max=S).to(torch.int32)
     o = ops.decode_attention(q[:, 0], k_cache, v_cache, lengths)
     return o.reshape(B, 1, H, hd)
+
+
+def attention_masked(q, k, v, *, causal: bool = True, window=None):
+    """Attention in plain, differentiable PyTorch, for training (the role
+    of the JAX package's ``attention_masked``): the prefill kernel's plain
+    version (``kernels/ref.py flash_attention``: fp32 scores, GQA by head
+    grouping, the causal / window mask) on the model's layout, q
+    (B, S, H, hd), k/v (B, S, K, hd) -> (B, S, H, hd), on either
+    device."""
+    o = ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal, window or None)
+    return o.transpose(1, 2)
 
 
 def prefill_attention(q, k, v, *, causal: bool = True, window=None):

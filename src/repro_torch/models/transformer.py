@@ -6,10 +6,15 @@ Layouts are the JAX ones, so tests compare like with like: stacked layer
 weights (L, D, out) used as ``x @ W``; caches (L, B, S, K, hd); per-lane
 positions ``pos`` (B,). ``forward`` and ``decode_step`` cover GQA, RoPE,
 qk-norm and the padded-vocab mask; ``forward`` also takes a sliding
-window. Not ported yet (they raise ``NotImplementedError``): the int8 KV
-cache (``kv_cache_dtype="int8"``), the sliding-window ring cache of the
-decode path, and the ``vlm`` image-embedding prefix of ``forward``;
-neither ``pred-*`` nor ``qwen3-1.7b`` uses them.
+window. ``forward(attn_impl="flash")`` (the default: scoring, under
+``no_grad``) runs the prefill-attention kernel; ``attn_impl="masked"``
+runs the differentiable ``attention_masked`` for training, with each
+layer under ``torch.utils.checkpoint`` when ``cfg.remat`` is set (the
+JAX package's per-layer ``jax.checkpoint``, applied in grad mode). Not
+ported yet (they raise ``NotImplementedError``): the int8 KV cache
+(``kv_cache_dtype="int8"``), the sliding-window ring cache of the decode
+path, and the ``vlm`` image-embedding prefix of ``forward``; neither
+``pred-*`` nor ``qwen3-1.7b`` uses them.
 
 One deliberate difference: JAX is functional and returns a new cache;
 here ``decode_step`` writes the new K/V into the cache tensors in place
@@ -21,10 +26,11 @@ leaf keeps its storage: a captured CUDA graph of the step
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from .layers import (NEG_INF, decode_attention, prefill_attention,
-                     rms_norm, rope, swiglu)
+from .layers import (NEG_INF, attention_masked, decode_attention,
+                     prefill_attention, rms_norm, rope, swiglu)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -69,9 +75,14 @@ def lm_logits(cfg: ModelConfig, params, x):
     return logits
 
 
-def attn_block(cfg: ModelConfig, lp: dict, x, *, positions):
+ATTN_IMPLS = ("flash", "masked")
+
+
+def attn_block(cfg: ModelConfig, lp: dict, x, *, positions,
+               attn_impl: str = "flash"):
     """Pre-norm attention of one layer over the whole sequence (residual
-    applied by the caller): x (B, S, D) -> (B, S, D)."""
+    applied by the caller): x (B, S, D) -> (B, S, D). ``attn_impl``
+    "flash" is the kernel, "masked" the differentiable plain version."""
     B, S, _ = x.shape
     hd, Hp, Kp = cfg.head_dim, cfg.padded_heads, cfg.padded_kv_heads
     q = (x @ lp["wq"]).reshape(B, S, Hp, hd)
@@ -82,22 +93,33 @@ def attn_block(cfg: ModelConfig, lp: dict, x, *, positions):
         k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = prefill_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    if attn_impl == "masked":
+        o = attention_masked(q, k, v, causal=True,
+                             window=cfg.sliding_window)
+    else:
+        o = prefill_attention(q, k, v, causal=True,
+                              window=cfg.sliding_window)
     return o.reshape(B, S, Hp * hd) @ lp["wo"]
 
 
-def dense_block(cfg: ModelConfig, lp: dict, x, *, positions):
+def dense_block(cfg: ModelConfig, lp: dict, x, *, positions,
+                attn_impl: str = "flash"):
     x = x + attn_block(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps),
-                       positions=positions)
+                       positions=positions, attn_impl=attn_impl)
     return x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["wi_gate"],
                       lp["wi_up"], lp["wo_mlp"])
 
 
-def forward(params, cfg: ModelConfig, batch: dict):
+def forward(params, cfg: ModelConfig, batch: dict, *,
+            attn_impl: str = "flash", return_hidden: bool = False):
     """Teacher-forced scoring: batch["tokens"] (B, S) -> logits (B, S, Vp);
     logits[:, t] predicts tokens[:, t + 1] (the predictor handles the BOS
-    shift). One prefill-attention launch per layer."""
+    shift). "flash": one prefill-attention launch per layer; "masked":
+    the plain attention autograd can differentiate. ``return_hidden``
+    stops before the LM head: the final-normed (B, S, D)."""
     _check_family(cfg)
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {attn_impl!r} (one of {ATTN_IMPLS})")
     if "img_embeds" in batch:
         raise NotImplementedError(
             "the vlm image-embedding prefix of forward is not ported yet")
@@ -106,11 +128,17 @@ def forward(params, cfg: ModelConfig, batch: dict):
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(S, device=x.device)
     lp = params["layers"]
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def block(x, *weights):
+        return dense_block(cfg, dict(zip(lp, weights)), x,
+                           positions=positions, attn_impl=attn_impl)
     for layer in range(cfg.n_layers):
-        x = dense_block(cfg, {name: w[layer] for name, w in lp.items()}, x,
-                        positions=positions)
+        weights = [w[layer] for w in lp.values()]
+        x = checkpoint(block, x, *weights, use_reentrant=False) if remat \
+            else block(x, *weights)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return lm_logits(cfg, params, x)
+    return x if return_hidden else lm_logits(cfg, params, x)
 
 
 #: the cache leaves a speculative rollback restores per lane: only

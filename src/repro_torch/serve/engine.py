@@ -21,7 +21,9 @@ as the JAX package's ``serve/engine.py`` does over its model zoo:
   * ``snapshot_slot`` / ``restore_slot`` — one lane copied out, and
     written back into masked lanes in place (the radix prefix cache);
   * ``reset_slots`` / ``set_decode_len`` — the continuous-batching
-    scheduler's slot refill and cache geometry.
+    scheduler's slot refill and cache geometry;
+  * ``generate`` — autoregressive sampling through ``decode_step`` (the
+    LLM-generated corpora of the paper's experiments).
 
 On the card every decode step is the replay of a captured CUDA graph
 (``serve/graphs.py``), the counterpart of the JAX engine's jitted step:
@@ -254,3 +256,53 @@ class ModelPredictor:
                     else:
                         leaf[:, lanes] = 0
             return state
+
+    # ----------------------------------------------------------- sampling
+    def generate(self, n_tokens: int, batch: int = 1, *, temperature=1.0,
+                 top_k: int = 0, seed: int = 0, prompt=None,
+                 vocab_limit: int = 0) -> np.ndarray:
+        """Autoregressive sampling -> (batch, n_tokens) int32, as the JAX
+        engine's ``generate``: BOS, then ``prompt`` ((P,) shared or
+        (batch, P) per row) fed token by token, then ``n_tokens`` samples
+        at ``temperature``; ``top_k > 0`` samples among the k largest
+        logits, ``vocab_limit > 0`` among ids < vocab_limit (256 for raw
+        bytes, without PAD and BOS). Every step goes through
+        ``decode_step`` (on the card a replay of the captured step), and
+        each step samples before the next one overwrites the logits.
+
+        Sampling is the Gumbel-max trick with uniforms from a
+        ``torch.Generator`` on the predictor's device seeded from
+        ``seed``: the same seed on the same device gives the same tokens;
+        the JAX package draws from another generator, so only
+        near-greedy sampling (a temperature near 0) agrees across the
+        two."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        plen = 0 if prompt is None else np.asarray(prompt).shape[-1]
+        self.set_decode_len(max(n_tokens, 16) + plen)
+        cache = self.begin_decode(batch)
+        prev = np.full((batch,), self.bos_id, np.int64)
+        if prompt is not None:
+            prompt = np.asarray(prompt, np.int64)
+            if prompt.ndim == 1:                    # shared prompt
+                prompt = np.tile(prompt, (batch, 1))
+            for t in range(prompt.shape[1]):
+                self.decode_step(cache, prev)
+                prev = prompt[:, t]
+        out = np.zeros((batch, n_tokens), np.int32)
+        for t in range(n_tokens):
+            logits, _ = self.decode_step(cache, prev)
+            with torch.no_grad():
+                lg = logits.float() / max(temperature, 1e-4)
+                if vocab_limit:
+                    lg[:, vocab_limit:] = -1e30
+                idx = None
+                if top_k:
+                    lg, idx = torch.topk(lg, top_k, dim=-1)
+                u = torch.rand(lg.shape, generator=gen, device=self.device)
+                tok = torch.argmax(lg - torch.log(-torch.log(u)), dim=-1)
+                if idx is not None:
+                    tok = idx.gather(1, tok[:, None])[:, 0]
+            prev = tok.cpu().numpy().astype(np.int64)
+            out[:, t] = prev
+        return out

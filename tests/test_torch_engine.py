@@ -44,6 +44,7 @@ from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.models import schema  # noqa: E402
 from repro_torch.serve.engine import ModelPredictor  # noqa: E402
 from repro_torch.service import CompressionService  # noqa: E402
+from repro_torch.train.prep import train_predictor  # noqa: E402
 
 CFGS = {"dense": (jbase.tiny_variant(jqwen.CONFIG),
                   pbase.tiny_variant(pqwen.CONFIG)),
@@ -253,7 +254,12 @@ def test_service_carried_compress_matches_grouped_bytes(pred):
 
 
 # ---------------------------------------------------------------- the CLI
-def test_cli_context_and_draft_flags(tmp_path, capsys):
+def test_cli_context_and_draft_flags(tmp_path, capsys, monkeypatch):
+    # pred-* predictors are trained at first use: a short recipe put in a
+    # cache of the test's own, which the CLI loads
+    cache = tmp_path / "cache"
+    monkeypatch.setenv("REPRO_TORCH_CACHE", str(cache))
+    train_predictor("pred-tiny", steps=3, device="cpu", cache_dir=cache)
     data = synthetic.human_like("wiki", 260, seed=9)
     src, pref = tmp_path / "in.txt", tmp_path / "p.txt"
     src.write_bytes(data)

@@ -7,6 +7,10 @@
   ``jax`` or ``repro``.
 * Without a card, the entry points raise unless the caller passes
   ``device="cpu"``.
+* No source file of the port (nor ``chip_smoke.py``) imports a top-level
+  module outside the standard library, ``torch``, ``numpy`` and the port
+  itself, except under ``try: ... except ImportError`` (an optional
+  codec); the card's machine has no ``msgpack`` above all.
 """
 import ast
 import os
@@ -115,3 +119,36 @@ def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
                            text=True, timeout=120)
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+_ALLOWED = {"torch", "numpy", "repro_torch"}
+
+
+def _required_imports(path):
+    """Top-level modules that ``path`` imports outside an ``except
+    ImportError`` guard."""
+    tree = ast.parse(path.read_text())
+    guarded = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Try) and any(
+                isinstance(h.type, ast.Name) and h.type.id in (
+                    "ImportError", "ModuleNotFoundError")
+                for h in node.handlers):
+            for stmt in node.body:
+                guarded.update(id(n) for n in ast.walk(stmt))
+    for node in ast.walk(tree):
+        if id(node) in guarded:
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_source_imports_outside_stdlib_torch_numpy(path):
+    for top in _required_imports(ROOT / path):
+        assert top in sys.stdlib_module_names or top in _ALLOWED \
+            or top == "__future__", f"{path}: imports {top}"

@@ -44,6 +44,7 @@ from repro_torch.data.tokenizer import encode  # noqa: E402
 from repro_torch.models import api, schema  # noqa: E402
 from repro_torch.serve.engine import ModelPredictor  # noqa: E402
 from repro_torch.service import CompressionService  # noqa: E402
+from repro_torch.train.prep import train_predictor  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 QWEN = {None: (jbase.tiny_variant(jqwen.CONFIG),
@@ -193,7 +194,12 @@ def test_prefill_scored_estimate_close_to_exact():
     assert np.array_equal(comp.decompress(exact), toks)
 
 
-def test_cli_route_auto_round_trip(tmp_path, capsys):
+def test_cli_route_auto_round_trip(tmp_path, capsys, monkeypatch):
+    # pred-* predictors are trained at first use: a short recipe put in a
+    # cache of the test's own, which the CLI loads
+    cache = tmp_path / "cache"
+    monkeypatch.setenv("REPRO_TORCH_CACHE", str(cache))
+    train_predictor("pred-tiny", steps=3, device="cpu", cache_dir=cache)
     src, arc, back = (tmp_path / "in.bin", tmp_path / "in.llmc",
                       tmp_path / "back.bin")
     src.write_bytes(_mixed_tokens(2).astype(np.uint8).tobytes())

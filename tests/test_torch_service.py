@@ -25,6 +25,7 @@ from repro.core import cdf as jcdf  # noqa: E402
 from repro.models import schema as jschema  # noqa: E402
 from repro.serve.engine import ModelPredictor as JaxPredictor  # noqa: E402
 from repro_torch.cli import main as cli_main  # noqa: E402
+from repro_torch.train.prep import train_predictor  # noqa: E402
 from repro_torch.configs import paper_predictors as ppp  # noqa: E402
 from repro_torch.core import LLMCompressor  # noqa: E402
 from repro_torch.core import cdf  # noqa: E402
@@ -159,7 +160,13 @@ def test_grouped_ac_codec_round_trip(port_pred):
     assert np.array_equal(comp.decompress(blob), toks)
 
 
-def test_cli_round_trip(tmp_path, capsys):
+def test_cli_round_trip(tmp_path, capsys, monkeypatch):
+    # pred-* predictors are trained at first use: a short recipe put in a
+    # cache of the test's own, which both commands load
+    cache = tmp_path / "cache"
+    monkeypatch.setenv("REPRO_TORCH_CACHE", str(cache))
+    train_predictor("pred-tiny", steps=3, device="cpu", cache_dir=cache)
+    capsys.readouterr()
     src = tmp_path / "in.txt"
     src.write_bytes(synthetic.human_like("novel", 200, seed=8))
     arc, back = tmp_path / "in.llmc", tmp_path / "back.txt"
@@ -170,5 +177,7 @@ def test_cli_round_trip(tmp_path, capsys):
     assert back.read_bytes() == src.read_bytes()
     assert cli_main(["info", str(arc)]) == 0
     out = capsys.readouterr()
-    assert "LLMC v4" in out.out and "UNTRAINED" in out.err
+    assert "LLMC v4" in out.out and "UNTRAINED" not in out.err
+    assert "training" not in out.err
+    assert out.err.count("loaded") == 2
     assert decode(encode(src.read_bytes())) == src.read_bytes()
