@@ -66,9 +66,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    decoded under another seed's weights through ``LLMCompressor`` and
    ``CompressionService``: ``ContainerError`` from both, and the same
    CUDA context decodes it under the writer's weights byte for byte.
-7. ``python -m repro_torch.cli compress`` / ``decompress`` on a small
-   file, plain, with ``--route auto``, and with the context flags and
-   ``--draft``, and byte comparisons.
+7. ``llmc-torch`` as a user runs it, every command a new process on the
+   trained ``pred-base`` (each printed with its time, start-up included):
+   ``compress`` / ``decompress`` of a small file, plain, with ``--route
+   auto``, and with the context flags and ``--draft``; ``--v3`` and back;
+   ``compress --sidecar --trace`` (the sidecar has one entry per chunk,
+   the trace is Chrome-trace JSON with the service's span names, the
+   phase line is printed) and ``decompress --sidecar``; ``range`` over an
+   interior interval of the plain and of the routed archive (each equal
+   to the source's byte slice); a ``--route raw`` archive decompressed by
+   a process whose ``$REPRO_TORCH_CACHE`` is an empty directory, which
+   must stay empty (no predictor trained or loaded); ``stats`` as JSON
+   (``chunks_completed`` = 64), Prometheus text and summary. Then
+   ``range`` and ``stats`` once more in this process through
+   ``repro_torch.cli.main``, counts reset just before and read just
+   after: ``stats`` launches ``cdf_points`` and ``decode_attention``,
+   ``range`` launches ``topk_cdf`` and ``decode_attention`` = 6 x
+   (replays + warm-up steps). Last, the span mirror: one
+   ``LLMCompressor.compress`` of 4 KiB of text at a (lanes, length) no
+   earlier phase used (so its decode graph is captured inside) under
+   ``torch.profiler``: ``compress.job`` and ``model.decode_step`` are
+   ``record_function`` events, a ``decode_attention`` kernel was launched
+   inside a ``model.decode_step`` span, no ``mirror=False`` span
+   (``coder.step``) appears, and the bytes equal an unprofiled compress.
 8. Phase 3 again for ``mamba2-130m`` (the ssm family at full width: 24
    layers, d=768, N=128, P=64, V=50280, bf16; random weights from seed
    0): the captured recurrent decode step and ``topk_cdf``, the same
@@ -111,8 +131,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    leaf's gradient finite and nonzero at step 1, the loss lower at step
    5 than at step 1; step ms, tokens/s, peak memory and 6 N tokens /
    step time as a share of 989 TFLOP/s.
-12. Last, one JSON line describing every kernel, then the result line
-   ``{"ok": true, "device": {...}}`` as the last line of stdout.
+12. Last, one JSON line describing every kernel (its ``launches`` from
+   the main path that runs it: phase 3 for ``decode_attention`` and
+   ``topk_cdf``, 6 for ``cdf_points``, 5 for ``flash_attention``, 9 for
+   ``ssd_intra``; phase 7 holds the CLI's own counts), then the result
+   line ``{"ok": true, "device": {...}}`` as the last line of stdout.
 
 The CLI's ``pred-*`` predictors train at first use: phase 7 trains
 ``pred-base`` into ``build/chip_smoke/torch_cache`` (``$REPRO_TORCH_CACHE``
@@ -178,6 +201,16 @@ def time_ms(fn, iters: int = 50) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def _on_device(e) -> bool:
+    """A profiler event that is device work: a kernel, copy or set, not
+    the GPU-side interval of a ``record_function`` span (the port's spans
+    are mirrored into the profiler; summing those intervals would count
+    the kernels inside them twice)."""
+    from torch.autograd import DeviceType
+    return e.device_type == DeviceType.CUDA \
+        and not getattr(e, "is_user_annotation", False)
+
+
 def device_ms(fn, kernel: str, iters: int = 20):
     """Mean device milliseconds per call of the CUDA kernels whose name
     contains ``kernel``, from ``torch.profiler`` over ``iters`` calls:
@@ -193,7 +226,6 @@ def device_ms(fn, kernel: str, iters: int = 20):
     recorded, so a trace that lost some of them does not read low; the
     loss is logged."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -205,8 +237,7 @@ def device_ms(fn, kernel: str, iters: int = 20):
                 fn()
             torch.cuda.synchronize()
         seen = [(e.key, e.self_device_time_total, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+                for e in prof.key_averages() if _on_device(e)]
         us = sum(t for k, t, _ in seen if kernel in k)
         if us > 0:
             if not kernel:
@@ -822,7 +853,6 @@ def profile_calls(fn, n: int = 5):
     ``device_ms``; after five, device ms and kernels are None (not
     measured)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(5):
         if attempt:
@@ -836,7 +866,7 @@ def profile_calls(fn, n: int = 5):
         ka = prof.key_averages()
         api = sum(e.count for e in ka if e.key.startswith(
             ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch")))
-        dev = [e for e in ka if e.device_type == DeviceType.CUDA]
+        dev = [e for e in ka if _on_device(e)]
         dev_us = sum(e.self_device_time_total for e in dev)
         if dev_us > 0:
             log(ka.table(sort_by="self_cuda_time_total", row_limit=12))
@@ -1278,14 +1308,69 @@ def phase_mismatch() -> dict:
 
 
 # ----------------------------------------------------------- phase 7
+def _cli_env(cache=None) -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    if cache is not None:
+        env["REPRO_TORCH_CACHE"] = str(cache)
+    return env
+
+
+def _run_cli(cmd, env, predictor=True) -> str:
+    """``python -m repro_torch.cli CMD`` in a new process; fails on a
+    non-zero exit; logs its stdout and its time with start-up."""
+    t0 = time.perf_counter()
+    args = [*cmd, "--predictor", "pred-base"] if predictor else cmd
+    r = subprocess.run([sys.executable, "-m", "repro_torch.cli", *args],
+                       env=env, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    flags = " ".join([cmd[0]] + [c for c in cmd[1:] if not c.startswith(
+        str(ROOT))])
+    if r.returncode != 0:
+        fail(f"llmc-torch {flags} exited {r.returncode}:\n{r.stdout}\n"
+             f"{r.stderr}")
+    out = r.stdout.strip()
+    short = out if len(out) < 400 else f"{out[:200]} ... {out[-150:]}"
+    log(f"[cli] {flags}: {short} ({time.perf_counter() - t0:.1f} s with "
+        f"start-up)")
+    return r.stdout
+
+
+def _in_process_cli(argv) -> tuple[str, dict, dict]:
+    """``repro_torch.cli.main(argv)`` in this process, with the kernel
+    launch counters and the graph counters set to 0 just before and read
+    just after; returns (stdout, launches, graph stats)."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch import cli as tcli
+    from repro_torch.kernels import ops
+    from repro_torch.serve import graphs
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    graphs.reset_stats()
+    with contextlib.redirect_stdout(buf):
+        rc = tcli.main([*argv, "--predictor", "pred-base"])
+    torch.cuda.synchronize()
+    launches, st = dict(ops.LAUNCHES), dict(graphs.STATS)
+    if rc != 0:
+        fail(f"in-process llmc-torch {argv[0]} returned {rc}")
+    return buf.getvalue(), launches, st
+
+
 def phase_cli() -> None:
+    """``llmc-torch`` as a user runs it, each command a new process on the
+    trained ``pred-base``: the three round trips (plain, ``--route auto``,
+    context flags with ``--draft``), then every other verb and flag, and
+    ``range`` / ``stats`` once more in this process with the launch
+    counts read, and the span mirror under ``torch.profiler``."""
     import numpy as np
     from repro_torch.data.synthetic import human_like
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT / "src") + (
-        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env = _cli_env()
     rng = np.random.default_rng(9)
     mixed = human_like("novel", 1200, seed=8) + bytes(
         rng.integers(0, 256, 600).astype(np.uint8)) + b"=" * 500
@@ -1300,25 +1385,176 @@ def phase_cli() -> None:
         src = work / f"in{tag}.txt"
         arc, back = work / f"in{tag}.llmc", work / f"back{tag}.txt"
         src.write_bytes(data)
-        for cmd in (["compress", str(src), str(arc), *extra],
-                    ["decompress", str(arc), str(back), *dextra]):
-            t0 = time.perf_counter()
-            r = subprocess.run([sys.executable, "-m", "repro_torch.cli",
-                                *cmd, "--predictor", "pred-base"], env=env,
-                               cwd=ROOT, capture_output=True, text=True,
-                               timeout=600)
-            flags = " ".join([cmd[0]] + cmd[3:])
-            if r.returncode != 0:
-                fail(f"llmc-torch {flags} exited "
-                     f"{r.returncode}:\n{r.stdout}\n{r.stderr}")
-            log(f"[cli] {flags}: {r.stdout.strip()} "
-                f"({time.perf_counter() - t0:.1f} s with start-up)")
+        _run_cli(["compress", str(src), str(arc), *extra], env)
+        _run_cli(["decompress", str(arc), str(back), *dextra], env)
         if src.read_bytes() != back.read_bytes():
             fail(f"CLI {tag or 'plain'} round trip: decompressed file "
                  f"differs")
         log(f"[cli] {' '.join(['compress', *extra])} -> "
             f"{' '.join(['decompress', *dextra])} byte-identical "
             f"({src.stat().st_size} B -> {arc.stat().st_size} B)")
+    src, routed = work / "in.txt", work / "inrouted.txt"
+    data = src.read_bytes()
+
+    # --v3: the grouped path's wire-minimal container
+    v3, back = work / "in_v3.llmc", work / "back_v3.txt"
+    _run_cli(["compress", str(src), str(v3), "--v3"], env)
+    _run_cli(["decompress", str(v3), str(back)], env)
+    if v3.read_bytes()[4] != 3 or back.read_bytes() != data:
+        fail("CLI --v3 round trip differs (or wrote no v3 container)")
+    log(f"[cli] --v3 byte-identical ({len(data)} B -> {v3.stat().st_size}"
+        f" B; v4 {(work / 'in.llmc').stat().st_size} B)")
+
+    # --sidecar --trace, then decompress --sidecar
+    arc, trace = work / "in_side.llmc", work / "in_side.trace.json"
+    out = _run_cli(["compress", str(src), str(arc), "--sidecar", "--trace",
+                    str(trace)], env)
+    side = json.loads((work / "in_side.llmc.diag.json").read_text())
+    n_chunks = -(-len(data) // 128)
+    if side["kind"] != "compress" or len(side["chunks"]) != n_chunks:
+        fail(f"compress sidecar: {side['kind']}, {len(side['chunks'])} "
+             f"chunks, want {n_chunks}")
+    names = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+             if e.get("ph") == "X"}
+    want = {"service.step", "service.refill", "model.decode_step",
+            "coder.step", "service.finish_slot"}
+    if not want <= names or "phases (" not in out:
+        fail(f"--trace: spans {sorted(names)}, want {sorted(want)}; "
+             f"stdout {out!r}")
+    log(f"[cli] --trace: {len(names)} span names {sorted(names)}")
+    _run_cli(["decompress", str(arc), str(work / "back_side.txt"),
+              "--sidecar"], env)
+    side = json.loads((work / "in_side.llmc.diag.json").read_text())
+    if side["kind"] != "decompress" or len(side["chunks"]) != n_chunks \
+            or (work / "back_side.txt").read_bytes() != data:
+        fail("decompress --sidecar: wrong sidecar or bytes")
+
+    # range over an interior interval of the plain and the routed archive
+    for name, source, (lo, hi) in (("in", data, (3, 7)),
+                                   ("inrouted", routed.read_bytes(),
+                                    (5, 13))):
+        part = work / f"{name}.part"
+        _run_cli(["range", str(work / f"{name}.llmc"), str(part),
+                  "--chunks", f"{lo}:{hi}"], env)
+        if part.read_bytes() != source[lo * 128:hi * 128]:
+            fail(f"range {lo}:{hi} of {name}.llmc is not the source slice")
+
+    # an all-fallback archive decoded by a process with an empty cache:
+    # no predictor is trained or loaded (F7)
+    raw, back = work / "in_raw.llmc", work / "back_raw.txt"
+    _run_cli(["compress", str(src), str(raw), "--route", "raw"], env)
+    empty = work / "empty_cache"
+    shutil.rmtree(empty, ignore_errors=True)
+    empty.mkdir()
+    out = _run_cli(["decompress", str(raw), str(back)], _cli_env(empty),
+                   predictor=False)
+    if back.read_bytes() != data or "model-free" not in out \
+            or any(empty.iterdir()):
+        fail(f"model-free decompress: bytes, stdout {out!r} or cache "
+             f"{sorted(p.name for p in empty.iterdir())}")
+
+    # stats in its three formats
+    snap = json.loads(_run_cli(["stats"], env))
+    done = snap["scheduler"]["chunks_completed"]
+    if done != 2 * -(-2048 // 64):
+        fail(f"stats: chunks_completed {done}, want 64")
+    prom = _run_cli(["stats", "--format", "prom"], env)
+    text = _run_cli(["stats", "--format", "text"], env)
+    if "repro_scheduler_model_steps" not in prom or "occupancy" not in text:
+        fail("stats --format prom / text: missing series")
+
+    # range and stats once more in this process, counts read
+    out, sl, sst = _in_process_cli(["stats"])
+    if sl["cdf_points"] <= 0 or sl["decode_attention"] <= 0:
+        fail(f"in-process stats launched {sl}")
+    part = work / "in.part"
+    _, rl, rst = _in_process_cli(["range", str(work / "in.llmc"), str(part),
+                                  "--chunks", "3:7"])
+    want = 6 * (rst["step_replays"] + rst["warmup_steps"])
+    if rl["topk_cdf"] <= 0 or rl["decode_attention"] != want \
+            or part.read_bytes() != data[384:896]:
+        fail(f"in-process range: launches {rl}, graphs {rst}; "
+             f"decode_attention should be 6 x (replays + warm-up) = {want}")
+    log(f"[cli] in-process stats: launches {sl}, graphs {sst}")
+    log(f"[cli] in-process range 3:7: launches {rl}, graphs {rst}: "
+        f"decode_attention {rl['decode_attention']} = 6 x "
+        f"({rst['step_replays']} replays + {rst['warmup_steps']} warm-up)")
+    profile_mirror(work)
+
+
+def profile_mirror(work) -> None:
+    """One ``LLMCompressor.compress`` of 4 KiB of text by the trained
+    ``pred-base`` under ``torch.profiler`` (CPU and CUDA), at a (lanes,
+    length) no earlier phase used, so that the decode step's graph is
+    captured inside the profile: the spans must be ``record_function``
+    events, a ``decode_attention`` kernel must have been launched inside
+    a ``model.decode_step`` span, no ``mirror=False`` span may appear, and
+    the bytes must equal those of the same compress with no profiler."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import LLMCompressor
+    from repro_torch.data.synthetic import human_like
+    from repro_torch.data.tokenizer import encode
+    from repro_torch.serve import graphs
+    from repro_torch.train import prep
+    pred = prep.predictor("pred-base", device="cuda")
+    toks = encode(human_like("wiki", 4096, seed=11))
+    comp = LLMCompressor(pred, chunk_size=96, topk=48, decode_batch=12)
+    graphs.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        blob, _ = comp.compress(toks)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    captures = graphs.STATS["captures"]
+    path = work / "mirror_trace.json"
+    prof.export_chrome_trace(str(path))
+    evs = json.loads(path.read_text())["traceEvents"]
+    plain, _ = comp.compress(toks)
+    if blob != plain:
+        fail("profiled compress wrote other bytes than the same compress "
+             "without a profiler")
+    ann = [e for e in evs if e.get("cat") == "user_annotation"]
+    names = {e["name"] for e in ann}
+    steps = [e for e in ann if e["name"] == "model.decode_step"]
+    runtime = {e["args"]["correlation"]: e for e in evs
+               if e.get("cat") == "cuda_runtime"
+               and "correlation" in e.get("args", {})}
+    kernels = [e for e in evs if e.get("cat") == "kernel"
+               and "decode_attention" in e.get("name", "")]
+
+    def inside(ev, spans):
+        return any(s["tid"] == ev["tid"] and s["ts"] <= ev["ts"]
+                   <= s["ts"] + s["dur"] for s in spans)
+    launched_in = sum(
+        1 for k in kernels
+        if k.get("args", {}).get("correlation") in runtime
+        and inside(runtime[k["args"]["correlation"]], steps))
+    gpu_ann = [e for e in evs if e.get("cat") == "gpu_user_annotation"
+               and e["name"] == "model.decode_step"]
+    on_gpu = sum(1 for k in kernels if any(
+        a["ts"] <= k["ts"] and k["ts"] + k["dur"] <= a["ts"] + a["dur"]
+        for a in gpu_ann))
+    quiet = names & {"coder.step", "service.refill", "service.finish_slot",
+                     "prefix_cache.lookup"}
+    log(f"[mirror] compress of {toks.size} tokens (chunk 96, 12 lanes) "
+        f"under torch.profiler in {wall:.2f} s, {captures} capture(s) "
+        f"inside; {len(evs)} trace events; record_function spans "
+        f"{sorted(names)}; {len(steps)} model.decode_step spans; "
+        f"{len(kernels)} decode_attention kernels, {launched_in} launched "
+        f"inside a model.decode_step span, {on_gpu} inside one of its "
+        f"{len(gpu_ann)} GPU-side annotations")
+    if captures < 1:
+        fail("the profiled compress captured no graph")
+    if not {"compress.job", "model.decode_step"} <= names:
+        fail(f"profile lacks compress.job / model.decode_step: {names}")
+    if launched_in < 1 and on_gpu < 1:
+        fail("no decode_attention kernel inside a model.decode_step span")
+    if quiet:
+        fail(f"mirror=False spans on the profile: {sorted(quiet)}")
 
 
 # ---------------------------------------------------------- phase 13

@@ -635,6 +635,13 @@ def parse_container(blob: bytes) -> tuple[ContainerInfo, list[bytes]]:
     else:
         body_end = len(blob)
     pos = info.header_size
+    # every chunk's stream starts with a varint of at least one byte: a
+    # header whose n_tokens claims more chunks than the body has bytes is
+    # corrupt, and is refused before a per-chunk array of that size exists
+    if info.n_chunks > body_end - pos:
+        raise ContainerError(
+            f"truncated container: header claims {info.n_chunks} chunks, "
+            f"{body_end - pos} body bytes remain")
     streams: list[bytes] = []
     valid = chunk_valid_lengths(info.n_tokens, info.chunk_size)
     for i in range(info.n_chunks):

@@ -1,4 +1,4 @@
-"""Host-side span tracing.
+"""Host-side span tracing, mirrored into the CUDA profilers.
 
 ``with obs.trace.span("decode.verify_round"): ...`` times a region of
 host code and records the wall time into a log2 histogram named
@@ -7,9 +7,37 @@ path (``service.step/model.decode_step``), built from a thread-local
 span stack, so one histogram exists per distinct call *position*, not
 just per label.
 
-The JAX package mirrors every span into ``jax.profiler``; this copy has
-no device mirror yet (a ``torch.profiler`` / NVTX mirror is planned).
-``mirror=`` is still accepted so call sites stay identical.
+The device mirror: every span whose ``mirror`` is true also opens a
+``torch.profiler.record_function`` and an NVTX range of the same name,
+so a ``torch.profiler`` trace (or ``nsys``) shows ``compress.job``,
+``decode.group``, ``model.decode_step``, ``router.probe`` and the rest
+around the kernels they launch: one vocabulary on the host's and the
+device's timelines. It costs next to nothing when nobody is looking:
+
+* ``record_function`` is entered only while the autograd profiler is
+  enabled (``torch.profiler.profile`` and the legacy profiler both set
+  ``torch.autograd.profiler._is_profiler_enabled``, one module-attribute
+  read per span); entering it with no profiler would cost a dispatcher
+  call per span for nothing.
+* NVTX ranges are pushed only when a tool has injected itself into NVTX
+  (``$NVTX_INJECTION64_PATH`` set, as ``nsys`` does for the process it
+  launches) and a card is present; without an injected tool NVTX's own
+  calls are no-ops, so skipping them loses nothing. Decided once per
+  process, at the first mirrored span.
+* ``mirror=False`` spans — the scheduler's per-step ``service.refill``,
+  ``coder.step``, ``prefix_cache.lookup`` and ``service.finish_slot`` —
+  never mirror. ``set_torch_mirror(False)`` turns the mirror off for the
+  whole process.
+
+CUDA-graph capture: the first ``decode_step`` of a new (lanes, length)
+captures its graph inside the ``model.decode_step`` span, so a mirror
+range is open across the capture. Both mirrors are host-side only (no
+event is recorded into the stream), so nothing of them enters the
+graph, and the mirror is not skipped while a stream captures.
+``chip_smoke.py`` phase 7 holds that on an H100: a compress profiled
+with ``torch.profiler`` across a capture gets every captured
+``decode_attention`` launch inside its ``model.decode_step`` span, and
+the same bytes as without the profiler.
 
 Spans follow the registry switch: ``span()`` returns a shared null
 context manager when the target registry (argument, else the process
@@ -24,6 +52,7 @@ With no recorder installed that costs one module-attribute check.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from . import metrics as _metrics
@@ -31,11 +60,51 @@ from . import timeline as _timeline
 
 _tls = threading.local()
 _enabled = True          # module master switch (obs.trace.enable(False))
+_torch_mirror = True     # mirror into record_function / NVTX
+_profiler = None         # torch.autograd.profiler, resolved at first use
+_nvtx = None             # torch.cuda.nvtx when a tool listens, else False
 
 
 def enable(on: bool = True) -> None:
     global _enabled
     _enabled = bool(on)
+
+
+def set_torch_mirror(on: bool) -> None:
+    """Turn the ``record_function`` / NVTX mirror on or off."""
+    global _torch_mirror
+    _torch_mirror = bool(on)
+
+
+def _resolve_mirror() -> None:
+    global _profiler, _nvtx
+    import torch
+    import torch.autograd.profiler
+    _profiler = torch.autograd.profiler
+    _nvtx = torch.cuda.nvtx if os.environ.get("NVTX_INJECTION64_PATH") \
+        and torch.cuda.is_available() else False
+
+
+def _mirror_enter(name: str):
+    """Open the mirror of one span: (record_function or None, NVTX pushed),
+    or None when nothing was opened."""
+    if _profiler is None:
+        _resolve_mirror()
+    rf = None
+    if _profiler._is_profiler_enabled:
+        rf = _profiler.record_function(name)
+        rf.__enter__()
+    if _nvtx:
+        _nvtx.range_push(name)
+    return (rf, bool(_nvtx)) if rf is not None or _nvtx else None
+
+
+def _mirror_exit(mir, exc) -> None:
+    rf, pushed = mir
+    if pushed:
+        _nvtx.range_pop()
+    if rf is not None:
+        rf.__exit__(*exc)
 
 
 def _stack() -> list:
@@ -72,11 +141,12 @@ NULL = _NULL
 
 
 class Span:
-    __slots__ = ("name", "_reg", "_t0", "path", "tags", "_mirror")
+    __slots__ = ("name", "_reg", "_t0", "_mir", "path", "tags", "_mirror")
 
     def __init__(self, name: str, reg, tags=None, mirror=True):
         self.name = name
         self._reg = reg
+        self._mir = None
         self.path = name
         self.tags = tags
         self._mirror = mirror
@@ -85,11 +155,16 @@ class Span:
         stack = _stack()
         stack.append(self.name)
         self.path = "/".join(stack)
+        if _torch_mirror and self._mirror:
+            self._mir = _mirror_enter(self.name)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         dt = time.perf_counter() - self._t0
+        if self._mir is not None:
+            _mirror_exit(self._mir, exc)
+            self._mir = None
         _stack().pop()
         if self._reg is not None:
             self._reg.histogram(
@@ -106,8 +181,8 @@ def span(name: str, registry=None, tags=None, mirror=True):
     process-global one). Returns a shared null context manager when
     tracing or the target registry is disabled. ``tags`` (e.g.
     ``{"job": 3, "chunk": 7}``) ride along on timeline events only —
-    they never fan out histogram names. ``mirror`` marks hot-loop spans
-    that a device-trace mirror should skip (no mirror exists yet).
+    they never fan out histogram names. ``mirror=False`` keeps a per-step
+    hot-loop span out of the ``record_function`` / NVTX mirror.
 
     A process-wide timeline recorder (obs.timeline.install) overrides
     the registry gate: spans still land on the timeline even when their

@@ -20,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import build
 from repro_torch.serve import graphs
@@ -46,8 +47,8 @@ def probe(arch: str, B: int = 16, S: int = 128) -> None:
     t0 = time.perf_counter()
     pred.decode_step(pred.begin_decode(B), rng.integers(0, 1000, B))
     torch.cuda.synchronize()
-    print(f"{arch} first step (capture) {(time.perf_counter() - t0) * 1e3:.1f}"
-          f" ms {graphs.STATS}", flush=True)
+    obs.console(f"{arch} first step (capture) "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms {graphs.STATS}")
     g, e = pred.begin_decode(B), pred._init_cache(B, S)
     same = True
     for _ in range(8):
@@ -56,31 +57,31 @@ def probe(arch: str, B: int = 16, S: int = 128) -> None:
         le, _ = pred._eager_decode_step(e, prev)
         same &= torch.equal(lg, le) and all(torch.equal(g[k], e[k])
                                             for k in g)
-    print(f"{arch} captured == eager over 8 steps: {same}", flush=True)
+    obs.console(f"{arch} captured == eager over 8 steps: {same}")
     prev = rng.integers(0, 1000, B)
     for name, fn in (("eager", lambda: pred._eager_decode_step(e, prev)),
                      ("captured", lambda: pred.decode_step(g, prev))):
-        print(f"{arch} {name} host ms/step {_host_ms(fn):.3f}", flush=True)
+        obs.console(f"{arch} {name} host ms/step {_host_ms(fn):.3f}")
     seq = rng.integers(0, 1000, (B, 5))
     t0 = time.perf_counter()
     pred.verify_steps(g, seq)
     torch.cuda.synchronize()
-    print(f"{arch} verify (T=5) capture "
-          f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+    obs.console(f"{arch} verify (T=5) capture "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
 
     def round_():
         pred.rollback(pred.verify_steps(g, seq)[1], np.zeros(B, np.int64))
-    print(f"{arch} verify + rollback host ms {_host_ms(round_, 10):.3f}",
-          flush=True)
+    obs.console(f"{arch} verify + rollback host ms "
+                f"{_host_ms(round_, 10):.3f}")
 
 
 def main(argv) -> int:
     if not torch.cuda.is_available():
-        print("graph_probe: no CUDA device", file=sys.stderr)
+        obs.console("graph_probe: no CUDA device", err=True)
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    obs.console(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                "--format=csv,noheader"],
+                               capture_output=True, text=True).stdout.strip())
     build.build_all()
     for arch in argv or ["qwen3-1.7b", "mamba2-130m"]:
         probe(arch)

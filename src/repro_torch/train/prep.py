@@ -32,13 +32,13 @@ from __future__ import annotations
 import fcntl
 import os
 import pathlib
-import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.registry import PREDICTORS as CONFIGS
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.data.synthetic import human_like
@@ -58,7 +58,7 @@ CORPUS_BYTES = 1 << 20
 
 
 def _log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    obs.log(msg)
 
 
 def default_cache_dir() -> pathlib.Path:

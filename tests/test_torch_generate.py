@@ -17,6 +17,7 @@ on the CPU.
 
 Nothing here writes into the checkout.
 """
+import logging
 import os
 import pathlib
 import subprocess
@@ -125,7 +126,8 @@ def _cli(args, env):
 
 
 def test_cli_trains_pred_tiny_once_then_loads(tmp_path, monkeypatch,
-                                              capsys):
+                                              capsys, caplog):
+    caplog.set_level(logging.INFO, logger="repro")    # prep logs via obs
     cache = tmp_path / "cache"
     monkeypatch.setenv("REPRO_TORCH_CACHE", str(cache))
     monkeypatch.setitem(prep.TRAIN_STEPS, "pred-tiny", 16)   # a short recipe
@@ -136,7 +138,7 @@ def test_cli_trains_pred_tiny_once_then_loads(tmp_path, monkeypatch,
                      "--predictor", "pred-tiny", "--device", "cpu",
                      "--slots", "4"]) == 0
     err = capsys.readouterr().err
-    assert "training 16 steps" in err and "UNTRAINED" not in err
+    assert "training 16 steps" in caplog.text and "UNTRAINED" not in err
     # a second process loads the checkpoint and never trains; two
     # threads: the test runs beside other test processes
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),

@@ -13,6 +13,8 @@
 Container bytes *between* the packages may differ: the engine is part of
 the coding geometry (ROADMAP).
 """
+import logging
+
 import numpy as np
 import pytest
 
@@ -160,13 +162,15 @@ def test_grouped_ac_codec_round_trip(port_pred):
     assert np.array_equal(comp.decompress(blob), toks)
 
 
-def test_cli_round_trip(tmp_path, capsys, monkeypatch):
+def test_cli_round_trip(tmp_path, capsys, monkeypatch, caplog):
     # pred-* predictors are trained at first use: a short recipe put in a
     # cache of the test's own, which both commands load
+    caplog.set_level(logging.INFO, logger="repro")    # prep logs via obs
     cache = tmp_path / "cache"
     monkeypatch.setenv("REPRO_TORCH_CACHE", str(cache))
     train_predictor("pred-tiny", steps=3, device="cpu", cache_dir=cache)
     capsys.readouterr()
+    caplog.clear()
     src = tmp_path / "in.txt"
     src.write_bytes(synthetic.human_like("novel", 200, seed=8))
     arc, back = tmp_path / "in.llmc", tmp_path / "back.txt"
@@ -178,6 +182,6 @@ def test_cli_round_trip(tmp_path, capsys, monkeypatch):
     assert cli_main(["info", str(arc)]) == 0
     out = capsys.readouterr()
     assert "LLMC v4" in out.out and "UNTRAINED" not in out.err
-    assert "training" not in out.err
-    assert out.err.count("loaded") == 2
+    assert "training" not in caplog.text
+    assert caplog.text.count("loaded") == 2
     assert decode(encode(src.read_bytes())) == src.read_bytes()
