@@ -19,16 +19,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    operations over the peak rate of their type: the bf16 tensor rate for
    bf16 inputs, the fp32 rate for fp32). ``decode_attention`` at
    qwen3-1.7b's and ``pred-base``'s decode shapes and at zamba2-7b's
-   attention widths over a 512-position cache (32 heads, G = 1, hd 112;
-   the family that comes next). ``flash_attention`` at full
+   attention widths over a 512-position cache (32 heads, G = 1, hd 112).
+   ``flash_attention`` at full
    width (S = 128), at the router probe's shape (S = 32), with a 32-token
-   prefix (S = 160), under a sliding window, and at ``pred-base`` width
-   in fp32. ``topk_cdf`` at qwen3-1.7b's, mamba2-130m's and
-   ``pred-base``'s vocabularies. ``ssd_intra`` at the mamba2-130m
+   prefix (S = 160), under a sliding window, at ``pred-base`` width
+   in fp32, and at zamba2-7b's (32 heads, G = 1, hd 112; S = 128, 32 and
+   160). ``topk_cdf`` at qwen3-1.7b's, mamba2-130m's, ``pred-base``'s
+   and zamba2-7b's vocabularies. ``ssd_intra`` at the mamba2-130m
    scoring path's shapes
    (H=24, P=64, N=128, bf16): 16 chunks of Q = 128, the probe's Q = 32,
    the prefix's Q = 160, S = 512 as 32 chunks of Q = 256, and the tiny
-   test width in fp32.
+   test width in fp32; and at zamba2-7b's (H=112, P=64, N=64, bf16): Q =
+   128, 32 and 160.
 3. The decode path at full width: ``qwen3-1.7b`` (28 layers, d=2048,
    V=151936, bf16; random weights from seed 0) through
    ``CompressionService(slots=16, chunk_size=128, topk=48)``: a few
@@ -131,10 +133,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    leaf's gradient finite and nonzero at step 1, the loss lower at step
    5 than at step 1; step ms, tokens/s, peak memory and 6 N tokens /
    step time as a share of 989 TFLOP/s.
+15. Phase 3 again for ``zamba2-7b`` (the hybrid family at full width
+   and depth: 81 SSD layers, d=3584, 112 heads x P=64, N=64, and one
+   shared attention + MLP block, 32 heads of hd 112, d_ff 14336, after
+   every 13 of them: 6 applications, then 3 SSD layers; V=32000, bf16,
+   6.75 B parameters from seed 0): shorter jobs (23 chunks), the same
+   checks (``decode_attention`` 6 x (replays + warm-up steps)), timings,
+   phase 10 and the fresh process, and the peak device memory.
+16. Phases 4, 5 and 11 for ``zamba2-7b``: scoring against the decode
+   program held through the fp32 twin (27 GB beside the bf16 model),
+   after a check that the bf16 logits are finite; ``compress(exact=
+   False)``; the routed service with ``flash_attention`` 6 and
+   ``ssd_intra`` 81 per teacher-forced forward; the shared-prefix jobs
+   (a prefix-cache hit of one ~166 MB lane snapshot; the service's cache
+   capacity 256 tokens). Each phase's model is freed before the next;
+   the peak memory of each is logged.
 12. Last, one JSON line describing every kernel (its ``launches`` from
    the main path that runs it: phase 3 for ``decode_attention`` and
    ``topk_cdf``, 6 for ``cdf_points``, 5 for ``flash_attention``, 9 for
-   ``ssd_intra``; phase 7 holds the CLI's own counts), then the result
+   ``ssd_intra``; phase 7 holds the CLI's own counts; and
+   ``launches_zamba2`` from phases 15 and 16), then the result
    line ``{"ok": true, "device": {...}}`` as the last line of stdout.
 
 The CLI's ``pred-*`` predictors train at first use: phase 7 trains
@@ -483,12 +501,15 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
     from repro_torch.configs.mamba2_130m import CONFIG as MAMBA
     from repro_torch.configs.paper_predictors import PRED_BASE
     from repro_torch.configs.qwen3_1_7b import CONFIG as QWEN
+    from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA
     res = {}
     S = 128                                   # chunk 128, no context
     H, K, hd = QWEN.n_heads, QWEN.n_kv_heads, QWEN.head_dim
     bf = torch.bfloat16
     ssm = (MAMBA.ssm_heads, MAMBA.ssm_headdim, MAMBA.ssm_state)
     tiny = tiny_variant(MAMBA)
+    zh, zhd = ZAMBA.n_heads, ZAMBA.head_dim          # MHA: G = 1, hd 112
+    zssm = (ZAMBA.ssm_heads, ZAMBA.ssm_headdim, ZAMBA.ssm_state)
     for name, fn, args in [
         ("decode_attention", check_attention,
          ((16, QWEN.n_heads, QWEN.n_kv_heads, QWEN.head_dim, S),
@@ -505,6 +526,8 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
          (16, MAMBA.vocab_size, torch.bfloat16, gen)),
         ("topk_cdf@pred-base", check_topk,
          (16, PRED_BASE.vocab_size, torch.float32, gen)),
+        ("topk_cdf@zamba2", check_topk,
+         (16, ZAMBA.vocab_size, torch.bfloat16, gen)),
         ("cdf_points", check_cdf_points,
          (16, QWEN.vocab_size, torch.bfloat16, gen, 18, QWEN.padded_vocab)),
         ("cdf_points@pred-base", check_cdf_points,
@@ -519,6 +542,12 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
         ("flash_attention@pred-base", check_flash,
          (16, PRED_BASE.n_heads, PRED_BASE.padded_kv_heads, S,
           PRED_BASE.head_dim, torch.float32, gen)),
+        ("flash_attention@zamba2", check_flash,
+         (16, zh, zh, S, zhd, bf, gen)),
+        ("flash_attention@zamba2-probe", check_flash,
+         (16, zh, zh, 32, zhd, bf, gen)),
+        ("flash_attention@zamba2-prefix32", check_flash,
+         (16, zh, zh, S + 32, zhd, bf, gen)),
         ("ssd_intra", check_ssd, (16, S) + ssm + (bf, gen)),
         ("ssd_intra@probe", check_ssd, (probe_chunks, 32) + ssm + (bf, gen)),
         ("ssd_intra@prefix32", check_ssd, (16, S + 32) + ssm + (bf, gen)),
@@ -527,6 +556,11 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
         ("ssd_intra@tiny", check_ssd,
          (16, tiny.ssm_chunk, tiny.ssm_heads, tiny.ssm_headdim,
           tiny.ssm_state, torch.float32, gen)),
+        ("ssd_intra@zamba2", check_ssd, (16, S) + zssm + (bf, gen)),
+        ("ssd_intra@zamba2-probe", check_ssd,
+         (probe_chunks, 32) + zssm + (bf, gen)),
+        ("ssd_intra@zamba2-prefix32", check_ssd,
+         (16, S + 32) + zssm + (bf, gen)),
     ]:
         r = fn(*args)
         res[name] = r
@@ -547,9 +581,17 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
 # ----------------------------------------------------------- phase 3
 # kernels the decode path of each family launches on every step
 DECODE_KERNELS = {"dense": ("decode_attention", "topk_cdf"),
-                  "ssm": ("topk_cdf",)}
-# the kernel captured in each family's decode step, n_layers a step
-STEP_KERNELS = {"dense": "decode_attention", "ssm": None}
+                  "ssm": ("topk_cdf",),
+                  "hybrid": ("decode_attention", "topk_cdf")}
+
+
+def attention_blocks(cfg) -> int:
+    """Attention blocks a decode step or a teacher-forced forward runs:
+    every layer of the dense family, none of the ssm family, and one per
+    application of the hybrid's shared block (zamba2-7b: 81 // 13 = 6)."""
+    return {"dense": cfg.n_layers, "ssm": 0,
+            "hybrid": cfg.n_layers // max(1, cfg.hybrid_ssm_per_block)}[
+        cfg.family]
 
 
 def _check_captured_launches(cfg, launches, stats, steps: int,
@@ -562,10 +604,11 @@ def _check_captured_launches(cfg, launches, stats, steps: int,
     if stats["step_replays"] != steps:
         fail(f"{what}: {steps} model steps but {stats['step_replays']} "
              f"replays of the captured step")
-    k = STEP_KERNELS[cfg.family]
-    if k and launches[k] != cfg.n_layers * (steps + stats["warmup_steps"]):
-        fail(f"{what}: {k} launches {launches[k]} != {cfg.n_layers} x "
-             f"({steps} replayed + {stats['warmup_steps']} warm-up steps)")
+    per = attention_blocks(cfg)         # decode_attention a captured step
+    if launches["decode_attention"] != per * (steps + stats["warmup_steps"]):
+        fail(f"{what}: decode_attention launches "
+             f"{launches['decode_attention']} != {per} x ({steps} replayed "
+             f"+ {stats['warmup_steps']} warm-up steps)")
     if launches["topk_cdf"] != steps:
         fail(f"{what}: topk_cdf launches {launches['topk_cdf']} != "
              f"{steps} steps")
@@ -629,10 +672,38 @@ def time_steps(pred, g, e, n: int = 20) -> dict:
     return out
 
 
-def phase_service(arch: str) -> dict:
+#: the service round trip's jobs (domain, bytes, seed): 93 chunks of 128
+SERVICE_JOBS = (("wiki", 3000, 1), ("code", 2200, 2), ("web", 4000, 3),
+                ("math", 2600, 4))
+#: zamba2-7b's: 23 chunks, two rounds of the 16 slots each way
+ZAMBA_JOBS = (("wiki", 700, 1), ("code", 500, 2), ("web", 900, 3),
+              ("math", 600, 4))
+
+
+def _free_card() -> None:
+    """Let go of what only reference cycles still hold (finished services
+    and their jobs keep a predictor's caches), then return the cached
+    blocks to the card."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _peak(what: str) -> int:
+    """Log and return the peak of allocated device memory since the last
+    reset."""
+    import torch
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[memory] {what}: peak {peak / 2**30:.2f} GiB allocated")
+    return peak
+
+
+def phase_service(arch: str, sizes=SERVICE_JOBS) -> dict:
     """The service round trip of config ``arch`` at full width (phase 3
-    for qwen3-1.7b, phase 8 for mamba2-130m), then the same containers
-    through speculative decompression (phase 10)."""
+    for qwen3-1.7b, phase 8 for mamba2-130m, phase 15 for zamba2-7b),
+    then the same containers through speculative decompression (phase
+    10)."""
     import numpy as np
     import torch
     from repro_torch import obs
@@ -644,6 +715,8 @@ def phase_service(arch: str) -> dict:
     from repro_torch.serve.engine import ModelPredictor
     from repro_torch.service import CompressionService
     cfg = get_config(arch)
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     pred = ModelPredictor.random_init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -670,8 +743,6 @@ def phase_service(arch: str) -> dict:
     log(f"[graph] {arch}: first capture of the step (B=16, S=128) "
         f"{first_capture_ms:.1f} ms, its eager warm-up included")
     svc = CompressionService(pred, slots=16, chunk_size=128, topk=48)
-    sizes = [(d, n, s) for d, n, s in (("wiki", 3000, 1), ("code", 2200, 2),
-                                        ("web", 4000, 3), ("math", 2600, 4))]
     texts = [human_like(d, n, seed=s) for d, n, s in sizes]
     n_tok = sum(len(t) for t in texts)
     ops.reset_launches()
@@ -758,8 +829,10 @@ def phase_service(arch: str) -> dict:
         f"{stats['step_replays']} replays, {stats['warmup_steps']} warm-up "
         f"steps; launches {launches} = per step x (replays + warm-ups)")
     out["spec"] = phase_speculative(pred, blobs, texts)
+    out["peak_bytes"] = _peak(f"{arch} service, graphs and speculative "
+                              f"decode")
     del pred, tsvc
-    torch.cuda.empty_cache()
+    _free_card()
 
     # the user's flow: decompression in a process of its own, which
     # builds the predictor from the seed again, jobs in a third order
@@ -1007,8 +1080,23 @@ def _decode_logits(pred, chunks, prefix=None):
     return torch.stack(out, dim=1)
 
 
-# the kernel each family's teacher-forced forward launches once per layer
-SCORE_KERNEL = {"dense": "flash_attention", "ssm": "ssd_intra"}
+def score_launches(cfg) -> dict:
+    """The kernels of each family's teacher-forced forward and their
+    launches per forward: ``flash_attention`` per attention block,
+    ``ssd_intra`` per SSD layer (zamba2-7b: 6 and 81)."""
+    out = {}
+    if attention_blocks(cfg):
+        out["flash_attention"] = attention_blocks(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        out["ssd_intra"] = cfg.n_layers
+    return out
+
+
+def _check_score_launches(cfg, launches, what: str, forwards: int = 1):
+    for k, per in score_launches(cfg).items():
+        if launches[k] != per * forwards:
+            fail(f"{what} launched {k} {launches[k]} times, not {per} per "
+                 f"forward x {forwards}")
 
 
 def phase_scoring(pred) -> dict:
@@ -1023,14 +1111,13 @@ def phase_scoring(pred) -> dict:
     chunks = toks[:B * C].reshape(B, C).astype(np.int64)
     prefix = toks[B * C:B * (C + P)].reshape(B, P).astype(np.int64)
     pred.set_decode_len(C + P + 1)
-    kern = SCORE_KERNEL[pred.cfg.family]
     ops.reset_launches()
     scored = pred.score_chunks(chunks)
     torch.cuda.synchronize()
-    n_kern = ops.LAUNCHES[kern]
-    if n_kern != pred.cfg.n_layers:
-        fail(f"score_chunks launched {kern} {n_kern} times, not "
-             f"once per layer ({pred.cfg.n_layers})")
+    _check_score_launches(pred.cfg, ops.LAUNCHES, "score_chunks")
+    if not bool(torch.isfinite(scored).all()):
+        fail(f"{pred.cfg.name}: score_chunks gave non-finite logits "
+             f"({int((~torch.isfinite(scored)).sum())} of {scored.numel()})")
     t0 = time.perf_counter()
     for _ in range(5):
         pred.score_chunks(chunks)
@@ -1051,9 +1138,7 @@ def phase_scoring(pred) -> dict:
     blob_x, st_x = comp.compress(chunks.ravel())
     blob_e, st_e = comp.compress(chunks.ravel(), exact=False)
     torch.cuda.synchronize()
-    if ops.LAUNCHES[kern] != pred.cfg.n_layers:
-        fail(f"compress(exact=False) launched {kern} "
-             f"{ops.LAUNCHES[kern]} times")
+    _check_score_launches(pred.cfg, ops.LAUNCHES, "compress(exact=False)")
     log(f"[score] {pred.cfg.name} score_chunks ({B} x {C}) "
         f"{score_ms:.2f} ms, of it on the "
         f"device {_ms(score_dev_ms, 2)} (idle "
@@ -1082,16 +1167,14 @@ def _compare_with_fp32_twin(pred, chunks, prefix):
         ops.reset_launches()
         s32 = twin.score_chunks(chunks, prefix=pre)
         torch.cuda.synchronize()
-        if ops.LAUNCHES["ssd_intra"] != twin.cfg.n_layers:
-            fail(f"fp32 score_chunks launched ssd_intra "
-                 f"{ops.LAUNCHES['ssd_intra']} times")
+        _check_score_launches(twin.cfg, ops.LAUNCHES, "fp32 score_chunks")
         d32 = _decode_logits(twin, chunks, pre)
         _compare_logits(f"fp32 {what}", s32, d32, tol=SCORE_TOL_FP32)
         out.append(_compare_logits(
             what, pred.score_chunks(chunks, prefix=pre),
             _decode_logits(pred, chunks, pre), fp32_twin=d32))
     del twin
-    torch.cuda.empty_cache()
+    _free_card()
     return out
 
 
@@ -1120,7 +1203,6 @@ def phase_routed(pred) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.service import CompressionService
     jobs = routed_jobs()
-    kern = SCORE_KERNEL[pred.cfg.family]
     kw = dict(slots=16, chunk_size=128, topk=48)
     svc = CompressionService(pred, route="auto", **kw)
     ops.reset_launches()
@@ -1141,11 +1223,8 @@ def phase_routed(pred) -> dict:
     for i, t in enumerate(jobs):
         if not np.array_equal(outs[i], t):
             fail(f"routed round trip: job {i} differs after decompress")
-    want = pred.cfg.n_layers * len(jobs)
-    if launches[kern] != want:
-        fail(f"routed compress launched {kern} {launches[kern]} times, "
-             f"not {want} ({pred.cfg.n_layers} per probe, one probe per "
-             f"job)")
+    # one probe (a teacher-forced forward) per job
+    _check_score_launches(pred.cfg, launches, "routed compress", len(jobs))
     counts: dict = {}
     for b in blobs:
         for e in read_index(b, read_header(b)).entries:
@@ -1194,7 +1273,9 @@ def phase_shared_prefix(pred) -> dict:
     sp = encode(human_like("article", 64, seed=21))[:32]
     jobs = [encode(human_like("wiki", 1500, seed=31)),
             encode(human_like("web", 1200, seed=32))]
-    kw = dict(slots=16, chunk_size=128, topk=48)
+    # the cache counts tokens, not bytes: a small capacity keeps a
+    # zamba2-7b lane snapshot (~149 MB of SSM state) to a few entries
+    kw = dict(slots=16, chunk_size=128, topk=48, prefix_cache_tokens=256)
     svc = CompressionService(pred, **kw)
     reg = svc.registry
     t0 = time.perf_counter()
@@ -1888,6 +1969,35 @@ def phase_train_full_width() -> dict:
                 kernels=kernels)
 
 
+# ---------------------------------------------------------- phase 16
+def phase_hybrid_scoring() -> dict:
+    """Phases 4, 5 and 11 for zamba2-7b at full width: ``score_chunks``
+    against the decode program (fresh and under a 32-token prefix, held
+    through the fp32 twin), ``compress(exact=False)``, the routed service
+    (``flash_attention`` 6 and ``ssd_intra`` 81 per teacher-forced
+    forward) and two shared-prefix jobs (a prefix-cache hit), with the
+    peak device memory of each."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serve.engine import ModelPredictor
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    pred = ModelPredictor.random_init(get_config("zamba2-7b"), seed=0,
+                                      device="cuda")
+    scoring = phase_scoring(pred)
+    scoring["peak_bytes"] = _peak("zamba2-7b scoring (with its fp32 twin)")
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    routed = phase_routed(pred)
+    routed["peak_bytes"] = _peak("zamba2-7b routed service")
+    torch.cuda.reset_peak_memory_stats()
+    prefix = phase_shared_prefix(pred)
+    prefix["peak_bytes"] = _peak("zamba2-7b shared-prefix jobs")
+    del pred
+    _free_card()
+    return dict(routed, scoring=scoring, prefix=prefix)
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the same synthetic texts in every run and in every child
@@ -1905,6 +2015,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch missing)", file=sys.stderr)
         return 2
+    t_run = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     # the CLI's pred-* predictors train at first use: into a cache of this
@@ -1960,9 +2071,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_paper()
     phase_train_full_width()
+    svc_h = phase_service("zamba2-7b", ZAMBA_JOBS)
+    routed_h = phase_hybrid_scoring()
 
     paths = {"cdf_points": full, "flash_attention": routed,
              "ssd_intra": routed_ssm}
+    # zamba2-7b's paths: the service (phase 15) and the routed service
+    # (phase 16); cdf_points is not on them (--topk 0 only)
+    hybrid_paths = {"flash_attention": routed_h, "ssd_intra": routed_h}
     rows = []
     for name, (src, replaces) in SOURCES.items():
         r = kern[name]
@@ -1970,12 +2086,16 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": int(main_launches[name]),
+                     "launches_zamba2": int(hybrid_paths.get(
+                         name, svc_h)["launches"][name]),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
                      "device_ms": r["device_ms"],
                      "library_device_ms": r["library_device_ms"]})
+    log(f"[done] every phase in {time.perf_counter() - t_run:.1f} s, the "
+        f"build included")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

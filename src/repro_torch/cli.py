@@ -56,8 +56,8 @@ timeline of the run as Chrome-trace JSON and prints the job's phase
 breakdown (model / coder / scheduler).
 
 Predictors: ``--predictor`` names a ``pred-*`` predictor or a registered
-config (``qwen3-1.7b``, ``mamba2-130m``), on ``--device`` (default
-``cuda``; ``cpu`` on request).
+config (``qwen3-1.7b``, ``mamba2-130m``, ``zamba2-7b``), on ``--device``
+(default ``cuda``; ``cpu`` on request).
 
 * A ``pred-*`` predictor is **trained**, as the JAX package's ``llmc``
   has it: the first use trains it by the recipe of ``train/prep.py``
@@ -377,7 +377,8 @@ def main(argv=None) -> int:
         epilog="pred-* predictors are trained at first use and loaded from "
                "the cache (results/torch_cache/ in the checkout, or "
                "$REPRO_TORCH_CACHE) ever after; registered configs "
-               "(qwen3-1.7b, mamba2-130m) are random weights from --seed.")
+               "(qwen3-1.7b, mamba2-130m, zamba2-7b) are random weights "
+               "from --seed.")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     def model_args(p, slots=None):

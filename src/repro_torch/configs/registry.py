@@ -1,6 +1,6 @@
 """Config registry of the PyTorch port: the byte-level paper predictors
 and the architectures the port runs so far (dense ``qwen3-1.7b``, ssm
-``mamba2-130m``).
+``mamba2-130m``, hybrid ``zamba2-7b``).
 
 Names resolve with or without dashes (``qwen3-1.7b`` == ``qwen3_1_7b``);
 ``pred-*`` names resolve to the small predictor LMs of
@@ -15,6 +15,7 @@ from .paper_predictors import PRED_BASE, PRED_LARGE, PRED_SMALL, PRED_TINY
 ARCH_IDS = [
     "qwen3_1_7b",
     "mamba2_130m",
+    "zamba2_7b",
 ]
 
 PREDICTORS = {c.name: c for c in (PRED_TINY, PRED_SMALL, PRED_BASE,

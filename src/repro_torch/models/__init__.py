@@ -1,1 +1,2 @@
-"""Dense decoder models in PyTorch, with the JAX package's layouts."""
+"""The port's model families (dense, ssm, hybrid) in PyTorch, with the
+JAX package's layouts."""

@@ -1,5 +1,5 @@
 """Family dispatch: one forward/init_cache/decode_step API over the model
-families the port has (dense and ssm so far; the JAX package's
+families the port has (dense, ssm and hybrid so far; the JAX package's
 ``models/api.py`` covers six), and the training loss ``loss_fn`` (the
 dense family so far)."""
 from __future__ import annotations
@@ -9,13 +9,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from . import mamba2, transformer
+from . import hybrid, mamba2, transformer
 from .schema import count_params, from_jax, init_params, schema
 
 _FAMS = {
     "dense": transformer,
     "vlm": transformer,
     "ssm": mamba2,
+    "hybrid": hybrid,
 }
 
 

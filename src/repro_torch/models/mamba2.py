@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from .layers import rms_norm
-from .transformer import embed_tokens, lm_logits, torch_dtype
+from .transformer import embed_tokens, layer_weights, lm_logits, torch_dtype
 
 
 def _conv1d_causal(x, w, state=None):
@@ -120,16 +120,12 @@ def ssm_block(cfg: ModelConfig, lp: dict, x):
     return x + y @ lp["out_proj"]
 
 
-def _layer(params, layer: int) -> dict:
-    return {name: w[layer] for name, w in params["layers"].items()}
-
-
 def forward(params, cfg: ModelConfig, batch: dict):
     """Teacher-forced scoring: batch["tokens"] (B, S) -> logits (B, S, Vp).
     One ``ssd_intra`` launch per layer."""
     x = embed_tokens(cfg, params, batch["tokens"])
     for layer in range(cfg.n_layers):
-        x = ssm_block(cfg, _layer(params, layer), x)
+        x = ssm_block(cfg, layer_weights(params, layer), x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(cfg, params, x)
 
@@ -187,7 +183,7 @@ def decode_step(params, cfg: ModelConfig, cache, prev_tokens):
     cache). The cache is updated in place; ``pos`` advances by one."""
     x = embed_tokens(cfg, params, prev_tokens[:, None])
     for layer in range(cfg.n_layers):
-        x = ssm_decode_step(cfg, _layer(params, layer), x,
+        x = ssm_decode_step(cfg, layer_weights(params, layer), x,
                             cache["conv"][layer], cache["state"][layer])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(cfg, params, x)[:, 0]

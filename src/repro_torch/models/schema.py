@@ -9,7 +9,7 @@ GB; it is never staged on the host). ``from_jax`` turns the JAX package's
 parameter tree, as numpy arrays, into the port's tensors, so that the two
 packages compute the same function in the tests.
 
-The dense and ssm (mamba2) families, so far.
+The dense, ssm (mamba2) and hybrid (zamba2) families, so far.
 """
 from __future__ import annotations
 
@@ -89,11 +89,13 @@ def _norm(L: Optional[int], name: str, D: int) -> dict:
 
 
 def schema(cfg: ModelConfig) -> dict:
-    """Nested dict of Leaf for the given (dense or ssm) config."""
-    if cfg.family not in ("dense", "vlm", "ssm"):
+    """Nested dict of Leaf for the given (dense, ssm or hybrid) config.
+    The hybrid's ``shared_attn`` (one unstacked attention + MLP block)
+    sorts after every other key, so ``init_params`` draws it last."""
+    if cfg.family not in ("dense", "vlm", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"the port has the dense and ssm families only so far (got "
-            f"{cfg.family!r})")
+            f"the port has the dense, ssm and hybrid families only so far "
+            f"(got {cfg.family!r})")
     D, L, Vp = cfg.d_model, cfg.n_layers, cfg.padded_vocab
     tree: dict = {"embed": Leaf((Vp, D), ("vocab_rows", "embed"), "normal", 1.0)}
     if not cfg.tie_embeddings:
@@ -102,6 +104,12 @@ def schema(cfg: ModelConfig) -> dict:
     tree.update(_norm(None, "final_norm", D))
     if cfg.family == "ssm":
         tree["layers"] = _ssm_leaves(cfg, L)
+    elif cfg.family == "hybrid":
+        tree["layers"] = _ssm_leaves(cfg, L)
+        tree["shared_attn"] = {**_attn_leaves(cfg, None),
+                               **_mlp_leaves(cfg, None),
+                               **_norm(None, "ln1", D),
+                               **_norm(None, "ln2", D)}
     else:
         tree["layers"] = {**_attn_leaves(cfg, L), **_mlp_leaves(cfg, L),
                           **_norm(L, "ln1", D), **_norm(L, "ln2", D)}
@@ -170,8 +178,10 @@ def from_jax(params_np: dict, device=None) -> dict:
     ``embed``, ``lm_head``, ``final_norm``, and ``layers/{wq, wk, wv, wo,
     q_norm, k_norm, wi_gate, wi_up, wo_mlp, ln1, ln2}`` for the dense
     family or ``layers/{ln, in_z, in_x, in_B, in_C, in_dt, conv_w, A_log,
-    D_skip, dt_bias, out_proj}`` for the ssm family) as the port's
-    tensors: same names, same layouts, same dtypes."""
+    D_skip, dt_bias, out_proj}`` for the ssm family; the hybrid family
+    has the ssm ``layers`` and ``shared_attn/{wq, wk, wv, wo, wi_gate,
+    wi_up, wo_mlp, ln1, ln2}``, unstacked) as the port's tensors: same
+    names, same layouts, same dtypes."""
     device = torch.device("cpu" if device is None else device)
     return {k: from_jax(v, device) if isinstance(v, dict)
             else _leaf_tensor(v, device) for k, v in params_np.items()}

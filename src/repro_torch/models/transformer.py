@@ -44,7 +44,8 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
             f"models/transformer.py runs the dense family (got "
-            f"{cfg.family!r}; the port's ssm family is models/mamba2.py)")
+            f"{cfg.family!r}; the port's ssm family is models/mamba2.py, "
+            f"its hybrid family models/hybrid.py)")
 
 
 def _check_cache(cfg: ModelConfig) -> None:
@@ -166,19 +167,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     }
 
 
-def _decode_attn_one(cfg, params, layer: int, x, kc, vc, pos):
-    """One-token attention of layer ``layer`` vs. its (B, S, K, hd) cache
-    slices ``kc``/``vc``, which receive the new K/V in place at each
-    lane's ``pos``."""
-    lp = params["layers"]
+def layer_weights(params, layer: int) -> dict:
+    """Layer ``layer``'s slices (views) of the stacked weights."""
+    return {name: w[layer] for name, w in params["layers"].items()}
+
+
+def _decode_attn_one(cfg, lp: dict, x, kc, vc, pos):
+    """One-token attention of one block, whose weights ``lp`` (a layer's
+    slices, or the hybrid's shared block) are given, vs. its (B, S, K,
+    hd) cache slices ``kc``/``vc``, which receive the new K/V in place
+    at each lane's ``pos``."""
     B, _, D = x.shape
     hd, Hp, Kp = cfg.head_dim, cfg.padded_heads, cfg.padded_kv_heads
-    q = (x @ lp["wq"][layer]).reshape(B, 1, Hp, hd)
-    k = (x @ lp["wk"][layer]).reshape(B, 1, Kp, hd)
-    v = (x @ lp["wv"][layer]).reshape(B, 1, Kp, hd)
+    q = (x @ lp["wq"]).reshape(B, 1, Hp, hd)
+    k = (x @ lp["wk"]).reshape(B, 1, Kp, hd)
+    v = (x @ lp["wv"]).reshape(B, 1, Kp, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, lp["q_norm"][layer], cfg.norm_eps)
-        k = rms_norm(k, lp["k_norm"][layer], cfg.norm_eps)
+        q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
     q = rope(q, pos[:, None], cfg.rope_theta)
     k = rope(k, pos[:, None], cfg.rope_theta)
     S = kc.shape[1]
@@ -190,7 +196,17 @@ def _decode_attn_one(cfg, params, layer: int, x, kc, vc, pos):
     kc[lanes, slot] = k[:, 0].to(kc.dtype)
     vc[lanes, slot] = v[:, 0].to(vc.dtype)
     o = decode_attention(q, kc, vc, pos)
-    return o.reshape(B, 1, Hp * hd) @ lp["wo"][layer]
+    return o.reshape(B, 1, Hp * hd) @ lp["wo"]
+
+
+def decode_block(cfg: ModelConfig, lp: dict, x, kc, vc, pos):
+    """One decoder block's step (attention, then the MLP, each pre-norm
+    with its residual): x (B, 1, D) -> (B, 1, D); the new K/V land in
+    ``kc``/``vc`` in place."""
+    x = x + _decode_attn_one(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps),
+                             kc, vc, pos)
+    return x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["wi_gate"],
+                      lp["wi_up"], lp["wo_mlp"])
 
 
 def decode_step(params, cfg: ModelConfig, cache, prev_tokens):
@@ -198,16 +214,10 @@ def decode_step(params, cfg: ModelConfig, cache, prev_tokens):
     cache). The cache is updated in place; ``pos`` advances by one."""
     _check_cache(cfg)
     pos = cache["pos"]
-    lp = params["layers"]
     x = embed_tokens(cfg, params, prev_tokens[:, None])
     for layer in range(cfg.n_layers):
-        a = _decode_attn_one(cfg, params, layer,
-                             rms_norm(x, lp["ln1"][layer], cfg.norm_eps),
-                             cache["k"][layer], cache["v"][layer], pos)
-        x = x + a
-        x = x + swiglu(rms_norm(x, lp["ln2"][layer], cfg.norm_eps),
-                       lp["wi_gate"][layer], lp["wi_up"][layer],
-                       lp["wo_mlp"][layer])
+        x = decode_block(cfg, layer_weights(params, layer), x,
+                         cache["k"][layer], cache["v"][layer], pos)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(cfg, params, x)[:, 0]
     pos.add_(1)             # in place: every cache leaf keeps its storage

@@ -1,17 +1,20 @@
 """Serving engine: lock-step decode over the port's models.
 
 ``ModelPredictor`` implements the compressor's ``PredictorAdapter``
-(core/compressor.py) over the port's models (dense and ssm) in PyTorch,
-as the JAX package's ``serve/engine.py`` does over its model zoo:
+(core/compressor.py) over the port's models (dense, ssm and hybrid) in
+PyTorch, as the JAX package's ``serve/engine.py`` does over its model
+zoo:
 
   * ``score_chunks`` — one teacher-forced ``forward`` over (B, C) chunks,
     fresh or under a scored ``prefix`` (the router probe, ``exact=False``
     and scored context). Its logits come back as a **device tensor**
     (B, C, V), as ``decode_step``'s do;
   * ``begin_decode`` — a fresh per-lane cache (K/V for the dense family,
-    conv and SSM state for the ssm family); with a ``prefix``, the
-    cache consumes [BOS, prefix[:, :-1]] by replaying the decode step,
-    so it is bit-identical to the same steps taken one by one;
+    conv and SSM state for the ssm family, both for the hybrid: the
+    states of its SSD layers and K/V per application of its shared
+    block); with a ``prefix``, the cache consumes [BOS, prefix[:, :-1]]
+    by replaying the decode step, so it is bit-identical to the same
+    steps taken one by one;
   * ``decode_step`` — one token for every lane. The logits come back as
     a **device tensor** (B, V): the CDF kernels read them on the card,
     and only the small (ids, cdf) tables cross to the host;
@@ -204,8 +207,8 @@ class ModelPredictor:
         """Rewind each lane, in place, to the state after it consumed
         ``accepted[b]`` of the last verify's inputs (0 = before them).
         Dense lanes rewind ``pos`` (K/V rows past it are hidden and
-        overwritten); ssm lanes also take back their conv and SSM state.
-        Returns the state."""
+        overwritten); ssm and hybrid lanes also take back their conv and
+        SSM state. Returns the state."""
         with obs.span("model.rollback"):
             return graphs.rollback(snapshots, accepted)
 
@@ -245,7 +248,8 @@ class ModelPredictor:
         returns to 0 and every other cache leaf, (L, B, ...) with the lane
         on axis 1, is zeroed. For an SSM the conv and recurrent state
         MUST be zeroed (they are the context); for attention, zeroing K/V
-        is hygiene (the per-lane length already hides stale entries)."""
+        is hygiene (the per-lane length already hides stale entries); the
+        hybrid has both."""
         with obs.span("model.reset_slots"):
             lanes = torch.as_tensor(np.nonzero(np.asarray(mask, bool))[0],
                                     device=self.device)

@@ -2,17 +2,21 @@
 
     PYTHONPATH=src python -m repro_torch.serve.graph_probe [ARCH ...]
 
-For each config (default ``qwen3-1.7b`` and ``mamba2-130m``, random
-weights from seed 0, 16 lanes, a 128-position cache): the first step's
+For each config (default ``qwen3-1.7b``, ``mamba2-130m`` and
+``zamba2-7b``, random weights from seed 0, 16 lanes, a 128-position
+cache; each model freed before the next): the first step's
 time (its capture and eager warm-up included), 8 replays held against 8
 eager steps on a twin cache bit for bit, the host ms per step of the
 eager and the captured step (a host clock around 20 steps ending in a
 synchronise), the first verify program's capture (T = 5), and the host
 ms of a verify round with its rollback. ``chip_smoke.py`` measures the
-same and more at full length; this is its quick form.
+same and more at full length; this is its quick form. A zamba2-7b
+step replays 6 ``decode_attention`` launches (one per application of
+its shared block) among its SSD layers' elementwise kernels.
 """
 from __future__ import annotations
 
+import gc
 import subprocess
 import sys
 import time
@@ -83,8 +87,9 @@ def main(argv) -> int:
                                 "--format=csv,noheader"],
                                capture_output=True, text=True).stdout.strip())
     build.build_all()
-    for arch in argv or ["qwen3-1.7b", "mamba2-130m"]:
+    for arch in argv or ["qwen3-1.7b", "mamba2-130m", "zamba2-7b"]:
         probe(arch)
+        gc.collect()
         torch.cuda.empty_cache()
     return 0
 

@@ -3,7 +3,8 @@ jitted step programs (``src/repro/serve/engine.py`` ``_decode``,
 ``_prefill`` and ``_verify``).
 
 An eager decode step issues one host launch per operator (2,593 for
-qwen3-1.7b, 1,121 for mamba2-130m), and the card idles while the host
+qwen3-1.7b, 1,121 for mamba2-130m, 4,530 for zamba2-7b's 81 SSD layers
+and 6 shared-block applications), and the card idles while the host
 issues them. On the card, ``ModelPredictor`` therefore runs each step as
 the replay of one CUDA graph, captured over the storage of one cache:
 
@@ -28,8 +29,14 @@ eagerly on the capture stream, with the cache leaves saved and restored
 around it. That builds and loads every kernel, makes each kernel's
 ``cudaFuncSetAttribute`` and cuBLAS's workspace for the stream (none of
 which may happen under capture), and leaves the caller's cache stepped
-exactly once per call. A failed capture raises: nothing falls back to the
-eager step on the card.
+exactly once per call. Python's cyclic garbage collector is paused while
+a graph is captured: a predictor that only a reference cycle still holds
+(its programs refer back to it) would otherwise be collected at any
+allocation of the body, and destroying its graphs in the middle of
+another capture invalidates that capture (seen on the card: graph
+resets refused "while the stream is capturing", then the capture
+failed). A failed capture raises: nothing falls back to the eager step
+on the card.
 
 Launch counting. ``kernels.ops.LAUNCHES`` counts in Python, where a
 wrapper launches its kernel. Under capture nothing launches, so the
@@ -38,7 +45,10 @@ launches of each kernel it holds and adds them at every replay. The
 warm-up launches for real and counts as such. ``STATS`` counts captures
 (with their host ms, warm-up included), the decode steps their warm-ups
 ran, and the replays of each kind, so that a kernel's launches are
-(replayed steps + warm-up steps) x its launches per step.
+(replayed steps + warm-up steps) x its launches per step. A captured
+step holds ``decode_attention`` n_layers times for the dense family,
+never for the ssm family (its step is the recurrence) and once per
+application of the shared block for the hybrid (6 for zamba2-7b).
 """
 from __future__ import annotations
 
@@ -81,10 +91,14 @@ class Program:
         torch.cuda.current_stream().wait_stream(stream)
         before = dict(ops.LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph, stream=stream):
                 self.out = body()
         finally:
+            if collecting:
+                gc.enable()
             # nothing launched under capture: keep what the graph holds
             self.launches = {k: n - before[k]
                              for k, n in ops.LAUNCHES.items()

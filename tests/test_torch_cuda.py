@@ -18,11 +18,13 @@ its fp32 factors into two bf16 parts for the tensor cores, which keeps
 ~16 of their 24 bits.
 
 The captured decode programs (``serve/graphs.py``) are held against the
-eager step bit for bit (logits and every cache leaf), for both families
-in fp32 and bf16, on fresh lanes, after a lane reset, after
-``restore_slot`` and after a speculative ``rollback``; the launch
-counters against captured launches x replays; and a cache of another
-length against its own capture.
+eager step bit for bit (logits and every cache leaf), for the three
+families (the hybrid with a trailing SSD layer) in fp32 and bf16, on
+fresh lanes, after a lane reset, after ``restore_slot`` and after a
+speculative ``rollback``; the launch counters against captured launches
+x replays (dense and hybrid); and a cache of another length against its
+own capture. Kernels also run at zamba2-7b's shapes (hd 112 and G = 1,
+H = 112 and N = 64, V = 32000).
 
 Training and sampling on the card: a ``pred-tiny`` train step against
 the same step on the CPU (loss within 1e-4, every gradient nonzero and
@@ -38,6 +40,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import base as pbase  # noqa: E402
 from repro_torch.configs import mamba2_130m as pmamba  # noqa: E402
 from repro_torch.configs import qwen3_1_7b as pqwen  # noqa: E402
+from repro_torch.configs import zamba2_7b as pzamba  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.serve import graphs  # noqa: E402
@@ -83,6 +86,7 @@ def test_decode_attention_kernel_vs_plain(cuda, B, H, K, S, hd, dtype):
 @pytest.mark.parametrize("R,V,k,dtype", [
     (4, 512, 16, "float32"), (3, 1000, 48, "float32"),
     (16, 258, 48, "float32"), (16, 151936, 48, "bfloat16"),
+    (16, 32000, 48, "bfloat16"),                # zamba2-7b
 ])
 def test_topk_cdf_kernel_vs_plain(cuda, R, V, k, dtype):
     lg = torch.from_numpy(np.random.default_rng(V).normal(
@@ -212,6 +216,9 @@ FLASH_CASES = [
     (1, 3, 1, 65, 65, 40, True, None),
     (1, 2, 1, 64, 64, 120, True, None),
     (16, 8, 4, 128, 128, 32, True, None),       # pred-base
+    (16, 32, 32, 128, 128, 112, True, None),    # zamba2-7b: MHA, hd 112
+    (16, 32, 32, 32, 32, 112, True, None),      # its probe
+    (16, 32, 32, 160, 160, 112, True, None),    # under a 32-token prefix
 ]
 
 
@@ -335,6 +342,9 @@ SSD_CASES = [
     (2, 256, 4, 48, 96),        # Q = 256, P and N ragged in their tiles
     (1, 65, 1, 8, 65),          # rows not on 16 bytes: scalar copies
     (2, 64, 25, 64, 128),       # one head past the last full group
+    (16, 128, 112, 64, 64),     # zamba2-7b score_chunks (H=112, N=64)
+    (23, 32, 112, 64, 64),      # its router probe
+    (16, 160, 112, 64, 64),     # under a 32-token prefix
 ]
 
 
@@ -578,10 +588,16 @@ def test_decode_attention_misaligned_rows(cuda, G, hd, S, dtype):
 
 
 # ------------------------------------------------ captured decode programs
-GRAPH_CFGS = {f"{fam}-{dt}": pbase.tiny_variant(cfg).with_(dtype=dt)
-              for fam, cfg in (("dense", pqwen.CONFIG),
-                               ("ssm", pmamba.CONFIG))
+_GRAPH_FAMILIES = (("dense", pqwen.CONFIG, {}), ("ssm", pmamba.CONFIG, {}),
+                   # a trailing SSD layer, as zamba2-7b has
+                   ("hybrid", pzamba.CONFIG, {"n_layers": 5}))
+GRAPH_CFGS = {f"{fam}-{dt}": pbase.tiny_variant(cfg, **kw).with_(dtype=dt)
+              for fam, cfg, kw in _GRAPH_FAMILIES
               for dt in ("float32", "bfloat16")}
+#: decode_attention launches per decode step: one per layer (dense), one
+#: per application of the shared block (hybrid)
+ATTN_PER_STEP = {"dense-bfloat16": GRAPH_CFGS["dense-bfloat16"].n_layers,
+                 "hybrid-bfloat16": 2}
 
 
 def _same_cache(a, b):
@@ -638,8 +654,10 @@ def test_captured_step_equals_eager_bit_for_bit(cuda, name):
 
 
 @pytest.mark.cuda
-def test_launch_counts_are_captured_launches_times_replays(cuda):
-    cfg = GRAPH_CFGS["dense-bfloat16"]
+@pytest.mark.parametrize("name", sorted(ATTN_PER_STEP))
+def test_launch_counts_are_captured_launches_times_replays(cuda, name):
+    cfg = GRAPH_CFGS[name]
+    per = ATTN_PER_STEP[name]
     pred = ModelPredictor.random_init(cfg, seed=0, device=cuda)
     pred.set_decode_len(16)
     state = pred.begin_decode(2)
@@ -649,19 +667,36 @@ def test_launch_counts_are_captured_launches_times_replays(cuda):
     for _ in range(n):
         pred.decode_step(state, np.array([1, 2]))
     prog = state.slot.step
-    assert prog.launches == {"decode_attention": cfg.n_layers}
+    assert prog.launches == {"decode_attention": per}
     assert graphs.STATS["captures"] == 1
     assert graphs.STATS["step_replays"] == n
     # the eager warm-up before capture launches for real, once
-    assert ops.LAUNCHES["decode_attention"] == cfg.n_layers * (n + 1)
+    assert ops.LAUNCHES["decode_attention"] == per * (n + 1)
     seq = np.ones((2, 3), np.int64)
     ops.reset_launches()
     for _ in range(2):
         _, snaps = pred.verify_steps(state, seq)
         pred.rollback(snaps, np.array([1, 3]))
     prog = state.slot.verify[3][1]
-    assert prog.launches == {"decode_attention": 3 * cfg.n_layers}
-    assert ops.LAUNCHES["decode_attention"] == 3 * cfg.n_layers * (2 + 1)
+    assert prog.launches == {"decode_attention": 3 * per}
+    assert ops.LAUNCHES["decode_attention"] == 3 * per * (2 + 1)
+
+
+@pytest.mark.cuda
+def test_capture_pauses_the_garbage_collector(cuda):
+    """The cyclic collector is off while a graph is captured, and on
+    again after: a dead predictor's graphs destroyed mid-capture would
+    invalidate it."""
+    import gc
+    seen = []
+    x = torch.zeros(4, device=cuda)
+
+    def body():
+        seen.append(gc.isenabled())
+        return x.add_(1)
+    prog = graphs.Program(body, {"x": x}, torch.cuda.Stream(cuda), "step", 1)
+    assert seen == [True, False] and gc.isenabled()
+    assert torch.equal(prog.replay(), torch.ones(4, device=cuda))
 
 
 @pytest.mark.cuda

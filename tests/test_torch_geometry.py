@@ -42,9 +42,10 @@ def test_topk_geometry_slices_cover_the_row(V, dtype):
 
 
 def test_topk_geometry_at_the_configs_vocabularies():
-    """pred-base's 258 stays in one CTA; qwen3-1.7b's and mamba2-130m's
-    vocabularies take a cluster of 8 (16 rows: 128 CTAs)."""
+    """pred-base's 258 stays in one CTA; qwen3-1.7b's, mamba2-130m's and
+    zamba2-7b's vocabularies take a cluster of 8 (16 rows: 128 CTAs)."""
     assert ops.topk_cdf_geometry(258, torch.float32) == (1, 264, True)
+    assert ops.topk_cdf_geometry(32000, torch.bfloat16) == (8, 4000, True)
     assert ops.topk_cdf_geometry(151936, torch.bfloat16) == (8, 18992,
                                                             True)
     assert ops.topk_cdf_geometry(50280, torch.bfloat16) == (8, 6288, True)
@@ -74,7 +75,7 @@ def launches(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("V", [258, 50280, 151936])
+@pytest.mark.parametrize("V", [258, 50280, 151936, 32000])
 def test_topk_launch_geometry_ignores_the_row_count(launches, V, dtype):
     n0 = ops.LAUNCHES["topk_cdf"]
     for R in (1, 7, 16, 64):
@@ -114,11 +115,15 @@ def test_flash_geometry_fits_the_kernel(Sq, G):
 
 def test_flash_geometry_at_the_scoring_shapes():
     """qwen3-1.7b (G = 2): both heads of a kv-head share each K/V tile;
-    the probe's 32 tokens get 32-position tiles."""
+    the probe's 32 tokens get 32-position tiles. zamba2-7b (MHA, G = 1):
+    one head a CTA, 128-position tiles."""
     bf = torch.bfloat16
     assert ops.flash_geometry(128, 2, bf) == (2, 64)
     assert ops.flash_geometry(160, 2, bf) == (2, 64)
     assert ops.flash_geometry(32, 2, bf) == (2, 32)
+    assert ops.flash_geometry(128, 1, bf) == (1, 128)
+    assert ops.flash_geometry(160, 1, bf) == (1, 128)
+    assert ops.flash_geometry(32, 1, bf) == (1, 32)
 
 
 def _slice_merge_topk(x, k):
@@ -266,7 +271,8 @@ def test_cdf_launch_geometry_ignores_the_row_count(launches, V, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,H,K,hd", [(128, 16, 8, 128), (128, 8, 4, 32),
-                                      (161, 16, 8, 128), (512, 8, 8, 112)])
+                                      (161, 16, 8, 128), (512, 8, 8, 112),
+                                      (161, 32, 32, 112)])   # zamba2-7b
 def test_decode_launch_geometry_ignores_lanes_and_lengths(launches, S, H, K,
                                                           hd, dtype):
     """The wrapper never reads the lengths, and the split it passes on
@@ -528,17 +534,24 @@ def test_ssd_geometry_covers_the_chunk(Q, H, P, N, dtype):
 def test_ssd_grid_fills_the_card_at_the_scoring_shapes():
     """mamba2-130m (H = 24, P = 64, N = 128) on 132 SMs, two CTAs of 256
     threads resident on each: 16 chunks of 128 launch 384 CTAs, the
-    probe's 23 x 32 launch 414, the prefix's 16 x 160 launch 480."""
-    for R, Q, want in ((16, 128, 384), (23, 32, 414), (16, 160, 480)):
-        rows, heads, ytiles, parts = ops.ssd_geometry(Q, 24, 64, 128,
+    probe's 23 x 32 launch 414, the prefix's 16 x 160 launch 480.
+    zamba2-7b (H = 112, N = 64): (y tiles + 2) x 28 CTAs a chunk, 1,792,
+    1,932 and 2,240."""
+    for H, N, R, Q, want in ((24, 128, 16, 128, 384), (24, 128, 23, 32, 414),
+                             (24, 128, 16, 160, 480),
+                             (112, 64, 16, 128, 1792),
+                             (112, 64, 23, 32, 1932),
+                             (112, 64, 16, 160, 2240)):
+        rows, heads, ytiles, parts = ops.ssd_geometry(Q, H, 64, N,
                                                       torch.bfloat16)
-        ctas = (ytiles + parts) * (-(-24 // heads)) * R
+        ctas = (ytiles + parts) * (-(-H // heads)) * R
         assert ctas == want and ctas >= 2 * 132
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Q,H,P,N", [(128, 24, 64, 128), (32, 24, 64, 128),
-                                     (23, 3, 40, 72), (16, 8, 16, 16)])
+                                     (23, 3, 40, 72), (16, 8, 16, 16),
+                                     (128, 112, 64, 64)])     # zamba2-7b
 def test_ssd_launch_geometry_ignores_the_chunk_count(launches, Q, H, P, N,
                                                      dtype):
     n0 = ops.LAUNCHES["ssd_intra"]
