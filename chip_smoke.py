@@ -19,18 +19,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    operations over the peak rate of their type: the bf16 tensor rate for
    bf16 inputs, the fp32 rate for fp32). ``decode_attention`` at
    qwen3-1.7b's and ``pred-base``'s decode shapes and at zamba2-7b's
-   attention widths over a 512-position cache (32 heads, G = 1, hd 112).
+   attention widths over a 512-position cache (32 heads, G = 1, hd 112),
+   and at phase 17's: h2o-danube-3-4b (32 heads, G = 4, hd 120: the
+   CUDA-core path) over 128 and 4,096 positions, deepseek-7b (G = 1, K =
+   32) and qwen3-14b (48 heads, G = 6); its int8 variant
+   ``decode_attention_int8`` at deepseek-7b's shape and h2o's 4,096, held
+   also bit for bit against the bf16 kernel on the dequantized cache,
+   whose time is printed beside it (no one-call library equivalent).
    ``flash_attention`` at full
    width (S = 128), at the router probe's shape (S = 32), with a 32-token
    prefix (S = 160), under a sliding window, at ``pred-base`` width
-   in fp32, and at zamba2-7b's (32 heads, G = 1, hd 112; S = 128, 32 and
-   160). ``topk_cdf`` at qwen3-1.7b's, mamba2-130m's, ``pred-base``'s
-   and zamba2-7b's vocabularies. ``ssd_intra`` at the mamba2-130m
+   in fp32, at zamba2-7b's (32 heads, G = 1, hd 112; S = 128, 32 and
+   160), at h2o's (hd 120, window 4096; S = 128, and 2 lanes of S =
+   4,352 as phase 18 scores them), qwen3-14b's (G = 6) and deepseek-7b's
+   (G = 1, K = 32). ``topk_cdf`` at qwen3-1.7b's, mamba2-130m's,
+   ``pred-base``'s, zamba2-7b's and deepseek-7b's (102,400)
+   vocabularies. ``ssd_intra`` at the mamba2-130m
    scoring path's shapes
    (H=24, P=64, N=128, bf16): 16 chunks of Q = 128, the probe's Q = 32,
    the prefix's Q = 160, S = 512 as 32 chunks of Q = 256, and the tiny
    test width in fp32; and at zamba2-7b's (H=112, P=64, N=64, bf16): Q =
-   128, 32 and 160.
+   128, 32 and 160. Phase 18's fp32 twin adds ``decode_attention`` at
+   h2o over 4,096 positions and ``flash_attention`` at 4,352, windowed
+   and not, in fp32. The attention kernels are held against the plain
+   version computed in fp32: 2e-5 absolute in fp32, and in bf16
+   ATTN_REL_TOL of each output row's largest |value|; a plain version
+   with one key tile skipped must fail that limit (``_planted``).
 3. The decode path at full width: ``qwen3-1.7b`` (28 layers, d=2048,
    V=151936, bf16; random weights from seed 0) through
    ``CompressionService(slots=16, chunk_size=128, topk=48)``: a few
@@ -69,7 +83,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``CompressionService``: ``ContainerError`` from both, and the same
    CUDA context decodes it under the writer's weights byte for byte.
 7. ``llmc-torch`` as a user runs it, every command a new process on the
-   trained ``pred-base`` (each printed with its time, start-up included):
+   trained ``pred-base`` (each printed with its time, start-up included;
+   after the first, which trains ``pred-base``, they run in two waves of
+   processes side by side: the compressions and ``stats``, then what
+   reads their archives):
    ``compress`` / ``decompress`` of a small file, plain, with ``--route
    auto``, and with the context flags and ``--draft``; ``--v3`` and back;
    ``compress --sidecar --trace`` (the sidecar has one entry per chunk,
@@ -148,12 +165,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    (a prefix-cache hit of one ~166 MB lane snapshot; the service's cache
    capacity 256 tokens). Each phase's model is freed before the next;
    the peak memory of each is logged.
+17. ``h2o-danube-3-4b`` (24 layers, d=3840, hd 120, window 4096, 3.96
+   B parameters), ``deepseek-7b`` (30 layers, MHA, V = 102,400, 6.91 B)
+   with its bf16 cache and again with the int8 KV cache, and
+   ``qwen3-14b`` (40 layers, d=5120, 40 heads padded to 48, 15.19 B), at
+   full width and depth, random weights from seed 0, bf16, each freed
+   before the next: phase 3's service round trip on 23 chunks (launch
+   counts; ``decode_attention_int8`` for the int8 cache), captured
+   against eager, the captured step's host and device ms, idle share and
+   kernels, phase 10's speculative decompression, then phases 4 and 11
+   (scoring to SCORE_TOL, not for the int8 twin; the shared-prefix
+   jobs), peak memory at ``init_params`` and per phase; then one fresh
+   process decompresses all four configs' containers.
+18. Two lanes of ``h2o-danube-3-4b`` past its window: 4,352 positions
+   through the captured step (a ring of 4,096 slots that wraps), their
+   logits held to SCORE_TOL against windowed teacher-forced scoring of
+   the same tokens (one ``forward`` through the flash kernel, window
+   4096), over every position and over the 256 past the window; then a
+   captured verify round after the wrap, rolled back to 1 and 3 of its 5
+   inputs, against captured lock-step caches: bit for bit. Then the
+   fp32 twin decodes the same positions and is held to SCORE_TOL_FP32
+   against its windowed scoring, and scoring with no window (a ring that
+   evicts nothing) must lie outside that limit past the window.
 12. Last, one JSON line describing every kernel (its ``launches`` from
    the main path that runs it: phase 3 for ``decode_attention`` and
    ``topk_cdf``, 6 for ``cdf_points``, 5 for ``flash_attention``, 9 for
-   ``ssd_intra``; phase 7 holds the CLI's own counts; and
-   ``launches_zamba2`` from phases 15 and 16), then the result
-   line ``{"ok": true, "device": {...}}`` as the last line of stdout.
+   ``ssd_intra``, 17 (deepseek-7b's int8 service) for
+   ``decode_attention_int8``; phase 7 holds the CLI's own counts;
+   ``launches_zamba2`` from phases 15 and 16, ``launches_phase17`` per
+   config and ``launches_phase18``), then the result line ``{"ok":
+   true, "device": {...}}`` as the last line of stdout. A ``[time]``
+   line gives each phase's wall seconds.
 
 The CLI's ``pred-*`` predictors train at first use: phase 7 trains
 ``pred-base`` into ``build/chip_smoke/torch_cache`` (``$REPRO_TORCH_CACHE``
@@ -183,6 +225,11 @@ BF16_FLOPS = 989e12                 # bf16 on the tensor cores, dense
 SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:67"),
+    # the same source built with -DREPRO_KV_INT8: the int8 cache's variant
+    # of the same TPU kernel (the JAX model dequantizes before calling it)
+    "decode_attention_int8": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:67"),
     "topk_cdf": ("src/repro_torch/kernels/csrc/topk_cdf.cu",
                  "src/repro/kernels/ac_cdf.py:187"),
     "cdf_points": ("src/repro_torch/kernels/csrc/cdf_points.cu",
@@ -297,6 +344,70 @@ def bound(nbytes: float, flops: float, dtype=None) -> tuple[float, str]:
 
 
 # ----------------------------------------------------------- phase 2
+# Attention kernels against their plain version computed in fp32 on the
+# same inputs (the bf16 plain version is that output rounded once). In
+# fp32 the limit is 2e-5 absolute. In bf16 it is ATTN_REL_TOL of the
+# largest |value| of the same output row (a (lane, head) row of decode,
+# a (lane, head, query) row of flash): rounding the output to bf16 alone
+# moves a value by up to 2**-8 of itself (half an ulp), and the flash
+# kernel rounds P to bf16 once more, a fraction of that. An absolute
+# limit cannot do this: at 4,096 positions an output is ~sqrt(e / len)
+# ~ 0.03, the size of 3e-2 (that limit is kept beside it, for rows of a
+# few keys, whose values reach 4). Each check also plants a fault in the
+# plain version (one tile of keys skipped in one row set, the kernel's
+# tile: DECODE_TILE positions for decode, 64 keys for flash) and fails
+# unless the same limit rejects it.
+ATTN_REL_TOL = 2.0 ** -7
+ATTN_BF16_ABS_TOL = 3e-2
+ATTN_F32_ABS_TOL = 2e-5
+
+
+def _attn_held(out, want32, dtype) -> dict:
+    """max |out - want32| and its largest share of its row's max
+    |want32|; ``ok`` under the dtype's limit."""
+    import torch
+    err = (out.float() - want32).abs()
+    row = want32.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    r = dict(max_abs_err=err.max().item(), rel_err=(err / row).max().item())
+    if dtype == torch.bfloat16:
+        r.update(tol=ATTN_REL_TOL, ok=r["rel_err"] <= ATTN_REL_TOL
+                 and r["max_abs_err"] <= ATTN_BF16_ABS_TOL)
+    else:
+        r.update(tol=ATTN_F32_ABS_TOL,
+                 ok=r["max_abs_err"] <= ATTN_F32_ABS_TOL)
+    return r
+
+
+def _planted(what: str, fault, want32, dtype) -> dict:
+    """The planted fault (fp32, rounded to ``dtype`` as a kernel's output
+    is) must fail the limit a kernel is held to."""
+    r = _attn_held(fault.to(dtype), want32, dtype)
+    if r["ok"]:
+        fail(f"{what}: a plain version with one tile of keys skipped passes "
+             f"the limit (max err {r['max_abs_err']}, rel {r['rel_err']}): "
+             f"the check cannot see such a fault")
+    return dict(planted_max_abs_err=r["max_abs_err"],
+                planted_rel_err=r["rel_err"])
+
+
+def _decode_planted(q32, k32, v32, lengths, want32, dtype, what):
+    """Decode attention's plain version with one DECODE_TILE of positions
+    skipped in the longest lane, from the middle of its live length."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    b = int(lengths.argmax().item())
+    n, T = int(lengths[b].item()), ops.DECODE_TILE
+    if n < 2 * T:
+        return {}
+    a = (n // 2) // T * T
+    keep = torch.cat([torch.arange(a), torch.arange(a + T, n)]).to(q32.device)
+    fault = want32.clone()
+    fault[b] = ref.decode_attention(
+        q32[b:b + 1], k32[b:b + 1, keep], v32[b:b + 1, keep],
+        torch.tensor([n - T], dtype=torch.int32, device=q32.device))[0]
+    return _planted(what, fault, want32, dtype)
+
+
 def check_attention(shape, dtype, gen):
     import torch
     import torch.nn.functional as F
@@ -309,12 +420,15 @@ def check_attention(shape, dtype, gen):
     lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
                             dtype=torch.int32)
     out = ops.decode_attention(q, kc, vc, lengths)
-    want = ref.decode_attention(q, kc, vc, lengths)
+    q32, k32, v32 = q.float(), kc.float(), vc.float()
+    want32 = ref.decode_attention(q32, k32, v32, lengths)
     torch.cuda.synchronize()
-    err = (out.float() - want.float()).abs().max().item()
-    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
-    if not err <= tol:
-        fail(f"decode_attention {shape} {dtype}: max err {err} > {tol}")
+    what = f"decode_attention {shape} {dtype}"
+    r = _attn_held(out, want32, dtype)
+    if not r["ok"]:
+        fail(f"{what}: {r}")
+    r.update(_decode_planted(q32, k32, v32, lengths, want32, dtype, what))
+    del q32, k32, v32, want32
     # yardstick: one SDPA call over the same cache (GQA, padding mask)
     q4 = q[:, :, None, :]
     k4, v4 = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
@@ -333,9 +447,83 @@ def check_attention(shape, dtype, gen):
     nbytes = 2 * B * H * hd * el + 2 * live * K * hd * el + B * 4
     flops = 4.0 * live * H * hd
     b_ms, b_by = bound(nbytes, flops, dtype)
-    return dict(max_abs_err=err, tol=tol, ms=ms, device_ms=dev_ms,
+    return dict(r, ms=ms, device_ms=dev_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, library_device_ms=lib_dev_ms)
+
+
+def check_attention_int8(shape, dtype, gen):
+    """The int8 decode-attention kernel over a cache quantized as the
+    model quantizes it: against its plain version (dequantize to the
+    model dtype, then attend, in fp32), and bit for bit against the bf16
+    kernel on the dequantized cache, whose time at the same shape is
+    reported beside its own. No one PyTorch call attends an int8 cache,
+    so there is no library time. The bound counts the int8 rows and
+    their fp16 scales."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.transformer import _quant_kv
+    B, H, K, hd, S = shape
+    dev = "cuda"
+    q = torch.randn((B, H, hd), generator=gen, device=dev).to(dtype)
+    kq, ks = _quant_kv(torch.randn((B, S, K, hd), generator=gen, device=dev))
+    vq, vs = _quant_kv(torch.randn((B, S, K, hd), generator=gen, device=dev))
+    lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    run = lambda: ops.decode_attention_int8(  # noqa: E731
+        q, kq, vq, ks, vs, lengths)
+    out = run()
+    kd, vd = ref.dequant_kv(kq, ks, dtype), ref.dequant_kv(vq, vs, dtype)
+    q32, k32, v32 = q.float(), kd.float(), vd.float()
+    want32 = ref.decode_attention(q32, k32, v32, lengths)
+    same = torch.equal(out, ops.decode_attention(q, kd, vd, lengths))
+    torch.cuda.synchronize()
+    what = f"decode_attention_int8 {shape} {dtype}"
+    r = _attn_held(out, want32, dtype)
+    if not r["ok"] or not same:
+        fail(f"{what}: {r}, or not the bf16 kernel's output on the "
+             f"dequantized cache")
+    r.update(_decode_planted(q32, k32, v32, lengths, want32, dtype, what))
+    del q32, k32, v32, want32
+    ms = time_ms(run)
+    dev_ms = device_ms(run, "decode_attention_kernel")
+    plain_ms = time_ms(lambda: ref.decode_attention_int8(
+        q, kq, vq, ks, vs, lengths))
+    bf = lambda: ops.decode_attention(q, kd, vd, lengths)  # noqa: E731
+    bf_ms = time_ms(bf)
+    bf_dev_ms = device_ms(bf, "decode_attention_kernel")
+    el = q.element_size()
+    live = int(lengths.sum().item())
+    nbytes = 2 * B * H * hd * el + 2 * live * K * (hd + 2) + B * 4
+    flops = 4.0 * live * H * hd
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    return dict(r, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, library_device_ms=None,
+                bf16_kernel_ms=bf_ms, bf16_kernel_device_ms=bf_dev_ms)
+
+
+def _flash_planted(q32, k32, v32, window, want32, dtype, what):
+    """Flash attention's plain version for lane 0's last 64 queries with
+    one 64-key tile skipped, from the middle of the keys they all see."""
+    import math
+    import torch
+    from repro_torch.kernels import ref
+    _, H, S, hd = q32.shape
+    K, T = k32.shape[1], 64
+    if S < 2 * T:
+        return {}
+    rows = slice(S - T, S)
+    a = (S - min(S, window or S) // 2) // T * T
+    mask = ref.attention_mask(S, S, True, window, q32.device)[rows].clone()
+    mask[:, a:a + T] = False
+    kh = k32[0].repeat_interleave(H // K, 0)            # (H, S, hd)
+    vh = v32[0].repeat_interleave(H // K, 0)
+    s = torch.einsum("hqd,hkd->hqk", q32[0, :, rows], kh) / math.sqrt(hd)
+    p = torch.softmax(s.masked_fill(~mask, ref.NEG_INF), -1)
+    fault = want32.clone()
+    fault[0, :, rows] = torch.einsum("hqk,hkd->hqd", p, vh)
+    return _planted(what, fault, want32, dtype)
 
 
 def check_flash(B, H, K, S, hd, dtype, gen, window=None):
@@ -350,13 +538,15 @@ def check_flash(B, H, K, S, hd, dtype, gen, window=None):
     v = torch.randn((B, S, K, hd), generator=gen, device=dev).to(dtype)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     out = ops.flash_attention(q, k, v, True, window)
-    want = ref.flash_attention(q, k, v, True, window)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    want32 = ref.flash_attention(q32, k32, v32, True, window)
     torch.cuda.synchronize()
-    err = (out.float() - want.float()).abs().max().item()
-    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
-    if not err <= tol:
-        fail(f"flash_attention ({B},{H},{K},{S},{hd}) window {window} "
-             f"{dtype}: max err {err} > {tol}")
+    what = f"flash_attention ({B},{H},{K},{S},{hd}) window {window} {dtype}"
+    r = _attn_held(out, want32, dtype)
+    if not r["ok"]:
+        fail(f"{what}: {r}")
+    r.update(_flash_planted(q32, k32, v32, window, want32, dtype, what))
+    del q32, k32, v32, want32
     mask = ref.attention_mask(S, S, True, window, dev)
     if window is None:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -376,7 +566,7 @@ def check_flash(B, H, K, S, hd, dtype, gen, window=None):
     nbytes = (2 * B * H * S * hd + 2 * B * K * S * hd) * el
     flops = 4.0 * B * H * hd * int(mask.sum().item())
     b_ms, b_by = bound(nbytes, flops, dtype)
-    return dict(max_abs_err=err, tol=tol, ms=ms, device_ms=dev_ms,
+    return dict(r, ms=ms, device_ms=dev_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, library_device_ms=lib_dev_ms)
 
@@ -498,11 +688,19 @@ def check_cdf_points(R, V, dtype, gen, precision, padded=None):
 def phase_kernels(gen, probe_chunks: int) -> dict:
     import torch
     from repro_torch.configs.base import tiny_variant
+    from repro_torch.configs.deepseek_7b import CONFIG as DEEP
+    from repro_torch.configs.h2o_danube_3_4b import CONFIG as H2O
     from repro_torch.configs.mamba2_130m import CONFIG as MAMBA
     from repro_torch.configs.paper_predictors import PRED_BASE
+    from repro_torch.configs.qwen3_14b import CONFIG as Q14
     from repro_torch.configs.qwen3_1_7b import CONFIG as QWEN
     from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA
     res = {}
+    # phase 17's configs: (heads, kv-heads, hd) as the kernels see them
+    h2o = (H2O.padded_heads, H2O.padded_kv_heads, H2O.head_dim)  # G 4, hd 120
+    deep = (DEEP.padded_heads, DEEP.padded_kv_heads, DEEP.head_dim)  # G 1
+    q14 = (Q14.padded_heads, Q14.padded_kv_heads, Q14.head_dim)  # G 6
+    W = H2O.sliding_window
     S = 128                                   # chunk 128, no context
     H, K, hd = QWEN.n_heads, QWEN.n_kv_heads, QWEN.head_dim
     bf = torch.bfloat16
@@ -519,6 +717,22 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
            PRED_BASE.head_dim, S), torch.float32, gen)),
         ("decode_attention@zamba2-S512", check_attention,
          ((16, 32, 32, 112, 512), torch.bfloat16, gen)),
+        # hd 120: the scalar-lane path, 8 q rows computed for G = 4
+        ("decode_attention@h2o-S128", check_attention,
+         ((16,) + h2o + (S,), bf, gen)),
+        ("decode_attention@h2o-S4096", check_attention,
+         ((16,) + h2o + (W,), bf, gen)),
+        # phase 18's fp32 twin: 2 lanes through the ring of W
+        ("decode_attention@h2o-S4096-fp32", check_attention,
+         ((2,) + h2o + (W,), torch.float32, gen)),
+        ("decode_attention@deepseek", check_attention,
+         ((16,) + deep + (S,), bf, gen)),
+        ("decode_attention_int8", check_attention_int8,
+         ((16,) + deep + (S,), bf, gen)),
+        ("decode_attention_int8@h2o-S4096", check_attention_int8,
+         ((16,) + h2o + (W,), bf, gen)),
+        ("decode_attention@qwen3-14b", check_attention,     # kG = 8, G 6
+         ((16,) + q14 + (S,), bf, gen)),
         ("topk_cdf", check_topk,
          (16, QWEN.vocab_size, torch.bfloat16, gen, 48, 16,
           QWEN.padded_vocab)),
@@ -528,6 +742,8 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
          (16, PRED_BASE.vocab_size, torch.float32, gen)),
         ("topk_cdf@zamba2", check_topk,
          (16, ZAMBA.vocab_size, torch.bfloat16, gen)),
+        ("topk_cdf@deepseek", check_topk,
+         (16, DEEP.vocab_size, torch.bfloat16, gen)),
         ("cdf_points", check_cdf_points,
          (16, QWEN.vocab_size, torch.bfloat16, gen, 18, QWEN.padded_vocab)),
         ("cdf_points@pred-base", check_cdf_points,
@@ -548,6 +764,20 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
          (16, zh, zh, 32, zhd, bf, gen)),
         ("flash_attention@zamba2-prefix32", check_flash,
          (16, zh, zh, S + 32, zhd, bf, gen)),
+        ("flash_attention@h2o", check_flash,
+         (16,) + h2o[:2] + (S, h2o[2], bf, gen, W)),
+        # phase 18's teacher-forced scoring: 2 lanes past the window
+        ("flash_attention@h2o-S4352", check_flash,
+         (2,) + h2o[:2] + (W + 256, h2o[2], bf, gen, W)),
+        # and its fp32 twin's, with the window and without (the control)
+        ("flash_attention@h2o-S4352-fp32", check_flash,
+         (2,) + h2o[:2] + (W + 256, h2o[2], torch.float32, gen, W)),
+        ("flash_attention@h2o-S4352-fp32-open", check_flash,
+         (2,) + h2o[:2] + (W + 256, h2o[2], torch.float32, gen)),
+        ("flash_attention@qwen3-14b", check_flash,
+         (16,) + q14[:2] + (S, q14[2], bf, gen)),
+        ("flash_attention@deepseek", check_flash,
+         (16,) + deep[:2] + (S, deep[2], bf, gen)),
         ("ssd_intra", check_ssd, (16, S) + ssm + (bf, gen)),
         ("ssd_intra@probe", check_ssd, (probe_chunks, 32) + ssm + (bf, gen)),
         ("ssd_intra@prefix32", check_ssd, (16, S + 32) + ssm + (bf, gen)),
@@ -570,8 +800,21 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
         lib = "none" if r["library_ms"] is None \
             else (f"{r['library_ms']:.4f} ms (on the device "
                   f"{_ms(ldev)}{ratio})")
-        log(f"[kernel] {name}: max_err {r['max_abs_err']:.3g} (tol "
-            f"{r['tol']:.3g}) kernel {r['ms']:.4f} ms (on the device "
+        if "bf16_kernel_ms" in r:
+            lib += (f" (no one-call equivalent); the bf16 kernel on the "
+                    f"dequantized cache {r['bf16_kernel_ms']:.4f} ms (on "
+                    f"the device {_ms(r['bf16_kernel_device_ms'])})")
+        held = f"max_err {r['max_abs_err']:.3g} (tol {r['tol']:.3g})"
+        if "rel_err" in r:
+            held = (f"max_err {r['max_abs_err']:.3g}, of its row's max "
+                    f"|value| {r['rel_err']:.3g} (tol "
+                    + (f"{r['tol']:.3g} of it" if r["tol"] == ATTN_REL_TOL
+                       else f"{r['tol']:.3g} absolute") + ")")
+            if "planted_rel_err" in r:
+                held += (f"; a tile skipped: max_err "
+                         f"{r['planted_max_abs_err']:.3g}, of its row's "
+                         f"{r['planted_rel_err']:.3g}, rejected")
+        log(f"[kernel] {name}: {held} kernel {r['ms']:.4f} ms (on the device "
             f"{_ms(dev)}), plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
@@ -579,10 +822,32 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
 
 
 # ----------------------------------------------------------- phase 3
-# kernels the decode path of each family launches on every step
-DECODE_KERNELS = {"dense": ("decode_attention", "topk_cdf"),
-                  "ssm": ("topk_cdf",),
-                  "hybrid": ("decode_attention", "topk_cdf")}
+def config(spec: str):
+    """A config by registry name; ``NAME+int8`` is that config with the
+    int8 KV cache (``kv_cache_dtype="int8"``, as the JAX package reaches
+    it: through the config)."""
+    from repro_torch.configs.registry import get_config
+    name, _, kv = spec.partition("+")
+    cfg = get_config(name)
+    return cfg.with_(kv_cache_dtype="int8") if kv == "int8" else cfg
+
+
+def attn_kernel(cfg) -> str:
+    """The decode-attention kernel of a config's cache."""
+    return "decode_attention_int8" if cfg.kv_cache_dtype == "int8" \
+        else "decode_attention"
+
+
+def label(cfg) -> str:
+    """A config's name, with ``+int8`` for the int8 KV cache."""
+    return cfg.name + ("+int8" if cfg.kv_cache_dtype == "int8" else "")
+
+
+def decode_kernels(cfg) -> tuple:
+    """The kernels a family's decode path launches on every step."""
+    if cfg.family == "ssm":
+        return ("topk_cdf",)
+    return (attn_kernel(cfg), "topk_cdf")
 
 
 def attention_blocks(cfg) -> int:
@@ -605,10 +870,10 @@ def _check_captured_launches(cfg, launches, stats, steps: int,
         fail(f"{what}: {steps} model steps but {stats['step_replays']} "
              f"replays of the captured step")
     per = attention_blocks(cfg)         # decode_attention a captured step
-    if launches["decode_attention"] != per * (steps + stats["warmup_steps"]):
-        fail(f"{what}: decode_attention launches "
-             f"{launches['decode_attention']} != {per} x ({steps} replayed "
-             f"+ {stats['warmup_steps']} warm-up steps)")
+    kern = attn_kernel(cfg)
+    if launches[kern] != per * (steps + stats["warmup_steps"]):
+        fail(f"{what}: {kern} launches {launches[kern]} != {per} x ({steps} "
+             f"replayed + {stats['warmup_steps']} warm-up steps)")
     if launches["topk_cdf"] != steps:
         fail(f"{what}: topk_cdf launches {launches['topk_cdf']} != "
              f"{steps} steps")
@@ -637,23 +902,24 @@ def graph_against_eager(pred, B: int = 16, S: int = 128, n: int = 16):
             if not torch.equal(g[k], e[k]):
                 fail(f"captured step {t}: cache leaf {k} differs from the "
                      f"eager step's")
-    log(f"[graph] {pred.cfg.name}: {n} replays of the captured step equal "
+    log(f"[graph] {label(pred.cfg)}: {n} replays of the captured step equal "
         f"{n} eager steps bit for bit (logits and every cache leaf; lanes "
         f"3 and 7 reset after step {n // 2})")
     return g, e
 
 
-def time_steps(pred, g, e, n: int = 20) -> dict:
+def time_steps(pred, g, e, n: int = 20, eager: bool = True) -> dict:
     """Host ms per step (a host clock around ``n`` steps ending in a
-    synchronise) of the captured and the eager step at B lanes, and each
-    one's device ms, idle share and kernels per step from
-    ``torch.profiler`` over 5 steps."""
+    synchronise) of the captured and (when ``eager``) the eager step at B
+    lanes, and each one's device ms, idle share and kernels per step
+    from ``torch.profiler`` over 5 steps."""
     import numpy as np
     import torch
     prev = np.zeros(g["pos"].shape[0], np.int64)
     out = {}
     for name, fn in (("captured", lambda: pred.decode_step(g, prev)),
-                     ("eager", lambda: pred._eager_decode_step(e, prev))):
+                     ("eager", lambda: pred._eager_decode_step(e, prev)))[
+            :2 if eager else 1]:
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -665,7 +931,7 @@ def time_steps(pred, g, e, n: int = 20) -> dict:
         dev, kernels, api = profile_calls(fn, 5)
         out[name] = dict(host_ms=host, device_ms=dev, kernels=kernels,
                          host_launch_calls=api)
-        log(f"[graph] {pred.cfg.name} {name} step (B={prev.size}): host "
+        log(f"[graph] {label(pred.cfg)} {name} step (B={prev.size}): host "
             f"{host:.3f} ms, device {_ms(dev, 3)} (idle "
             f"{_idle(dev, host)}), {_count(kernels)} kernels and {api:.0f} "
             f"host launch calls per step")
@@ -675,8 +941,9 @@ def time_steps(pred, g, e, n: int = 20) -> dict:
 #: the service round trip's jobs (domain, bytes, seed): 93 chunks of 128
 SERVICE_JOBS = (("wiki", 3000, 1), ("code", 2200, 2), ("web", 4000, 3),
                 ("math", 2600, 4))
-#: zamba2-7b's: 23 chunks, two rounds of the 16 slots each way
-ZAMBA_JOBS = (("wiki", 700, 1), ("code", 500, 2), ("web", 900, 3),
+#: zamba2-7b's and phase 17's: 23 chunks, two rounds of the 16 slots each
+#: way
+SHORT_JOBS = (("wiki", 700, 1), ("code", 500, 2), ("web", 900, 3),
               ("math", 600, 4))
 
 
@@ -699,22 +966,27 @@ def _peak(what: str) -> int:
     return peak
 
 
-def phase_service(arch: str, sizes=SERVICE_JOBS) -> dict:
-    """The service round trip of config ``arch`` at full width (phase 3
-    for qwen3-1.7b, phase 8 for mamba2-130m, phase 15 for zamba2-7b),
-    then the same containers through speculative decompression (phase
-    10)."""
+def phase_service(arch: str, sizes=SERVICE_JOBS, baselines: bool = True,
+                  fresh: bool = True) -> dict:
+    """The service round trip of config ``arch`` (a ``config`` spec) at
+    full width (phase 3 for qwen3-1.7b, phase 8 for mamba2-130m, phase 15
+    for zamba2-7b, phase 17 for h2o-danube-3-4b, deepseek-7b with either
+    cache and qwen3-14b), then the same containers through speculative
+    decompression (phase 10). ``baselines``: the eager step's times, the
+    jobs again through a ``PhaseReport`` each way, and phase 10's
+    lock-step baseline. ``fresh``: the containers decompressed in a fresh
+    process here; else the caller gets them (``out["fresh"]``) for
+    ``fresh_decompress``."""
     import numpy as np
     import torch
     from repro_torch import obs
-    from repro_torch.configs.registry import get_config
     from repro_torch.data.synthetic import human_like
     from repro_torch.data.tokenizer import encode
     from repro_torch.kernels import ops
     from repro_torch.serve import graphs
     from repro_torch.serve.engine import ModelPredictor
     from repro_torch.service import CompressionService
-    cfg = get_config(arch)
+    cfg = config(arch)
     _free_card()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -723,6 +995,8 @@ def phase_service(arch: str, sizes=SERVICE_JOBS) -> dict:
     log(f"[service] {arch} random init (seed 0, {cfg.dtype}): "
         f"{sum(t.numel() for t in _leaves(pred.params)) / 1e9:.3f} B "
         f"params in {time.perf_counter() - t0:.1f} s")
+    init_peak = _peak(f"{arch} init_params (each leaf drawn in fp32, then "
+                      f"cast)")
     graphs.reset_stats()
 
     # cuBLAS + kernels at a fixed batch: a lane's logits must not depend
@@ -769,7 +1043,7 @@ def phase_service(arch: str, sizes=SERVICE_JOBS) -> dict:
     for i, t in enumerate(texts):
         if not np.array_equal(outs[i], encode(t)):
             fail(f"service round trip: job {i} differs after decompress")
-    for k in DECODE_KERNELS[cfg.family]:
+    for k in decode_kernels(cfg):
         if launches[k] <= 0:
             fail(f"main path launched {k} {launches[k]} times")
     _check_captured_launches(cfg, launches, stats, steps_c + steps_d,
@@ -782,7 +1056,7 @@ def phase_service(arch: str, sizes=SERVICE_JOBS) -> dict:
     snap_bytes = sum(t.numel() * t.element_size() for t in snap.values())
     log(f"[prefix] {arch}: one lane's snapshot (S=128) is {snap_bytes} B "
         f"on the card")
-    steps = time_steps(pred, g, e)
+    steps = time_steps(pred, g, e, eager=baselines)
     del g, e, snap
     # the host's share of a service step outside the model: a PhaseReport
     # over the four jobs each way, traced (the model span waits for the
@@ -790,7 +1064,8 @@ def phase_service(arch: str, sizes=SERVICE_JOBS) -> dict:
     # go first, so the traced ones take over their cache and graphs.
     del svc, handles
     phases = {}
-    for kind in ("compress", "decompress"):
+    tsvc = None
+    for kind in ("compress", "decompress") if baselines else ():
         rec = obs.TimelineRecorder()
         tsvc = CompressionService(pred, slots=16, chunk_size=128, topk=48,
                                   trace=rec)
@@ -816,57 +1091,76 @@ def phase_service(arch: str, sizes=SERVICE_JOBS) -> dict:
                compress_steps=steps_c, decompress_steps=steps_d,
                service_step_ms=(t_c + t_d) / (steps_c + steps_d) * 1e3,
                steps=steps, graph_stats=stats, launches=launches,
-               phases=phases, snapshot_bytes=snap_bytes)
+               phases=phases, snapshot_bytes=snap_bytes,
+               init_peak_bytes=init_peak)
     log(f"[service] {len(texts)} jobs, {n_tok} tokens: compress "
         f"{t_c:.2f} s ({n_tok / t_c:.0f} tok/s, {steps_c} steps), "
         f"decompress {t_d:.2f} s ({n_tok / t_d:.0f} tok/s, {steps_d} steps)"
         f", {out['bytes_out']} container bytes; byte-identical in reorder "
         f"{order}")
+    eager = "not timed" if "eager" not in steps else \
+        f"{steps['eager']['host_ms']:.3f} ms"
     log(f"[service] mean service step {out['service_step_ms']:.2f} ms; "
         f"captured step alone {steps['captured']['host_ms']:.3f} ms (eager "
-        f"{steps['eager']['host_ms']:.3f} ms); graphs in the round trip: "
+        f"{eager}); graphs in the round trip: "
         f"{stats['captures']} captures ({stats['capture_ms']:.1f} ms), "
         f"{stats['step_replays']} replays, {stats['warmup_steps']} warm-up "
         f"steps; launches {launches} = per step x (replays + warm-ups)")
-    out["spec"] = phase_speculative(pred, blobs, texts)
+    out["spec"] = phase_speculative(pred, blobs, texts, baselines)
     out["peak_bytes"] = _peak(f"{arch} service, graphs and speculative "
                               f"decode")
     del pred, tsvc
     _free_card()
 
-    # the user's flow: decompression in a process of its own, which
-    # builds the predictor from the seed again, jobs in a third order
-    work = ROOT / "build" / "chip_smoke" / f"full_width_{cfg.family}"
+    # the user's flow: decompression in a process of its own (now, or
+    # with the other configs of phase 17 in one process: ``fresh``)
+    work = ROOT / "build" / "chip_smoke" / f"full_width_{arch}"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     for i, b in enumerate(blobs):
         (work / f"job{i}.llmc").write_bytes(b)
+    if fresh:
+        fresh_decompress({arch: (work, texts)})
+    else:
+        out["fresh"] = (work, texts)
+    return out
+
+
+def fresh_decompress(jobs: dict) -> None:
+    """The user's flow: decompression in a process of its own, which
+    builds each predictor from the seed again, jobs in a third order.
+    ``jobs``: {arch: (directory of its job*.llmc, the jobs' texts)}, all
+    decoded by one new interpreter, each model freed before the next."""
+    import numpy as np
+    from repro_torch.data.tokenizer import encode
     order = [1, 3, 0, 2]
     t0 = time.perf_counter()
     r = subprocess.run(
         [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke"
-         ".decompress_in_fresh_process(sys.argv[1], sys.argv[2], "
-         "sys.argv[3:]))", str(work), arch, *map(str, order)],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
+         ".decompress_in_fresh_process(*sys.argv[1:]))",
+         ",".join(map(str, order)),
+         *(f"{work}={arch}" for arch, (work, _) in jobs.items())],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
     if r.returncode != 0:
         fail(f"fresh-process decompression exited {r.returncode}:\n"
              f"{r.stdout}\n{r.stderr}")
-    for i, t in enumerate(texts):
-        if not np.array_equal(np.load(work / f"job{i}.npy"), encode(t)):
-            fail(f"fresh-process decompression: job {i} differs")
-    log(f"[service] decompressed again in a fresh process (seed 0 re-init, "
-        f"order {order}): byte-identical "
+    for arch, (work, texts) in jobs.items():
+        for i, t in enumerate(texts):
+            if not np.array_equal(np.load(work / f"job{i}.npy"), encode(t)):
+                fail(f"fresh-process decompression: {arch} job {i} differs")
+    log(f"[service] {', '.join(jobs)} decompressed again in a fresh process "
+        f"(seed 0 re-init, order {order}): byte-identical "
         f"({time.perf_counter() - t0:.1f} s with start-up)")
-    return out
 
 
 # ---------------------------------------------------------- phase 10
-def phase_speculative(pred, blobs, texts) -> dict:
+def phase_speculative(pred, blobs, texts, lockstep: bool = True) -> dict:
     """The service's containers through the grouped decompressor, lock-
-    step and speculative (``draft_k=4``: the suffix self-draft, one
-    captured verify program over 5 positions per round, each lane rolled
-    back to what it accepted): byte identity, rounds, verify programs
-    against lock-step steps, draft acceptance and wall time."""
+    step (the baseline, when ``lockstep``) and speculative (``draft_k=4``:
+    the suffix self-draft, one captured verify program over 5 positions
+    per round, each lane rolled back to what it accepted): byte identity,
+    rounds, verify programs against lock-step steps, draft acceptance and
+    wall time."""
     import numpy as np
     import torch
     from repro_torch import obs
@@ -875,7 +1169,8 @@ def phase_speculative(pred, blobs, texts) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.serve import graphs
     res = {}
-    for name, k in (("lock-step", 0), ("speculative", 4)):
+    for name, k in (("lock-step", 0), ("speculative", 4))[
+            0 if lockstep else 1:]:
         reg = obs.MetricsRegistry()
         comp = LLMCompressor(pred, chunk_size=128, topk=48, decode_batch=16,
                              draft_k=k, registry=reg)
@@ -898,17 +1193,21 @@ def phase_speculative(pred, blobs, texts) -> dict:
             offered=offered, accepted=reg.value("spec.drafted_accepted"),
             fallthroughs=reg.value("spec.lockstep_fallthroughs"),
             launches=dict(ops.LAUNCHES))
-    lock, spec = res["lock-step"], res["speculative"]
+    spec = res["speculative"]
     if spec["verify_replays"] <= 0 or spec["rounds"] != \
             spec["verify_replays"]:
         fail(f"speculative decode: {spec['rounds']} rounds but "
              f"{spec['verify_replays']} verify replays")
     acc = spec["accepted"] / spec["offered"] if spec["offered"] else 0.0
-    log(f"[spec] {pred.cfg.name} grouped decompress of {len(blobs)} "
-        f"containers, byte-identical both ways: lock-step "
-        f"{lock['wall_s'] * 1e3:.0f} ms ({lock['step_replays']} captured "
-        f"steps); speculative (draft_k=4) {spec['wall_s'] * 1e3:.0f} ms "
-        f"({spec['wall_s'] / lock['wall_s']:.2f}x): {spec['rounds']} "
+    lock = res.get("lock-step")
+    base = "lock-step not run" if lock is None else (
+        f"lock-step {lock['wall_s'] * 1e3:.0f} ms ({lock['step_replays']} "
+        f"captured steps)")
+    ratio = "" if lock is None else \
+        f" ({spec['wall_s'] / lock['wall_s']:.2f}x)"
+    log(f"[spec] {label(pred.cfg)} grouped decompress of {len(blobs)} "
+        f"containers, byte-identical: {base}; speculative (draft_k=4) "
+        f"{spec['wall_s'] * 1e3:.0f} ms{ratio}: {spec['rounds']} "
         f"rounds = {spec['verify_replays']} verify replays + "
         f"{spec['step_replays']} lock-step steps (fall-throughs "
         f"{spec['fallthroughs']}), draft acceptance {acc:.1%} "
@@ -960,23 +1259,28 @@ def _count(x) -> str:
     return "not measured" if x is None else f"{x:.0f}"
 
 
-def decompress_in_fresh_process(work: str, arch: str, order) -> int:
-    """The second half of phases 3 and 8, run by a new interpreter:
-    ``arch`` from seed 0 again, the saved containers decompressed in
-    ``order``, the tokens saved beside them."""
+def decompress_in_fresh_process(order: str, *pairs) -> int:
+    """The second half of phases 3, 8, 15 and 17, run by a new
+    interpreter: for each ``WORK=ARCH`` of ``pairs``, ARCH (a ``config``
+    spec) from seed 0 again, the containers saved in WORK decompressed in
+    ``order`` (job numbers, comma-separated), the tokens saved beside
+    them; each model freed before the next."""
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
-    from repro_torch.configs.registry import get_config
     from repro_torch.serve.engine import ModelPredictor
     from repro_torch.service import CompressionService
-    work = pathlib.Path(work)
-    pred = ModelPredictor.random_init(get_config(arch), seed=0,
-                                      device="cuda")
-    svc = CompressionService(pred, slots=16, chunk_size=128, topk=48)
-    handles = {int(i): svc.submit_decompress(
-        (work / f"job{i}.llmc").read_bytes()) for i in order}
-    for i, h in handles.items():
-        np.save(work / f"job{i}.npy", h.result())
+    for pair in pairs:
+        work, arch = pair.rsplit("=", 1)
+        work = pathlib.Path(work)
+        pred = ModelPredictor.random_init(config(arch), seed=0,
+                                          device="cuda")
+        svc = CompressionService(pred, slots=16, chunk_size=128, topk=48)
+        handles = {int(i): svc.submit_decompress(
+            (work / f"job{i}.llmc").read_bytes()) for i in order.split(",")}
+        for i, h in handles.items():
+            np.save(work / f"job{i}.npy", h.result())
+        del pred, svc, handles
+        _free_card()
     return 0
 
 
@@ -1302,7 +1606,7 @@ def phase_shared_prefix(pred) -> dict:
         fail("shared prefix: a fresh service decodes job 1 differently")
     snap = svc.prefix_cache.lookup(sp)[1]
     snap_bytes = sum(t.numel() * t.element_size() for t in snap.values())
-    log(f"[prefix] {pred.cfg.name}: 2 jobs with one 32-token shared "
+    log(f"[prefix] {label(pred.cfg)}: 2 jobs with one 32-token shared "
         f"prefix in {dt:.2f} s; the second hit the cache {hits1} times "
         f"(hits {reg.value('prefix_cache.hits')}, misses "
         f"{reg.value('prefix_cache.misses')}, tokens reused "
@@ -1398,24 +1702,42 @@ def _cli_env(cache=None) -> dict:
     return env
 
 
-def _run_cli(cmd, env, predictor=True) -> str:
-    """``python -m repro_torch.cli CMD`` in a new process; fails on a
-    non-zero exit; logs its stdout and its time with start-up."""
-    t0 = time.perf_counter()
+def _start_cli(cmd, env, predictor=True):
+    """``python -m repro_torch.cli CMD`` started in a new process."""
     args = [*cmd, "--predictor", "pred-base"] if predictor else cmd
-    r = subprocess.run([sys.executable, "-m", "repro_torch.cli", *args],
-                       env=env, cwd=ROOT, capture_output=True, text=True,
-                       timeout=600)
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.cli", *args],
+                            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, cmd, time.perf_counter()
+
+
+def _finish_cli(started) -> str:
+    """Wait for a command of ``_start_cli``; fails on a non-zero exit;
+    logs its stdout and its time with start-up."""
+    proc, cmd, t0 = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"llmc-torch {cmd[0]} ran past 600 s")
     flags = " ".join([cmd[0]] + [c for c in cmd[1:] if not c.startswith(
         str(ROOT))])
-    if r.returncode != 0:
-        fail(f"llmc-torch {flags} exited {r.returncode}:\n{r.stdout}\n"
-             f"{r.stderr}")
-    out = r.stdout.strip()
-    short = out if len(out) < 400 else f"{out[:200]} ... {out[-150:]}"
+    if proc.returncode != 0:
+        fail(f"llmc-torch {flags} exited {proc.returncode}:\n{out}\n{err}")
+    short = out.strip()
+    short = short if len(short) < 400 else f"{short[:200]} ... {short[-150:]}"
     log(f"[cli] {flags}: {short} ({time.perf_counter() - t0:.1f} s with "
         f"start-up)")
-    return r.stdout
+    return out
+
+
+def _run_clis(*jobs) -> list[str]:
+    """Commands (cmd, env[, predictor]) run side by side, each a new
+    process (most of a command's time is its start-up); their stdouts in
+    order."""
+    started = [_start_cli(*job) for job in jobs]
+    return [_finish_cli(st) for st in started]
 
 
 def _in_process_cli(argv) -> tuple[str, dict, dict]:
@@ -1446,7 +1768,10 @@ def phase_cli() -> None:
     trained ``pred-base``: the three round trips (plain, ``--route auto``,
     context flags with ``--draft``), then every other verb and flag, and
     ``range`` / ``stats`` once more in this process with the launch
-    counts read, and the span mirror under ``torch.profiler``."""
+    counts read, and the span mirror under ``torch.profiler``. The first
+    command trains ``pred-base`` alone; the rest run in two waves of
+    processes side by side (the compressions and ``stats``, then what
+    reads their archives)."""
     import numpy as np
     from repro_torch.data.synthetic import human_like
     work = ROOT / "build" / "chip_smoke"
@@ -1458,40 +1783,40 @@ def phase_cli() -> None:
     pref = work / "prefix.txt"
     pref.write_bytes(b"Chapter one of a novel, as the corpus stores it.")
     ctx = ["--context-window", "16", "--shared-prefix", str(pref)]
-    for tag, data, extra, dextra in (
-            ("", human_like("novel", 1500, seed=7), [], []),
-            ("routed", mixed, ["--route", "auto"], []),
-            ("context", human_like("novel", 1500, seed=6), ctx,
-             ["--draft", "4"])):
-        src = work / f"in{tag}.txt"
-        arc, back = work / f"in{tag}.llmc", work / f"back{tag}.txt"
-        src.write_bytes(data)
-        _run_cli(["compress", str(src), str(arc), *extra], env)
-        _run_cli(["decompress", str(arc), str(back), *dextra], env)
-        if src.read_bytes() != back.read_bytes():
-            fail(f"CLI {tag or 'plain'} round trip: decompressed file "
-                 f"differs")
-        log(f"[cli] {' '.join(['compress', *extra])} -> "
-            f"{' '.join(['decompress', *dextra])} byte-identical "
-            f"({src.stat().st_size} B -> {arc.stat().st_size} B)")
+    trips = (("", human_like("novel", 1500, seed=7), [], []),
+             ("routed", mixed, ["--route", "auto"], []),
+             ("context", human_like("novel", 1500, seed=6), ctx,
+              ["--draft", "4"]))
+    for tag, data, _, _ in trips:
+        (work / f"in{tag}.txt").write_bytes(data)
     src, routed = work / "in.txt", work / "inrouted.txt"
     data = src.read_bytes()
-
-    # --v3: the grouped path's wire-minimal container
-    v3, back = work / "in_v3.llmc", work / "back_v3.txt"
-    _run_cli(["compress", str(src), str(v3), "--v3"], env)
-    _run_cli(["decompress", str(v3), str(back)], env)
-    if v3.read_bytes()[4] != 3 or back.read_bytes() != data:
-        fail("CLI --v3 round trip differs (or wrote no v3 container)")
-    log(f"[cli] --v3 byte-identical ({len(data)} B -> {v3.stat().st_size}"
-        f" B; v4 {(work / 'in.llmc').stat().st_size} B)")
-
-    # --sidecar --trace, then decompress --sidecar
-    arc, trace = work / "in_side.llmc", work / "in_side.trace.json"
-    out = _run_cli(["compress", str(src), str(arc), "--sidecar", "--trace",
-                    str(trace)], env)
-    side = json.loads((work / "in_side.llmc.diag.json").read_text())
+    v3, arc_side = work / "in_v3.llmc", work / "in_side.llmc"
+    trace = work / "in_side.trace.json"
+    raw = work / "in_raw.llmc"
     n_chunks = -(-len(data) // 128)
+
+    # the plain compress trains pred-base into the run's cache
+    _run_clis((["compress", str(src), str(work / "in.llmc")], env))
+    # wave 1: every other compression, stats in its three formats, and
+    # what reads the plain archive
+    outs = _run_clis(
+        *[(["compress", str(work / f"in{tag}.txt"),
+            str(work / f"in{tag}.llmc"), *extra], env)
+          for tag, _, extra, _ in trips[1:]],
+        (["compress", str(src), str(v3), "--v3"], env),
+        (["compress", str(src), str(arc_side), "--sidecar", "--trace",
+          str(trace)], env),
+        (["compress", str(src), str(raw), "--route", "raw"], env),
+        (["decompress", str(work / "in.llmc"), str(work / "back.txt")],
+         env),
+        (["range", str(work / "in.llmc"), str(work / "in.part"),
+          "--chunks", "3:7"], env),
+        (["stats"], env), (["stats", "--format", "prom"], env),
+        (["stats", "--format", "text"], env))
+    out_side, snap, prom, text = outs[3], json.loads(outs[7]), outs[8], \
+        outs[9]
+    side = json.loads((work / "in_side.llmc.diag.json").read_text())
     if side["kind"] != "compress" or len(side["chunks"]) != n_chunks:
         fail(f"compress sidecar: {side['kind']}, {len(side['chunks'])} "
              f"chunks, want {n_chunks}")
@@ -1499,50 +1824,60 @@ def phase_cli() -> None:
              if e.get("ph") == "X"}
     want = {"service.step", "service.refill", "model.decode_step",
             "coder.step", "service.finish_slot"}
-    if not want <= names or "phases (" not in out:
+    if not want <= names or "phases (" not in out_side:
         fail(f"--trace: spans {sorted(names)}, want {sorted(want)}; "
-             f"stdout {out!r}")
+             f"stdout {out_side!r}")
     log(f"[cli] --trace: {len(names)} span names {sorted(names)}")
-    _run_cli(["decompress", str(arc), str(work / "back_side.txt"),
-              "--sidecar"], env)
+    done = snap["scheduler"]["chunks_completed"]
+    if done != 2 * -(-2048 // 64):
+        fail(f"stats: chunks_completed {done}, want 64")
+    if "repro_scheduler_model_steps" not in prom or "occupancy" not in text:
+        fail("stats --format prom / text: missing series")
+
+    # wave 2: what reads wave 1's archives; the all-fallback archive by a
+    # process with an empty cache: no predictor is trained or loaded (F7)
+    empty = work / "empty_cache"
+    shutil.rmtree(empty, ignore_errors=True)
+    empty.mkdir()
+    outs = _run_clis(
+        *[(["decompress", str(work / f"in{tag}.llmc"),
+            str(work / f"back{tag}.txt"), *dextra], env)
+          for tag, _, _, dextra in trips[1:]],
+        (["decompress", str(v3), str(work / "back_v3.txt")], env),
+        (["decompress", str(arc_side), str(work / "back_side.txt"),
+          "--sidecar"], env),
+        (["range", str(work / "inrouted.llmc"),
+          str(work / "inrouted.part"), "--chunks", "5:13"], env),
+        (["decompress", str(raw), str(work / "back_raw.txt")],
+         _cli_env(empty), False))
+    for tag, data_t, extra, dextra in trips:
+        size = (work / f"in{tag}.llmc").stat().st_size
+        if (work / f"back{tag}.txt").read_bytes() != data_t:
+            fail(f"CLI {tag or 'plain'} round trip: decompressed file "
+                 f"differs")
+        log(f"[cli] {' '.join(['compress', *extra])} -> "
+            f"{' '.join(['decompress', *dextra])} byte-identical "
+            f"({len(data_t)} B -> {size} B)")
+    if v3.read_bytes()[4] != 3 or \
+            (work / "back_v3.txt").read_bytes() != data:
+        fail("CLI --v3 round trip differs (or wrote no v3 container)")
+    log(f"[cli] --v3 byte-identical ({len(data)} B -> {v3.stat().st_size}"
+        f" B; v4 {(work / 'in.llmc').stat().st_size} B)")
     side = json.loads((work / "in_side.llmc.diag.json").read_text())
     if side["kind"] != "decompress" or len(side["chunks"]) != n_chunks \
             or (work / "back_side.txt").read_bytes() != data:
         fail("decompress --sidecar: wrong sidecar or bytes")
-
     # range over an interior interval of the plain and the routed archive
     for name, source, (lo, hi) in (("in", data, (3, 7)),
                                    ("inrouted", routed.read_bytes(),
                                     (5, 13))):
-        part = work / f"{name}.part"
-        _run_cli(["range", str(work / f"{name}.llmc"), str(part),
-                  "--chunks", f"{lo}:{hi}"], env)
-        if part.read_bytes() != source[lo * 128:hi * 128]:
+        if (work / f"{name}.part").read_bytes() != \
+                source[lo * 128:hi * 128]:
             fail(f"range {lo}:{hi} of {name}.llmc is not the source slice")
-
-    # an all-fallback archive decoded by a process with an empty cache:
-    # no predictor is trained or loaded (F7)
-    raw, back = work / "in_raw.llmc", work / "back_raw.txt"
-    _run_cli(["compress", str(src), str(raw), "--route", "raw"], env)
-    empty = work / "empty_cache"
-    shutil.rmtree(empty, ignore_errors=True)
-    empty.mkdir()
-    out = _run_cli(["decompress", str(raw), str(back)], _cli_env(empty),
-                   predictor=False)
-    if back.read_bytes() != data or "model-free" not in out \
-            or any(empty.iterdir()):
-        fail(f"model-free decompress: bytes, stdout {out!r} or cache "
+    if (work / "back_raw.txt").read_bytes() != data \
+            or "model-free" not in outs[-1] or any(empty.iterdir()):
+        fail(f"model-free decompress: bytes, stdout {outs[-1]!r} or cache "
              f"{sorted(p.name for p in empty.iterdir())}")
-
-    # stats in its three formats
-    snap = json.loads(_run_cli(["stats"], env))
-    done = snap["scheduler"]["chunks_completed"]
-    if done != 2 * -(-2048 // 64):
-        fail(f"stats: chunks_completed {done}, want 64")
-    prom = _run_cli(["stats", "--format", "prom"], env)
-    text = _run_cli(["stats", "--format", "text"], env)
-    if "repro_scheduler_model_steps" not in prom or "occupancy" not in text:
-        fail("stats --format prom / text: missing series")
 
     # range and stats once more in this process, counts read
     out, sl, sst = _in_process_cli(["stats"])
@@ -1970,32 +2305,248 @@ def phase_train_full_width() -> dict:
 
 
 # ---------------------------------------------------------- phase 16
-def phase_hybrid_scoring() -> dict:
-    """Phases 4, 5 and 11 for zamba2-7b at full width: ``score_chunks``
-    against the decode program (fresh and under a 32-token prefix, held
-    through the fp32 twin), ``compress(exact=False)``, the routed service
-    (``flash_attention`` 6 and ``ssd_intra`` 81 per teacher-forced
-    forward) and two shared-prefix jobs (a prefix-cache hit), with the
-    peak device memory of each."""
+def phase_model_paths(arch: str, *, scoring: bool = True,
+                      routed: bool = True) -> dict:
+    """Phases 4, 5 and 11 for a large model at full width (phase 16 for
+    zamba2-7b; phase 17 for h2o-danube-3-4b, deepseek-7b and qwen3-14b,
+    without the routed service): ``score_chunks`` against the decode
+    program (fresh and under a 32-token prefix: SCORE_TOL for the dense
+    family, the fp32 twin for the hybrid), ``compress(exact=False)``, the
+    routed service, and two shared-prefix jobs (a prefix-cache hit), with
+    the peak device memory of each."""
     import torch
-    from repro_torch.configs.registry import get_config
     from repro_torch.serve.engine import ModelPredictor
     _free_card()
     torch.cuda.reset_peak_memory_stats()
-    pred = ModelPredictor.random_init(get_config("zamba2-7b"), seed=0,
-                                      device="cuda")
-    scoring = phase_scoring(pred)
-    scoring["peak_bytes"] = _peak("zamba2-7b scoring (with its fp32 twin)")
-    _free_card()
+    pred = ModelPredictor.random_init(config(arch), seed=0, device="cuda")
+    out = {}
+    if scoring:
+        out["scoring"] = phase_scoring(pred)
+        out["scoring"]["peak_bytes"] = _peak(f"{arch} scoring")
+        _free_card()
+    if routed:
+        torch.cuda.reset_peak_memory_stats()
+        out.update(phase_routed(pred))
+        out["peak_bytes"] = _peak(f"{arch} routed service")
     torch.cuda.reset_peak_memory_stats()
-    routed = phase_routed(pred)
-    routed["peak_bytes"] = _peak("zamba2-7b routed service")
-    torch.cuda.reset_peak_memory_stats()
-    prefix = phase_shared_prefix(pred)
-    prefix["peak_bytes"] = _peak("zamba2-7b shared-prefix jobs")
+    out["prefix"] = phase_shared_prefix(pred)
+    out["prefix"]["peak_bytes"] = _peak(f"{arch} shared-prefix jobs")
     del pred
     _free_card()
-    return dict(routed, scoring=scoring, prefix=prefix)
+    return out
+
+
+# ---------------------------------------------------------- phase 17
+#: phase 17's configs: the dense ones the port gained with the int8 and
+#: ring caches, and deepseek-7b (MHA: the most cache bytes per token)
+#: once more with the int8 cache
+DENSE_17 = ("h2o-danube-3-4b", "deepseek-7b", "deepseek-7b+int8",
+            "qwen3-14b")
+
+
+def phase_dense_configs() -> dict:
+    """Phase 17: each of DENSE_17 at full width and depth (random weights
+    from seed 0, bf16) through the service at 16 slots (23 chunks),
+    captured against eager steps, the captured step's times, speculative
+    decompression and the shared-prefix jobs; scoring against the decode
+    program (not for the int8 twin, whose forward is deepseek-7b's). Each
+    model is freed before the next; then one fresh process decompresses
+    the four configs' containers (the eager step's profile, the traced
+    jobs and the lock-step baseline are left to phases 3, 8 and 15: the
+    script's 1200 s)."""
+    out, fresh = {}, {}
+    for arch in DENSE_17:
+        t0 = time.perf_counter()
+        svc = phase_service(arch, SHORT_JOBS, baselines=False, fresh=False)
+        fresh[arch] = svc.pop("fresh")
+        paths = phase_model_paths(arch, scoring="+" not in arch,
+                                  routed=False)
+        out[arch] = dict(svc, **paths)
+        log(f"[time] 17 {arch}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fresh_decompress(fresh)
+    log(f"[time] 17 fresh process: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------- phase 18
+def _steps_of(pred, state, toks):
+    """Captured decode steps of toks (B, n), a column a step: the logits
+    (B, n, V), each copied out of the step's static buffer."""
+    import torch
+    out = []
+    for t in range(toks.shape[1]):
+        lg, _ = pred.decode_step(state, toks[:, t])
+        out.append(lg.clone())
+    return torch.stack(out, 1)
+
+
+def phase_window() -> dict:
+    """Phase 18: h2o-danube-3-4b (window W = 4096) past its window. Two
+    lanes decode W + 256 positions through the captured step, so the ring
+    of W slots wraps after position W - 1, and their logits are held
+    against the windowed teacher-forced scoring of the same tokens
+    (``score_chunks``: one ``forward`` through the flash kernel, window
+    W) to SCORE_TOL, over all positions and over the 256 past the
+    window. Then one speculative round past the wrap: a captured verify
+    of 5 steps, lanes rolled back to 1 and 3 of its inputs, then 8 more
+    steps, against captured lock-step caches restored from the lanes'
+    snapshots before the round that took only the kept inputs: logits
+    and lane caches bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import human_like
+    from repro_torch.data.tokenizer import encode
+    from repro_torch.kernels import ops
+    from repro_torch.serve import graphs
+    from repro_torch.serve.engine import ModelPredictor
+    arch = "h2o-danube-3-4b"
+    cfg = config(arch)
+    W, B = cfg.sliding_window, 2
+    N = W + 256
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    pred = ModelPredictor.random_init(cfg, seed=0, device="cuda")
+    toks = encode(human_like("wiki", 3 * B * N, seed=18))[:B * N]
+    toks = toks.reshape(B, N).astype(np.int64)
+    pred.set_decode_len(N + 8)
+    g = pred.begin_decode(B)
+    if g["k"].shape[2] != W:
+        fail(f"{arch}: a cache of {N + 8} positions holds "
+             f"{g['k'].shape[2]} slots, not a ring of {W}")
+    inp = np.concatenate([np.full((B, 1), pred.bos_id), toks[:, :-1]], 1)
+    ops.reset_launches()
+    graphs.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decoded = _steps_of(pred, g, inp)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches, stats = dict(ops.LAUNCHES), dict(graphs.STATS)
+    if stats["step_replays"] != N or launches["decode_attention"] != \
+            cfg.n_layers * (N + stats["warmup_steps"]):
+        fail(f"{arch} past the window: {stats} and {launches} for {N} "
+             f"captured steps")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    scored = pred.score_chunks(toks)
+    torch.cuda.synchronize()
+    t_score = time.perf_counter() - t0
+    if ops.LAUNCHES["flash_attention"] != cfg.n_layers:
+        fail(f"{arch}: windowed scoring launched flash_attention "
+             f"{ops.LAUNCHES['flash_attention']} times")
+    every = _compare_logits(f"{arch} decode of {N} positions (ring of {W})"
+                            f" vs windowed scoring", scored, decoded)
+    past = _compare_logits(f"{arch} the {N - W} positions past the window",
+                           scored[:, W:], decoded[:, W:])
+    del scored, decoded
+    # one speculative round past the wrap against lock-step
+    rng = np.random.default_rng(18)
+    T, acc = 5, np.array([1, 3])
+    seq = np.concatenate([toks[:, -1:], rng.integers(0, 256, (B, T - 1))],
+                         1)
+    after = rng.integers(0, 256, (B, 8))
+    pre = [pred.snapshot_slot(g, b) for b in range(B)]
+    lv, snaps = pred.verify_steps(g, seq)
+    lv = lv.clone()
+    pred.rollback(snaps, acc)
+    kept = [pred.snapshot_slot(g, b) for b in range(B)]
+    got = _steps_of(pred, g, after)
+    for b in range(B):
+        h = pred.begin_decode(B)
+        pred.restore_slot(h, pre[b], np.ones(B, bool))
+        lock = _steps_of(pred, h, seq[:, :acc[b]])
+        if not torch.equal(lock[b], lv[b, :acc[b]]):
+            fail(f"{arch}: verify logits of lane {b} differ from lock-step")
+        mine = pred.snapshot_slot(h, b)
+        for k in mine:
+            if not torch.equal(mine[k], kept[b][k]):
+                fail(f"{arch}: after the rollback lane {b}'s {k} differs "
+                     f"from a lock-step cache's")
+        if not torch.equal(_steps_of(pred, h, after)[b], got[b]):
+            fail(f"{arch}: lane {b} decodes other logits after the "
+                 f"rollback than lock-step")
+        del h
+    peak = _peak(f"{arch} past the window (2 lanes, {N} positions)")
+    log(f"[window] {arch}: {N} captured steps of {B} lanes through a ring "
+        f"of {W} slots in {t_dec:.2f} s ({t_dec / N * 1e3:.3f} ms a step; "
+        f"decode_attention {launches['decode_attention']} = "
+        f"{cfg.n_layers} x ({N} + {stats['warmup_steps']} warm-up)); "
+        f"windowed scoring of the same tokens {t_score * 1e3:.1f} ms; a "
+        f"verify round past the wrap (T = {T}), lanes rolled back to "
+        f"{acc.tolist()}, equals lock-step bit for bit, logits and caches")
+    del g, pred, pre, kept, snaps, lv, got
+    _free_card()
+    twin = _window_fp32_twin(cfg, inp, toks)
+    return dict(steps=N, step_ms=t_dec / N * 1e3, score_ms=t_score * 1e3,
+                every=every, past=past, launches=launches, peak_bytes=peak,
+                fp32_twin=twin)
+
+
+def _window_fp32_twin(cfg, inp, toks) -> dict:
+    """Phase 18's ring where bf16 rounding does not hide it. In bf16 the
+    decode program and scoring sit ~0.1 apart (SCORE_TOL is 0.34 here),
+    and with random weights attention is spread over ~4k keys, so a ring
+    that kept the 256 evicted positions, or wrote a wrong slot, would
+    move the logits by less than that. The fp32 twin (same config and
+    seed in float32) decodes the same W + 256 positions through its
+    captured step and is held to SCORE_TOL_FP32 against its own windowed
+    scoring. The control: the twin's scoring of the same tokens with no
+    window (what a ring that evicts nothing attends) must lie outside
+    that limit past the window, or the check could not tell."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api as model_api
+    from repro_torch.serve.engine import ModelPredictor
+    W, (B, N) = cfg.sliding_window, toks.shape
+    torch.cuda.reset_peak_memory_stats()
+    twin = ModelPredictor.random_init(cfg.with_(dtype="float32"), seed=0,
+                                      device="cuda")
+    twin.set_decode_len(N + 8)
+    g = twin.begin_decode(B)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    decoded = _steps_of(twin, g, inp)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    if ops.LAUNCHES["decode_attention"] < cfg.n_layers * N:
+        fail(f"fp32 {cfg.name}: decode_attention launched "
+             f"{ops.LAUNCHES['decode_attention']} times for {N} steps")
+    del g
+    ops.reset_launches()
+    scored = twin.score_chunks(toks)
+    opened = model_api.forward(
+        twin.params, twin.cfg.with_(sliding_window=None),
+        {"tokens": twin._tokens(inp)})[..., :cfg.vocab_size]
+    torch.cuda.synchronize()
+    if ops.LAUNCHES["flash_attention"] != 2 * cfg.n_layers:
+        fail(f"fp32 {cfg.name}: scoring with and without the window "
+             f"launched flash_attention {ops.LAUNCHES['flash_attention']} "
+             f"times")
+    every = _compare_logits(f"fp32 {cfg.name} decode of {N} positions vs "
+                            f"windowed scoring", scored, decoded,
+                            tol=SCORE_TOL_FP32)
+    past = _compare_logits(f"fp32 {cfg.name} the {N - W} positions past "
+                           f"the window", scored[:, W:], decoded[:, W:],
+                           tol=SCORE_TOL_FP32)
+    limit = SCORE_TOL_FP32 * past["max_abs_logit"]
+    control = (opened[:, W:] - scored[:, W:]).abs().max().item()
+    inside = (opened[:, :W] - scored[:, :W]).abs().max().item()
+    log(f"[window] fp32 twin: {N} captured steps in {t_dec:.2f} s; "
+        f"control: scoring with no window is {control:.4g} from windowed "
+        f"scoring past the window ({control / limit:.1f} x the limit "
+        f"{limit:.3g}), {inside:.3g} before it; the decode program "
+        f"{past['max_abs_diff']:.3g}")
+    if not control > limit:
+        fail(f"fp32 {cfg.name}: scoring with no window is {control} from "
+             f"windowed scoring past the window, not above the limit "
+             f"{limit}: the check cannot tell a ring that keeps the "
+             f"positions it should evict")
+    peak = _peak(f"fp32 {cfg.name} past the window")
+    del twin, decoded, scored, opened
+    _free_card()
+    return dict(every=every, past=past, step_ms=t_dec / N * 1e3,
+                control_max_abs_diff=control, limit=limit, peak_bytes=peak)
 
 
 def main() -> int:
@@ -2048,54 +2599,90 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     jobs = routed_jobs()
-    kern = phase_kernels(gen, -(-jobs[0].size // 128))
-    svc = phase_service("qwen3-1.7b")
+    times = {}
+
+    def timed(name, fn, *args, **kw):
+        """Run a phase and log its wall seconds (the 1200 s budget)."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        times[name] = round(time.perf_counter() - t0, 1)
+        log(f"[time] {name}: {times[name]} s")
+        return out
+
     from repro_torch.configs.registry import get_config
     from repro_torch.serve.engine import ModelPredictor
-    pred = ModelPredictor.random_init(get_config("qwen3-1.7b"), seed=0,
-                                      device="cuda")
-    phase_scoring(pred)
-    routed = phase_routed(pred)
-    phase_shared_prefix(pred)
-    del pred
-    torch.cuda.empty_cache()
-    full = phase_full_cdf()
-    phase_mismatch()
-    phase_cli()
-    phase_service("mamba2-130m")
-    pred = ModelPredictor.random_init(get_config("mamba2-130m"), seed=0,
-                                      device="cuda")
-    phase_scoring(pred)
-    routed_ssm = phase_routed(pred)
-    del pred
-    torch.cuda.empty_cache()
-    phase_paper()
-    phase_train_full_width()
-    svc_h = phase_service("zamba2-7b", ZAMBA_JOBS)
-    routed_h = phase_hybrid_scoring()
+
+    def paths_of(arch):
+        """Phases 4, 5 and 11 (9 for mamba2-130m) on one predictor."""
+        pred = ModelPredictor.random_init(get_config(arch), seed=0,
+                                          device="cuda")
+        phase_scoring(pred)
+        routed = phase_routed(pred)
+        if arch == "qwen3-1.7b":
+            phase_shared_prefix(pred)
+        del pred
+        torch.cuda.empty_cache()
+        return routed
+
+    kern = timed("2 kernels", phase_kernels, gen, -(-jobs[0].size // 128))
+    svc = timed("3+10 qwen3-1.7b service", phase_service, "qwen3-1.7b")
+    routed = timed("4+5+11 qwen3-1.7b paths", paths_of, "qwen3-1.7b")
+    full = timed("6 full CDF", phase_full_cdf)
+    timed("6 mismatched archive", phase_mismatch)
+    timed("7 CLI", phase_cli)
+    timed("8+10 mamba2-130m service", phase_service, "mamba2-130m")
+    routed_ssm = timed("9 mamba2-130m paths", paths_of, "mamba2-130m")
+    timed("13 paper", phase_paper)
+    timed("14 qwen3-1.7b training", phase_train_full_width)
+    svc_h = timed("15 zamba2-7b service", phase_service, "zamba2-7b",
+                  SHORT_JOBS)
+    routed_h = timed("16 zamba2-7b paths", phase_model_paths, "zamba2-7b")
+    dense = timed("17 dense configs", phase_dense_configs)
+    window = timed("18 past the window", phase_window)
 
     paths = {"cdf_points": full, "flash_attention": routed,
              "ssd_intra": routed_ssm}
     # zamba2-7b's paths: the service (phase 15) and the routed service
     # (phase 16); cdf_points is not on them (--topk 0 only)
     hybrid_paths = {"flash_attention": routed_h, "ssd_intra": routed_h}
+    # the int8 variant's main path: deepseek-7b's service with the int8
+    # cache (phase 17)
+    paths["decode_attention_int8"] = dense["deepseek-7b+int8"]
     rows = []
     for name, (src, replaces) in SOURCES.items():
         r = kern[name]
         main_launches = paths.get(name, svc)["launches"]
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces,
-                     "launches": int(main_launches[name]),
-                     "launches_zamba2": int(hybrid_paths.get(
-                         name, svc_h)["launches"][name]),
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"],
-                     "device_ms": r["device_ms"],
-                     "library_device_ms": r["library_device_ms"]})
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces,
+               "launches": int(main_launches[name]),
+               "launches_zamba2": int(hybrid_paths.get(
+                   name, svc_h)["launches"].get(name, 0)),
+               # phase 17's service round trips, phase 18's ring
+               "launches_phase17": {a: int(d["launches"][name])
+                                    for a, d in dense.items()},
+               "launches_phase18": int(window["launches"][name]),
+               "max_abs_err": r["max_abs_err"], "tol": r["tol"],
+               # attention: error over its row's max |value| (the bf16
+               # limit), at every shape, and a planted skipped tile's
+               "rel_err": {k: v["rel_err"] for k, v in kern.items()
+                           if k.split("@")[0] == name and "rel_err" in v}
+               or None,
+               "planted_rel_err": {
+                   k: v["planted_rel_err"] for k, v in kern.items()
+                   if k.split("@")[0] == name and "planted_rel_err" in v}
+               or None,
+               "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"],
+               "library_ms": r["library_ms"],
+               "device_ms": r["device_ms"],
+               "library_device_ms": r["library_device_ms"]}
+        if "bf16_kernel_ms" in r:
+            row.update(bf16_kernel_ms=r["bf16_kernel_ms"],
+                       bf16_kernel_device_ms=r["bf16_kernel_device_ms"])
+        rows.append(row)
     log(f"[done] every phase in {time.perf_counter() - t_run:.1f} s, the "
-        f"build included")
+        f"build included; by phase {times}")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

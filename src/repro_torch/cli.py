@@ -55,9 +55,12 @@ job's per-chunk diagnostics next to the container as
 timeline of the run as Chrome-trace JSON and prints the job's phase
 breakdown (model / coder / scheduler).
 
-Predictors: ``--predictor`` names a ``pred-*`` predictor or a registered
-config (``qwen3-1.7b``, ``mamba2-130m``, ``zamba2-7b``), on ``--device``
-(default ``cuda``; ``cpu`` on request).
+Predictors: ``--predictor`` names a ``pred-*`` predictor or a config of
+``configs/registry.py`` (``qwen3-1.7b``, ``h2o-danube-3-4b``,
+``deepseek-7b``, ``qwen3-14b``, ``mamba2-130m``, ``zamba2-7b``), on
+``--device`` (default ``cuda``; ``cpu`` on request). The int8 KV cache
+has no flag, as in the JAX ``llmc``: it is a field of the config
+(``get_config(name).with_(kv_cache_dtype="int8")``).
 
 * A ``pred-*`` predictor is **trained**, as the JAX package's ``llmc``
   has it: the first use trains it by the recipe of ``train/prep.py``
@@ -377,8 +380,8 @@ def main(argv=None) -> int:
         epilog="pred-* predictors are trained at first use and loaded from "
                "the cache (results/torch_cache/ in the checkout, or "
                "$REPRO_TORCH_CACHE) ever after; registered configs "
-               "(qwen3-1.7b, mamba2-130m, zamba2-7b) are random weights "
-               "from --seed.")
+               "(qwen3-1.7b, h2o-danube-3-4b, deepseek-7b, qwen3-14b, "
+               "mamba2-130m, zamba2-7b) are random weights from --seed.")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     def model_args(p, slots=None):

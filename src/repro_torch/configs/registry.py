@@ -1,6 +1,9 @@
 """Config registry of the PyTorch port: the byte-level paper predictors
-and the architectures the port runs so far (dense ``qwen3-1.7b``, ssm
-``mamba2-130m``, hybrid ``zamba2-7b``).
+and the architectures the port runs so far (dense ``qwen3-1.7b``,
+``h2o-danube-3-4b``, ``deepseek-7b`` and ``qwen3-14b``, ssm
+``mamba2-130m``, hybrid ``zamba2-7b``). The int8 KV cache is a field of
+the config, as in the JAX package: ``get_config("deepseek-7b").with_(
+kv_cache_dtype="int8")``.
 
 Names resolve with or without dashes (``qwen3-1.7b`` == ``qwen3_1_7b``);
 ``pred-*`` names resolve to the small predictor LMs of
@@ -14,6 +17,9 @@ from .paper_predictors import PRED_BASE, PRED_LARGE, PRED_SMALL, PRED_TINY
 
 ARCH_IDS = [
     "qwen3_1_7b",
+    "h2o_danube_3_4b",
+    "deepseek_7b",
+    "qwen3_14b",
     "mamba2_130m",
     "zamba2_7b",
 ]

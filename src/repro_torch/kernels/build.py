@@ -57,12 +57,20 @@ _vp, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 
 # kernel name -> (source, extra nvcc flags, C entry point, argtypes).
 # The CDF kernels keep every multiply and add separately rounded
-# (-fmad=false), as the plain PyTorch versions compute them.
+# (-fmad=false), as the plain PyTorch versions compute them. The int8
+# decode-attention kernel is decode_attention.cu built with
+# -DREPRO_KV_INT8: a library of its own, compiled beside the bf16 / fp32
+# one, each holding only its own instantiations.
 KERNELS = {
     "decode_attention": (
         "decode_attention.cu", [], "repro_decode_attention",
         [_vp, _ll, _ll, _vp, _vp, _ll, _ll, _ll, _vp, _vp,
          _i, _i, _i, _i, _i, _i, _f, _i, _i, _i, _vp]),
+    "decode_attention_int8": (
+        "decode_attention.cu", ["-DREPRO_KV_INT8"],
+        "repro_decode_attention_int8",
+        [_vp, _ll, _ll, _vp, _vp, _ll, _ll, _ll, _vp, _vp, _ll, _ll, _ll,
+         _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _i, _i, _i, _vp]),
     "topk_cdf": (
         "topk_cdf.cu", ["-fmad=false"], "repro_topk_cdf",
         [_vp, _ll] + [_i] * 8 + [_vp, _vp, _vp]),

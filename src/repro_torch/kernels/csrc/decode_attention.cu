@@ -53,8 +53,28 @@
 // lengths or on B, and every sum runs in a fixed order, so a lane's
 // output is independent of the other lanes and reproducible bit for bit.
 //
+// The int8 cache (the JAX model's kv_cache_dtype="int8": rows quantized
+// on write, one fp16 scale per (lane, position, kv-head)). Built from this
+// same file with -DREPRO_KV_INT8 into a library of its own
+// (kernels/build.py `decode_attention_int8`), whose entry point takes the
+// two (B, S, K) scale arrays beside the int8 caches. Only step 1's tile
+// loads change: each thread reads 4-byte words of int8 rows and the
+// rows' scales into registers, several words in flight at once, and
+// writes float(q) * float(scale), rounded once to the model dtype, into
+// the same shared-memory tile the bf16 / fp32 kernel fills -- the value
+// the plain version (kernels/ref.py `dequant_kv`) and the JAX model's
+// `_dequant_kv(...).astype(dtype)` compute, bit for bit. Steps 2-5 are
+// the kernel above, unchanged. So the cache is read from global memory
+// as int8 once (hd + 2 bytes per row and kv-head against 2 hd in bf16),
+// and no dequantized copy of it is ever written. These loads are plain
+// (the values must pass through registers to be scaled), so unlike the
+// cp.async path they do not overlap the previous tile's compute.
+//
 // Plain C interface, bound from Python with ctypes (kernels/ops.py).
 #include <cooperative_groups.h>
+#include <cuda_fp16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -70,6 +90,12 @@ constexpr int kMaxHd = 256;
 constexpr int kMaxClusters = 8;
 constexpr int kChan = kMaxHd / kThreads;    // output channels per thread
 constexpr int kRowPad = 16;         // bytes past each q, K, V row (banks)
+constexpr int kI8Words = 8;         // int8 words a thread has in flight
+#ifdef REPRO_KV_INT8
+constexpr bool kInt8Cache = true;   // this library's caches are int8
+#else
+constexpr bool kInt8Cache = false;
+#endif
 
 // Shared-memory layout of one CTA (bytes), the same on host and device.
 // krow: a q or K/V row in bytes, padded.
@@ -150,20 +176,97 @@ __device__ __forceinline__ void load_tile(unsigned char* kbuf,
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// K and V rows of positions [p0, p0 + n) of an int8 cache into one tile
+// buffer of T rows, dequantized: channel d of position p is
+// float(q[p][d]) * float(scale[p]), rounded once to T; the row's padding
+// past hd is zero. A thread takes 4-byte words of 4 channels (hd % 4 ==
+// 0, rows on 4 bytes: checked by the wrapper), kI8Words of them loaded
+// before any is converted, so that their loads are in flight together.
+// sc_ss: the scales' stride over positions, in halves.
+template <typename T>
+__device__ __forceinline__ void load_tile_i8(
+    unsigned char* kbuf, unsigned char* vbuf, const int8_t* kb,
+    const int8_t* vb, const __half* ksb, const __half* vsb, long long kv_ss,
+    long long sc_ss, int p0, int n, int hd, int rowb, int krow) {
+  const int words = rowb / (int)sizeof(T) / 4;       // of the padded row
+  const int hdk = krow / (int)sizeof(T);
+  const int total = n * words;
+  T* ks = reinterpret_cast<T*>(kbuf);
+  T* vs = reinterpret_cast<T*>(vbuf);
+  for (int base = threadIdx.x; base < total; base += kI8Words * kThreads) {
+    char4 kw[kI8Words], vw[kI8Words];
+    float sk[kI8Words], sv[kI8Words];
+#pragma unroll
+    for (int u = 0; u < kI8Words; ++u) {
+      const int idx = base + u * kThreads;
+      const int j = idx / words, d = 4 * (idx - j * words);
+      kw[u] = vw[u] = make_char4(0, 0, 0, 0);
+      sk[u] = sv[u] = 0.0f;
+      if (idx < total && d < hd) {
+        const long long p = p0 + j;
+        kw[u] = *reinterpret_cast<const char4*>(kb + p * kv_ss + d);
+        vw[u] = *reinterpret_cast<const char4*>(vb + p * kv_ss + d);
+        sk[u] = __half2float(ksb[p * sc_ss]);
+        sv[u] = __half2float(vsb[p * sc_ss]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kI8Words; ++u) {
+      const int idx = base + u * kThreads;
+      if (idx >= total) break;
+      const int j = idx / words, d = 4 * (idx - j * words);
+      T* kr = ks + j * hdk + d;
+      T* vr = vs + j * hdk + d;
+      kr[0] = repro::from_float<T>((float)kw[u].x * sk[u]);
+      kr[1] = repro::from_float<T>((float)kw[u].y * sk[u]);
+      kr[2] = repro::from_float<T>((float)kw[u].z * sk[u]);
+      kr[3] = repro::from_float<T>((float)kw[u].w * sk[u]);
+      vr[0] = repro::from_float<T>((float)vw[u].x * sv[u]);
+      vr[1] = repro::from_float<T>((float)vw[u].y * sv[u]);
+      vr[2] = repro::from_float<T>((float)vw[u].z * sv[u]);
+      vr[3] = repro::from_float<T>((float)vw[u].w * sv[u]);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);   // the group count holds
+}
+
+// The K/V tile of positions [p0, p0 + n): copied (bf16 / fp32 cache) or
+// dequantized (int8 cache, kI8).
+template <typename T, bool kVec, bool kI8>
+__device__ __forceinline__ void fill_tile(
+    unsigned char* kbuf, unsigned char* vbuf, const void* kb, const void* vb,
+    const __half* ksb, const __half* vsb, long long kv_ss, long long sc_ss,
+    int p0, int n, int hd, int rowb, int krow) {
+  if constexpr (kI8)
+    load_tile_i8<T>(kbuf, vbuf, static_cast<const int8_t*>(kb),
+                    static_cast<const int8_t*>(vb), ksb, vsb, kv_ss, sc_ss,
+                    p0, n, hd, rowb, krow);
+  else
+    load_tile<T, kVec>(kbuf, vbuf, static_cast<const T*>(kb),
+                       static_cast<const T*>(vb), kv_ss, p0, n, hd, rowb,
+                       krow);
+}
+
 // kG: q-heads computed per group (G rounded up; heads past G are zero
 // rows whose results are dropped), so that every loop over heads is
 // unrolled. kMma: tensor-core scores (bf16, hd % 16 == 0, 16-byte rows);
 // otherwise kVPL 16-byte vectors of a key row per lane. kVec: 16-byte
-// copies (rows start on 16 bytes) or scalar ones.
-template <typename T, int kG, bool kMma, int kVPL, bool kVec>
+// copies (rows start on 16 bytes) or scalar ones. kI8: the caches are
+// int8 (kc / vc int8, ksc / vsc their fp16 scales with strides sc_*);
+// otherwise T, and the scales are unused.
+template <typename T, int kG, bool kMma, int kVPL, bool kVec, bool kI8>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, long long q_sb,
-                        long long q_sh, const T* __restrict__ kc,
-                        const T* __restrict__ vc, long long kv_sb,
+                        long long q_sh, const void* __restrict__ kc,
+                        const void* __restrict__ vc, long long kv_sb,
                         long long kv_ss, long long kv_sk,
+                        const __half* __restrict__ ksc,
+                        const __half* __restrict__ vsc, long long sc_sb,
+                        long long sc_ss, long long sc_sk,
                         const int* __restrict__ lengths, T* __restrict__ out,
                         int H, int K, int S, int hd, int per, int rowb,
                         int nbuf, float scale) {
+  using CT = std::conditional_t<kI8, int8_t, T>;    // a cache element
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kE = 16 / sizeof(T);            // elements per vector
   cg::cluster_group cluster = cg::this_cluster();
@@ -213,12 +316,15 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
   for (int idx = G * krow / 4 + tid; idx < kG * krow / 4; idx += kThreads)
     reinterpret_cast<float*>(smem + L.q)[idx] = 0.0f;
   if (tid < kMaxG) s_alpha[tid] = 0.0f;
-  const T* kb = kc + b * kv_sb + kh * kv_sk;
-  const T* vb = vc + b * kv_sb + kh * kv_sk;
+  const CT* kb = static_cast<const CT*>(kc) + b * kv_sb + kh * kv_sk;
+  const CT* vb = static_cast<const CT*>(vc) + b * kv_sb + kh * kv_sk;
+  const __half* ksb = kI8 ? ksc + b * sc_sb + kh * sc_sk : nullptr;
+  const __half* vsb = kI8 ? vsc + b * sc_sb + kh * sc_sk : nullptr;
   const int tbytes = kTile * krow;
   if (ntile > 0)
-    load_tile<T, kVec>(smem + L.kv, smem + L.kv + tbytes, kb, vb, kv_ss, lo,
-                       min(kTile, hi - lo), hd, rowb, krow);
+    fill_tile<T, kVec, kI8>(smem + L.kv, smem + L.kv + tbytes, kb, vb, ksb,
+                            vsb, kv_ss, sc_ss, lo, min(kTile, hi - lo), hd,
+                            rowb, krow);
 
   // running softmax state of heads warp, warp + 4 (one warp per head)
   float m_run[kMaxG / kWarps], l_run[kMaxG / kWarps];
@@ -240,8 +346,9 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
     unsigned char* vbuf = kbuf + tbytes;
     if (t + 1 < ntile) {
       unsigned char* nk = smem + L.kv + ((t + 1) % nbuf) * 2 * tbytes;
-      load_tile<T, kVec>(nk, nk + tbytes, kb, vb, kv_ss, p0 + kTile,
-                         min(kTile, hi - p0 - kTile), hd, rowb, krow);
+      fill_tile<T, kVec, kI8>(nk, nk + tbytes, kb, vb, ksb, vsb, kv_ss,
+                              sc_ss, p0 + kTile, min(kTile, hi - p0 - kTile),
+                              hd, rowb, krow);
       asm volatile("cp.async.wait_group 1;\n" ::);
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::);
@@ -473,13 +580,21 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
   }
 }
 
+// The int8 scales of a launch: null pointers for a bf16 / fp32 cache.
+struct Scales {
+  const __half* k;
+  const __half* v;
+  long long sb, ss, sk;
+};
+
 template <typename T, int kG, bool kMma, int kVPL, bool kVec>
 cudaError_t launch(const void* q, long long q_sb, long long q_sh,
                    const void* k, const void* v, long long kv_sb,
-                   long long kv_ss, long long kv_sk, const int* lengths,
-                   void* out, int B, int H, int K, int S, int hd, int C,
-                   int per, int rowb, float scale, cudaStream_t st) {
-  auto kern = decode_attention_kernel<T, kG, kMma, kVPL, kVec>;
+                   long long kv_ss, long long kv_sk, const Scales& sc,
+                   const int* lengths, void* out, int B, int H, int K, int S,
+                   int hd, int C, int per, int rowb, float scale,
+                   cudaStream_t st) {
+  auto kern = decode_attention_kernel<T, kG, kMma, kVPL, kVec, kInt8Cache>;
   const int nbuf = per > kTile ? 2 : 1;
   const size_t smem = (size_t)Layout(rowb + kRowPad, H / K, nbuf, C, hd).total;
   static size_t allowed = 48 * 1024;    // no static shared memory
@@ -504,10 +619,10 @@ cudaError_t launch(const void* q, long long q_sb, long long q_sh,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = C > 1 ? 1 : 0;          // a lone CTA needs no cluster
-  cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q), q_sb, q_sh,
-                     static_cast<const T*>(k), static_cast<const T*>(v),
-                     kv_sb, kv_ss, kv_sk, lengths, static_cast<T*>(out), H, K,
-                     S, hd, per, rowb, nbuf, scale);
+  cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q), q_sb, q_sh, k, v,
+                     kv_sb, kv_ss, kv_sk, sc.k, sc.v, sc.sb, sc.ss, sc.sk,
+                     lengths, static_cast<T*>(out), H, K, S, hd, per, rowb,
+                     nbuf, scale);
   return cudaGetLastError();            // also clears a refused launch's
 }
 
@@ -519,16 +634,17 @@ cudaError_t launch(const void* q, long long q_sb, long long q_sh,
 template <typename T>
 cudaError_t dispatch(int vec, const void* q, long long q_sb, long long q_sh,
                      const void* k, const void* v, long long kv_sb,
-                     long long kv_ss, long long kv_sk, const int* lengths,
-                     void* out, int B, int H, int K, int S, int hd, int C,
-                     int per, float scale, cudaStream_t st) {
+                     long long kv_ss, long long kv_sk, const Scales& sc,
+                     const int* lengths, void* out, int B, int H, int K,
+                     int S, int hd, int C, int per, float scale,
+                     cudaStream_t st) {
   const int rowb = (hd * (int)sizeof(T) + 15) / 16 * 16;
   const int G = H / K;
   const bool two = rowb / 16 > 8;
   constexpr bool kBf16 = sizeof(T) == 2;
 #define REPRO_LAUNCH(kG, kMma, kVPL, kVec)                                  \
   launch<T, kG, kMma, kVPL, kVec>(q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sk, \
-                                  lengths, out, B, H, K, S, hd, C, per,     \
+                                  sc, lengths, out, B, H, K, S, hd, C, per, \
                                   rowb, scale, st)
   if (!vec || (hd * (int)sizeof(T)) % 16 != 0)
     return two ? REPRO_LAUNCH(8, false, 2, false)
@@ -555,8 +671,35 @@ cudaError_t dispatch(int vec, const void* q, long long q_sb, long long q_sh,
 #undef REPRO_LAUNCH
 }
 
+// The checks and the dtype switch of both entry points.
+int run(const void* q, long long q_sb, long long q_sh, const void* k,
+        const void* v, long long kv_sb, long long kv_ss, long long kv_sk,
+        const Scales& sc, const void* lengths, void* out, int B, int H,
+        int K, int S, int hd, int dtype, float scale, int clusters, int per,
+        int vec, void* stream) {
+  if (K <= 0 || H % K != 0 || H / K > kMaxG || hd <= 0 || hd > kMaxHd ||
+      S < 1 || B < 1 || B > 65535 || clusters < 1 ||
+      clusters > kMaxClusters || per < 1 || per % kTile != 0 ||
+      (long long)clusters * per < S || (long long)(clusters - 1) * per >= S ||
+      (long long)clusters * K > 0x7fffffffLL ||
+      (kInt8Cache && (hd % 4 != 0 || sc.k == nullptr || sc.v == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int* len = static_cast<const int*>(lengths);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kFloat32)
+    return (int)dispatch<float>(vec, q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sk,
+                                sc, len, out, B, H, K, S, hd, clusters, per,
+                                scale, st);
+  if (dtype == repro::kBFloat16)
+    return (int)dispatch<__nv_bfloat16>(vec, q, q_sb, q_sh, k, v, kv_sb,
+                                        kv_ss, kv_sk, sc, len, out, B, H, K,
+                                        S, hd, clusters, per, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
+#ifndef REPRO_KV_INT8
 // q (B, H, hd) with strides (q_sb, q_sh, 1); k/v cache of one layer
 // (B, S, K, hd) with strides (kv_sb, kv_ss, kv_sk, 1); lengths (B,) int32;
 // out (B, H, hd) contiguous. Strides are in elements. `clusters` CTAs per
@@ -573,21 +716,28 @@ extern "C" int repro_decode_attention(const void* q, long long q_sb,
                                       int H, int K, int S, int hd, int dtype,
                                       float scale, int clusters, int per,
                                       int vec, void* stream) {
-  if (K <= 0 || H % K != 0 || H / K > kMaxG || hd <= 0 || hd > kMaxHd ||
-      S < 1 || B < 1 || B > 65535 || clusters < 1 ||
-      clusters > kMaxClusters || per < 1 || per % kTile != 0 ||
-      (long long)clusters * per < S || (long long)(clusters - 1) * per >= S ||
-      (long long)clusters * K > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  const int* len = static_cast<const int*>(lengths);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kFloat32)
-    return (int)dispatch<float>(vec, q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sk,
-                                len, out, B, H, K, S, hd, clusters, per,
-                                scale, st);
-  if (dtype == repro::kBFloat16)
-    return (int)dispatch<__nv_bfloat16>(vec, q, q_sb, q_sh, k, v, kv_sb,
-                                        kv_ss, kv_sk, len, out, B, H, K, S,
-                                        hd, clusters, per, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return run(q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sk,
+             Scales{nullptr, nullptr, 0, 0, 0}, lengths, out, B, H, K, S, hd,
+             dtype, scale, clusters, per, vec, stream);
 }
+#else
+// As repro_decode_attention, over an int8 cache: k/v (B, S, K, hd) int8
+// with strides (kv_sb, kv_ss, kv_sk, 1) in bytes, whose rows start on 4
+// bytes, hd % 4 == 0; k_scale / v_scale (B, S, K) fp16 with strides
+// (sc_sb, sc_ss, sc_sk) in halves. q and out are float32 or bfloat16
+// (`dtype`), the dtype the rows are dequantized to; `vec` says whether q's
+// rows start on 16 bytes.
+extern "C" int repro_decode_attention_int8(
+    const void* q, long long q_sb, long long q_sh, const void* k,
+    const void* v, long long kv_sb, long long kv_ss, long long kv_sk,
+    const void* k_scale, const void* v_scale, long long sc_sb,
+    long long sc_ss, long long sc_sk, const void* lengths, void* out, int B,
+    int H, int K, int S, int hd, int dtype, float scale, int clusters,
+    int per, int vec, void* stream) {
+  return run(q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sk,
+             Scales{static_cast<const __half*>(k_scale),
+                    static_cast<const __half*>(v_scale), sc_sb, sc_ss, sc_sk},
+             lengths, out, B, H, K, S, hd, dtype, scale, clusters, per, vec,
+             stream);
+}
+#endif

@@ -20,6 +20,7 @@ went through the kernels.
 | wrapper            | CUDA source                 | replaces (TPU kernel)                      |
 |--------------------|-----------------------------|--------------------------------------------|
 | decode_attention   | csrc/decode_attention.cu    | kernels/decode_attention.py decode_attention |
+| decode_attention_int8 | the same, -DREPRO_KV_INT8 | the same, over an int8 cache |
 | topk_cdf           | csrc/topk_cdf.cu            | kernels/ac_cdf.py topk_cdf_points          |
 | cdf_points         | csrc/cdf_points.cu          | kernels/ac_cdf.py cdf_points               |
 | flash_attention    | csrc/flash_attention.cu     | kernels/flash_attention.py flash_attention |
@@ -99,6 +100,30 @@ def decode_geometry(S: int, G: int, hd: int,
     return -(-S // per), per
 
 
+def _check_decode(name: str, q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, lengths: torch.Tensor) -> None:
+    """The shape, stride and size checks both decode wrappers make."""
+    B, H, hd = q.shape
+    Bc, S, K, hdc = k_cache.shape
+    if (Bc, hdc) != (B, hd) or v_cache.shape != k_cache.shape \
+            or lengths.shape != (B,) or K < 1 or H % K:
+        raise ValueError(
+            f"{name}: shapes q {tuple(q.shape)}, k "
+            f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}, lengths "
+            f"{tuple(lengths.shape)} do not fit (B,H,hd)/(B,S,K,hd)/(B,)")
+    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
+        raise ValueError(f"{name}: lengths must be contiguous int32")
+    if q.stride(2) != 1 or k_cache.stride(3) != 1 \
+            or k_cache.stride() != v_cache.stride():
+        raise ValueError(f"{name}: unit stride over hd and equal k/v "
+                         f"strides required")
+    if H // K > 8 or hd > 256:
+        raise ValueError(f"{name}: G={H // K} > 8 or hd={hd} > 256 not "
+                         f"supported by the kernel")
+    if B > 65535:
+        raise ValueError(f"{name}: B={B} exceeds the grid")
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
@@ -109,31 +134,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return ref.decode_attention(q, k_cache, v_cache, lengths)
     _check_cuda("decode_attention", q, k_cache, v_cache, lengths)
-    B, H, hd = q.shape
-    Bc, S, K, hdc = k_cache.shape
-    if (Bc, hdc) != (B, hd) or v_cache.shape != k_cache.shape \
-            or lengths.shape != (B,) or K < 1 or H % K:
-        raise ValueError(
-            f"decode_attention: shapes q {tuple(q.shape)}, k "
-            f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}, lengths "
-            f"{tuple(lengths.shape)} do not fit (B,H,hd)/(B,S,K,hd)/(B,)")
+    _check_decode("decode_attention", q, k_cache, v_cache, lengths)
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
             or v_cache.dtype != q.dtype:
         raise ValueError(f"decode_attention: dtypes {q.dtype}, "
                          f"{k_cache.dtype}, {v_cache.dtype} (float32 or "
                          f"bfloat16, all equal)")
-    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
-        raise ValueError("decode_attention: lengths must be contiguous "
-                         "int32")
-    if q.stride(2) != 1 or k_cache.stride(3) != 1 \
-            or k_cache.stride() != v_cache.stride():
-        raise ValueError("decode_attention: unit stride over hd and equal "
-                         "k/v strides required")
-    if H // K > 8 or hd > 256:
-        raise ValueError(f"decode_attention: G={H // K} > 8 or hd={hd} > "
-                         f"256 not supported by the kernel")
-    if B > 65535:
-        raise ValueError(f"decode_attention: B={B} exceeds the grid")
+    B, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     if B == 0 or S == 0:
         return out.zero_()
@@ -148,6 +156,61 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         _stream(q))
     _raise_on("decode_attention", rc)
     LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def decode_attention_int8(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, k_scale: torch.Tensor,
+                          v_scale: torch.Tensor,
+                          lengths: torch.Tensor) -> torch.Tensor:
+    """``decode_attention`` over an int8 cache: k/v (B, S, K, hd) int8,
+    each row with its fp16 scale in k_scale / v_scale (B, S, K), all read
+    through their strides; q (B, H, hd) float32 or bfloat16, the dtype
+    the rows are dequantized to (``ref.dequant_kv``) -> (B, H, hd) in q's
+    dtype. The kernel reads the int8 rows and scales, never a dequantized
+    copy. hd % 4 == 0, and the cache rows start on 4 bytes. Same geometry
+    as ``decode_attention`` (``decode_geometry`` of q's dtype), so the
+    two attend a cache of the same values alike."""
+    name = "decode_attention_int8"
+    _refuse_grad(name, q, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return ref.decode_attention_int8(q, k_cache, v_cache, k_scale,
+                                         v_scale, lengths)
+    _check_cuda(name, q, k_cache, v_cache, k_scale, v_scale, lengths)
+    _check_decode(name, q, k_cache, v_cache, lengths)
+    B, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    if q.dtype not in _DTYPES or k_cache.dtype != torch.int8 \
+            or v_cache.dtype != torch.int8 \
+            or k_scale.dtype != torch.float16 \
+            or v_scale.dtype != torch.float16:
+        raise ValueError(f"{name}: dtypes q {q.dtype}, k/v {k_cache.dtype}"
+                         f"/{v_cache.dtype}, scales {k_scale.dtype}/"
+                         f"{v_scale.dtype} (q float32 or bfloat16, k/v "
+                         f"int8, scales float16)")
+    if k_scale.shape != (B, S, K) or v_scale.shape != (B, S, K) \
+            or k_scale.stride() != v_scale.stride():
+        raise ValueError(f"{name}: scales {tuple(k_scale.shape)}, "
+                         f"{tuple(v_scale.shape)} must both be (B, S, K) "
+                         f"= {(B, S, K)} with equal strides")
+    if hd % 4 or any(t.data_ptr() % 4 or any(st % 4 for st in t.stride()[:3])
+                     for t in (k_cache, v_cache)):
+        raise ValueError(f"{name}: hd={hd} must be a multiple of 4 and the "
+                         f"int8 rows must start on 4 bytes")
+    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    if B == 0 or S == 0:
+        return out.zero_()
+    clusters, per = decode_geometry(S, H // K, hd, q.dtype)
+    rc = build.entry(name)(
+        q.data_ptr(), q.stride(0), q.stride(1),
+        k_cache.data_ptr(), v_cache.data_ptr(),
+        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+        k_scale.data_ptr(), v_scale.data_ptr(), *k_scale.stride(),
+        lengths.data_ptr(), out.data_ptr(), B, H, K, S, hd,
+        _DTYPES[q.dtype], 1.0 / math.sqrt(hd), clusters, per,
+        int(_rows_aligned(q)), _stream(q))
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
     return out
 
 

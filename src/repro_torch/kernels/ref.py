@@ -36,6 +36,22 @@ def decode_attention(q, k_cache, v_cache, lengths):
     return o.reshape(B, H, hd).to(q.dtype)
 
 
+def dequant_kv(q, scale, dtype):
+    """An int8 cache row back in the model dtype, as the JAX package's
+    ``_dequant_kv(q, scale).astype(dtype)``: q (..., hd) int8 and scale
+    (...) fp16 -> float32(q) * float32(scale), rounded once to
+    ``dtype``."""
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+def decode_attention_int8(q, k_cache, v_cache, k_scale, v_scale, lengths):
+    """``decode_attention`` over an int8 cache: k/v (B, S, K, hd) int8 with
+    their (B, S, K) fp16 scales, dequantized to q's dtype (``dequant_kv``),
+    then attended exactly as a cache of that dtype."""
+    return decode_attention(q, dequant_kv(k_cache, k_scale, q.dtype),
+                            dequant_kv(v_cache, v_scale, q.dtype), lengths)
+
+
 def attention_mask(Sq: int, Sk: int, causal: bool, window, device):
     """(Sq, Sk) bool: key k is visible to query q. Positions count from 0
     on both sides, as the Pallas kernel counts them: ``k <= q`` when

@@ -44,9 +44,18 @@ def decode_step(params, cfg: ModelConfig, cache, prev_tokens):
 
 
 def rollback_leaves(cfg: ModelConfig) -> tuple[str, ...]:
-    """The cache leaves that a speculative rollback restores per lane
-    (the rest need no copy: see each family's ``ROLLBACK_LEAVES``)."""
+    """The cache leaves that a speculative rollback restores per lane,
+    whole (the rest need no copy: see each family's ``ROLLBACK_LEAVES``)."""
     return module_for(cfg).ROLLBACK_LEAVES
+
+
+def ring_leaves(cfg: ModelConfig) -> tuple[str, ...]:
+    """The ring-cache leaves (a sliding window) whose slots a verify round
+    overwrites: a rollback writes back the rows of the rejected steps
+    (see ``transformer.ring_leaves``); none without a window, and none
+    in a family without a ring (ssm, hybrid)."""
+    ring = getattr(module_for(cfg), "ring_leaves", None)
+    return ring(cfg) if ring else ()
 
 
 def _ce_from_logits(logits, targets):
@@ -95,5 +104,5 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0):
 
 
 __all__ = ["forward", "loss_fn", "init_cache", "decode_step",
-           "rollback_leaves", "module_for", "init_params", "from_jax",
-           "count_params", "schema"]
+           "rollback_leaves", "ring_leaves", "module_for", "init_params",
+           "from_jax", "count_params", "schema"]

@@ -50,19 +50,30 @@ def swiglu(x, w_gate, w_up, w_down):
     return h @ w_down
 
 
-def decode_attention(q, k_cache, v_cache, pos):
+def decode_attention(q, k_cache, v_cache, pos, scales=None):
     """Single-step attention over a preallocated KV cache.
 
     q (B, 1, H, hd); caches (B, S, K, hd) (read in place by the kernel);
     pos (B,) int32 = index of the new token per lane, whose K/V the cache
-    already holds. Each lane attends its own positions [0, pos_b]: the
-    kernel skips the rest, which is exact (the reference's masked terms
-    are exp(-1e30 - m) == 0), so a refilled lane computes exactly what a
-    fresh cache would."""
+    already holds. Each lane attends its first min(pos_b + 1, S) slots:
+    the kernel skips the rest, which is exact (the reference's masked
+    terms are exp(-1e30 - m) == 0), so a refilled lane computes exactly
+    what a fresh cache would. The same rule serves the sliding-window
+    ring (slot = pos % S): before it wraps, slots 0..pos hold the lane's
+    positions; after, every slot holds one of the last S, which is the
+    JAX ring's mask ``abs_pos >= 0``. The order of the slots does not
+    matter to the softmax, and RoPE was applied at each key's absolute
+    position when it was written. ``scales`` (k_scale, v_scale), each
+    (B, S, K) fp16, marks an int8 cache: the int8 kernel dequantizes its
+    rows as it reads them."""
     B, _, H, hd = q.shape
     S = k_cache.shape[1]
     lengths = (pos + 1).clamp(max=S).to(torch.int32)
-    o = ops.decode_attention(q[:, 0], k_cache, v_cache, lengths)
+    if scales is None:
+        o = ops.decode_attention(q[:, 0], k_cache, v_cache, lengths)
+    else:
+        o = ops.decode_attention_int8(q[:, 0], k_cache, v_cache, *scales,
+                                      lengths)
     return o.reshape(B, 1, H, hd)
 
 

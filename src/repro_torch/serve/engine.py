@@ -9,12 +9,13 @@ zoo:
     fresh or under a scored ``prefix`` (the router probe, ``exact=False``
     and scored context). Its logits come back as a **device tensor**
     (B, C, V), as ``decode_step``'s do;
-  * ``begin_decode`` — a fresh per-lane cache (K/V for the dense family,
-    conv and SSM state for the ssm family, both for the hybrid: the
-    states of its SSD layers and K/V per application of its shared
-    block); with a ``prefix``, the cache consumes [BOS, prefix[:, :-1]]
-    by replaying the decode step, so it is bit-identical to the same
-    steps taken one by one;
+  * ``begin_decode`` — a fresh per-lane cache (K/V for the dense family:
+    int8 with per-row scales under ``kv_cache_dtype="int8"``, a ring of
+    min(max_len, W) slots under a sliding window W; conv and SSM state
+    for the ssm family; both for the hybrid: the states of its SSD layers
+    and K/V per application of its shared block); with a ``prefix``, the
+    cache consumes [BOS, prefix[:, :-1]] by replaying the decode step, so
+    it is bit-identical to the same steps taken one by one;
   * ``decode_step`` — one token for every lane. The logits come back as
     a **device tensor** (B, V): the CDF kernels read them on the card,
     and only the small (ids, cdf) tables cross to the host;
@@ -79,7 +80,7 @@ class ModelPredictor:
         self._programs = None if self.device.type == "cpu" else \
             graphs.DecodePrograms(self._init_cache, self._step_body,
                                   model_api.rollback_leaves(cfg),
-                                  self.device)
+                                  self.device, model_api.ring_leaves(cfg))
 
     @classmethod
     def random_init(cls, cfg: ModelConfig, *, seed: int = 0, device=None,
@@ -150,7 +151,10 @@ class ModelPredictor:
         calls); the caller feeds prefix[:, -1] as the first decode_step
         input. On the card a cache that no caller holds any longer is
         handed out again, zeroed in place, with the graphs captured over
-        it."""
+        it. In a ring cache (a sliding window W) the prefill wraps as the
+        steps would: a prefix longer than the ring's S slots leaves only
+        its last S positions in the cache, which is what the next steps
+        attend."""
         cache = self._init_cache(batch, self._decode_max_len) \
             if self._programs is None else \
             self._programs.fresh_cache(batch, self._decode_max_len)
@@ -197,18 +201,23 @@ class ModelPredictor:
             seq = np.asarray(seq, np.int64)
             if self._programs is not None:
                 return self._programs.verify(state, seq)
-            logits, snaps = graphs.verify_body(
+            logits, snaps, rows = graphs.verify_body(
                 self._step_body, state, self._tokens(seq.T),
-                model_api.rollback_leaves(self.cfg))
-            return logits, graphs.Snapshots(state, snaps)
+                model_api.rollback_leaves(self.cfg),
+                model_api.ring_leaves(self.cfg))
+            return logits, graphs.Snapshots(state, snaps, rows)
 
     @torch.no_grad()
     def rollback(self, snapshots, accepted: np.ndarray):
         """Rewind each lane, in place, to the state after it consumed
         ``accepted[b]`` of the last verify's inputs (0 = before them).
-        Dense lanes rewind ``pos`` (K/V rows past it are hidden and
-        overwritten); ssm and hybrid lanes also take back their conv and
-        SSM state. Returns the state."""
+        Dense lanes rewind ``pos``: in a linear cache, bf16 or int8, K/V
+        rows past it are hidden and overwritten. A ring cache (a sliding
+        window) that has wrapped hides nothing, so the slots of the
+        rejected steps also take back the rows (K/V, and their scales in
+        an int8 ring) that the verify copied before its first step. ssm
+        and hybrid lanes also take back their conv and SSM state. Returns
+        the state."""
         with obs.span("model.rollback"):
             return graphs.rollback(snapshots, accepted)
 
@@ -216,8 +225,9 @@ class ModelPredictor:
     def snapshot_slot(self, state, lane: int) -> dict:
         """Copies of lane ``lane`` of every cache leaf: the value a radix
         prefix cache stores for a prefilled shared prefix. Leaves are
-        (L, B, ...) with the lane on axis 1; ``pos`` is (B,). The live
-        cache is untouched."""
+        (L, B, ...) with the lane on axis 1 (K/V, an int8 cache's
+        ``k_scale``/``v_scale``, a ring whole, conv and SSM state); ``pos``
+        is (B,). The live cache is untouched."""
         with obs.span("model.snapshot_slot"):
             return {name: (leaf[lane] if name == "pos" else
                            leaf[:, lane]).clone()
@@ -227,7 +237,9 @@ class ModelPredictor:
     def restore_slot(self, state, snapshot: dict, mask: np.ndarray):
         """Write ``snapshot`` (from ``snapshot_slot``) into every cache lane
         selected by ``mask`` (B,) bool, in place -- the prefix-cache-hit
-        path that replaces re-prefilling those lanes. Returns the same
+        path that replaces re-prefilling those lanes. Every leaf the
+        snapshot holds is written, scales and ring slots included, so a
+        restored lane equals a cold prefill bit for bit. Returns the same
         state."""
         with obs.span("model.restore_slot"):
             lanes = torch.as_tensor(np.nonzero(np.asarray(mask, bool))[0],

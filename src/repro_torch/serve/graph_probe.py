@@ -3,8 +3,10 @@
     PYTHONPATH=src python -m repro_torch.serve.graph_probe [ARCH ...]
 
 For each config (default ``qwen3-1.7b``, ``mamba2-130m`` and
-``zamba2-7b``, random weights from seed 0, 16 lanes, a 128-position
-cache; each model freed before the next): the first step's
+``zamba2-7b``; any name of ``configs/registry.py``, such as
+``h2o-danube-3-4b``, ``deepseek-7b`` or ``qwen3-14b``; random weights
+from seed 0, 16 lanes, a 128-position cache; each model freed before
+the next): the first step's
 time (its capture and eager warm-up included), 8 replays held against 8
 eager steps on a twin cache bit for bit, the host ms per step of the
 eager and the captured step (a host clock around 20 steps ending in a

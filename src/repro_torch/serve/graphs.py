@@ -20,6 +20,12 @@ the replay of one CUDA graph, captured over the storage of one cache:
   per T), with the copies a rollback needs, so a speculative round is one
   launch, as the JAX verify program is one dispatch. Its logits (B, T, V)
   and its ``Snapshots`` are static too: the next verify overwrites them.
+  The copies are each whole leaf that ``rollback_leaves`` names (``pos``;
+  an SSM's conv and state) after every step, and, in a ring cache (a
+  sliding window: ``ring_leaves``), the T rows per lane and layer that
+  the round will overwrite, taken before its first step. The JAX verify
+  keeps T + 1 copies of the whole cache instead; a ring of 4096 slots at
+  full width is GBs, so the port keeps only the rows a rollback needs.
 
 Capture. A graph reads and writes fixed addresses, so every cache leaf
 keeps its storage: the models write in place, and ``_slot`` refuses a
@@ -117,35 +123,59 @@ class Program:
 
 
 class Snapshots:
-    """What ``verify`` returns for ``rollback``: the live cache and, per
-    leaf that a rollback restores, its value before the round and after
-    each of its T steps, (T + 1, *leaf.shape)."""
+    """What ``verify`` returns for ``rollback``: the live cache; per leaf
+    that a rollback restores whole, its value before the round and after
+    each of its T steps, (T + 1, *leaf.shape); and, for a ring cache,
+    ``ring``: the slots the round wrote, "slots" (B, T), and per ring
+    leaf the rows those slots held before it, (L, B, T, ...)."""
 
-    def __init__(self, state: dict, leaves: dict):
+    def __init__(self, state: dict, leaves: dict, ring: dict | None = None):
         self.state = state
         self.leaves = leaves
+        self.ring = ring or {}
 
 
-def verify_body(eager_step, cache: dict, seq: torch.Tensor, names):
+def verify_body(eager_step, cache: dict, seq: torch.Tensor, names,
+                ring=()):
     """T = seq.shape[0] eager decode steps over ``cache`` (inputs seq[t],
     (B,) each), with the leaves ``names`` copied before the first step
-    and after each: (logits (B, T, V), {name: (T + 1, *leaf.shape)})."""
-    snaps = {k: torch.empty((seq.shape[0] + 1,) + cache[k].shape,
+    and after each, and the rows of the ``ring`` leaves ((L, B, S, ...),
+    a sliding-window cache) that the steps will overwrite, slots (pos +
+    t) % S, copied before the first: (logits (B, T, V), {name: (T + 1,
+    *leaf.shape)}, {"slots": (B, T), name: (L, B, T, ...)} or {}). The
+    slots of one round must be distinct, so T <= S."""
+    T = seq.shape[0]
+    snaps = {k: torch.empty((T + 1,) + cache[k].shape,
                             dtype=cache[k].dtype, device=cache[k].device)
              for k in names}
     for k in names:
         snaps[k][0].copy_(cache[k])
+    rows = {}
+    if ring:
+        S = cache[ring[0]].shape[2]
+        if T > S:
+            raise ValueError(f"verify: {T} steps would overwrite their own "
+                             f"slots in a ring of {S}")
+        pos = cache["pos"]
+        slots = (pos.long()[:, None] + torch.arange(
+            T, device=pos.device)) % S
+        lanes = torch.arange(pos.shape[0], device=pos.device)[:, None]
+        rows = {"slots": slots}
+        rows.update({k: cache[k][:, lanes, slots] for k in ring})
     steps = []
-    for t in range(seq.shape[0]):
+    for t in range(T):
         steps.append(eager_step(cache, seq[t]))
         for k in names:
             snaps[k][t + 1].copy_(cache[k])
-    return torch.stack(steps, dim=1), snaps
+    return torch.stack(steps, dim=1), snaps, rows
 
 
 def rollback(snaps: Snapshots, accepted) -> dict:
     """Lane b of the cache takes the value it had after ``accepted[b]``
-    of the round's inputs (0: before the round), in place."""
+    of the round's inputs (0: before the round), in place: the whole
+    leaves from the snapshot after that many steps, and in a ring the
+    slots of steps accepted[b]..T-1 from their rows before the round
+    (the steps before those wrote the same values in lock-step)."""
     state = snaps.state
     pos = state["pos"]
     acc = np.asarray(accepted, np.int64).ravel()
@@ -161,6 +191,15 @@ def rollback(snaps: Snapshots, accepted) -> dict:
             state[k].copy_(s[acc_t, lanes])
         else:                       # (T+1, L, B, ...) -> (B, L, ...)
             state[k].copy_(s[acc_t, :, lanes].transpose(0, 1))
+    if snaps.ring:
+        b, t = np.nonzero(np.arange(T)[None, :] >= acc[:, None])
+        if b.size:
+            b = torch.as_tensor(b, device=pos.device)
+            t = torch.as_tensor(t, device=pos.device)
+            slots = snaps.ring["slots"][b, t]
+            for k, rows in snaps.ring.items():
+                if k != "slots":
+                    state[k][:, b, slots] = rows[:, b, t]
     return state
 
 
@@ -186,12 +225,14 @@ class DecodePrograms:
 
     ``init_cache(B, S)`` makes cache leaves; ``eager_step(cache, prev)``
     is the eager step body (logits (B, V)); ``names`` are the leaves that
-    a rollback restores."""
+    a rollback restores whole, ``ring`` the ring leaves whose overwritten
+    rows it puts back."""
 
-    def __init__(self, init_cache, eager_step, names, device):
+    def __init__(self, init_cache, eager_step, names, device, ring=()):
         self._init = init_cache
         self._eager = eager_step
         self._names = tuple(names)
+        self._ring = tuple(ring)
         self._device = device
         self._stream = torch.cuda.Stream(device)
         self._slots: dict[tuple, list[_Slot]] = {}
@@ -276,7 +317,8 @@ class DecodePrograms:
 
             def body():
                 view = dict(slot.leaves)
-                out = verify_body(self._eager, view, inp, self._names)
+                out = verify_body(self._eager, view, inp, self._names,
+                                  self._ring)
                 self._check_in_place(slot, view)
                 return out
             slot.verify[T] = (inp, Program(body, slot.leaves, self._stream,
@@ -284,5 +326,5 @@ class DecodePrograms:
         inp, prog = slot.verify[T]
         inp.copy_(torch.from_numpy(np.ascontiguousarray(
             np.asarray(seq, np.int64).T)), non_blocking=True)
-        logits, snaps = prog.replay()
-        return logits, Snapshots(cache, snaps)
+        logits, snaps, rows = prog.replay()
+        return logits, Snapshots(cache, snaps, rows)

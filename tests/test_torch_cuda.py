@@ -5,14 +5,18 @@ the machine with the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-This file imports no JAX (that machine has none). Tolerances as in
-``test_torch_kernels.py``: attention atol 2e-5 in fp32 and 3e-2 in bf16
-(the kernel sums in another order than torch's einsum; the bf16
+This file imports no JAX (that machine has none). Attention is held
+against the plain version computed in fp32 on the same inputs
+(``_attention_close``): atol 2e-5 in fp32 (the kernel sums in another
+order than torch's einsum); in bf16, 2**-7 of each output row's largest
+|value| and 3e-2 absolute, as ``chip_smoke.py`` holds it (rounding the
+output to bf16 moves a value by up to 2**-8 of itself, and the bf16
 flash-attention kernel also rounds P to bf16 for its second tensor-core
-product, as the bf16 output itself is rounded); CDFs within one
-quantum with equal ids (a GPU ``expf`` and a CPU ``exp`` differ in the
-last bit), invariants exact. ``ssd_intra`` within 2e-5 (fp32) and 1e-4
-(bf16) of the plain version's largest |value| (at least 1): both compute
+product; 3e-2 alone is the size of the output itself over thousands of
+positions). CDFs within one quantum with equal ids (a GPU ``expf`` and
+a CPU ``exp`` differ in the last bit), invariants exact. ``ssd_intra``
+within 2e-5 (fp32) and 1e-4 (bf16) of the plain version's largest
+|value| (at least 1): both compute
 in fp32 from the same inputs, in another order; the bf16 kernel splits
 its fp32 factors into two bf16 parts for the tensor cores, which keeps
 ~16 of their 24 bits.
@@ -26,6 +30,17 @@ x replays (dense and hybrid); and a cache of another length against its
 own capture. Kernels also run at zamba2-7b's shapes (hd 112 and G = 1,
 H = 112 and N = 64, V = 32000).
 
+The int8 decode-attention kernel (``ops.decode_attention_int8``) is held
+against its plain version (dequantize, then attend) at the tolerances
+above, and bit for bit against the bf16 / fp32 kernel on the dequantized
+cache: the two share the geometry and every sum, and the int8 kernel's
+dequantized values are the plain version's. The dense family's int8 and
+sliding-window ring caches (tiny h2o-danube-3-4b: hd 24, a ring of 8)
+join the captured-step checks, and a captured verify round that crosses
+the ring's wrap, rolled back to the inputs each lane kept, equals a
+captured lock-step cache that took only those inputs, bit for bit; so
+does speculative decompression across the wrap.
+
 Training and sampling on the card: a ``pred-tiny`` train step against
 the same step on the CPU (loss within 1e-4, every gradient nonzero and
 within 1e-3 of the leaf's largest |g|, no kernel launched), and
@@ -38,6 +53,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import base as pbase  # noqa: E402
+from repro_torch.configs import h2o_danube_3_4b as ph2o  # noqa: E402
 from repro_torch.configs import mamba2_130m as pmamba  # noqa: E402
 from repro_torch.configs import qwen3_1_7b as pqwen  # noqa: E402
 from repro_torch.configs import zamba2_7b as pzamba  # noqa: E402
@@ -59,6 +75,23 @@ def cuda():
     return torch.device("cuda")
 
 
+def _attention_close(out, want32, dtype):
+    """``out`` against the fp32 plain version ``want32``: 2e-5 absolute
+    in fp32; in bf16 2**-7 of the largest |value| of each row (the last
+    axis), and 3e-2 absolute."""
+    err = (out.float() - want32).abs()
+    if dtype in ("float32", torch.float32):
+        assert err.max().item() <= 2e-5
+    else:
+        row = want32.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        assert (err / row).max().item() <= 2.0 ** -7
+        assert err.max().item() <= 3e-2
+
+
+def _f32(*ts):
+    return [t.float() for t in ts]
+
+
 def _cdf_ok(cdf, precision):
     assert (cdf[:, 0] == 0).all()
     assert (cdf[:, -1] == 1 << precision).all()
@@ -76,10 +109,8 @@ def test_decode_attention_kernel_vs_plain(cuda, B, H, K, S, hd, dtype):
     lens = torch.from_numpy(rng.integers(1, S + 1, B).astype(
         np.int32)).to(cuda)
     out = ops.decode_attention(q, kc, vc, lens)
-    want = ref.decode_attention(q, kc, vc, lens)
-    tol = 2e-5 if dtype == "float32" else 3e-2
-    np.testing.assert_allclose(out.float().cpu().numpy(),
-                               want.float().cpu().numpy(), atol=tol)
+    _attention_close(out, ref.decode_attention(*_f32(q, kc, vc), lens),
+                     dtype)
 
 
 @pytest.mark.cuda
@@ -245,9 +276,8 @@ def test_flash_attention_kernel_vs_plain(cuda, B, H, K, Sq, Sk, hd, causal,
         assert ops.LAUNCHES["flash_attention"] == n0 + 1
         want = ref.flash_attention(q, k, v, causal, window)
         assert out.shape == want.shape and out.dtype == want.dtype
-        tol = 2e-5 if dtype == "float32" else 3e-2
-        np.testing.assert_allclose(out.float().cpu().numpy(),
-                                   want.float().cpu().numpy(), atol=tol)
+        _attention_close(out, ref.flash_attention(*_f32(q, k, v), causal,
+                                                  window), dtype)
 
 
 @pytest.mark.cuda
@@ -261,9 +291,8 @@ def test_flash_attention_group_shared_tiles(cuda, G, S, hd):
                             "bshd")
     for window in (None, 64):
         out = ops.flash_attention(q, k, v, True, window)
-        want = ref.flash_attention(q, k, v, True, window)
-        np.testing.assert_allclose(out.float().cpu().numpy(),
-                                   want.float().cpu().numpy(), atol=3e-2)
+        _attention_close(out, ref.flash_attention(*_f32(q, k, v), True,
+                                                  window), "bfloat16")
 
 
 @pytest.mark.cuda
@@ -539,10 +568,8 @@ def test_decode_attention_masked_slices(cuda, S, hd, dtype):
     lens = torch.tensor([1, per - 1, per, per + 1, 2 * per, S - 1, S, 0],
                         dtype=torch.int32, device=cuda)
     out = ops.decode_attention(q, kc, vc, lens)
-    want = ref.decode_attention(q, kc, vc, lens)
-    tol = 2e-5 if dtype == "float32" else 3e-2
-    np.testing.assert_allclose(out[:7].float().cpu().numpy(),
-                               want[:7].float().cpu().numpy(), atol=tol)
+    want = ref.decode_attention(*_f32(q, kc, vc), lens)
+    _attention_close(out[:7], want[:7], dtype)
     assert torch.equal(out[7], torch.zeros_like(out[7]))
 
 
@@ -558,10 +585,8 @@ def test_decode_attention_widths_groups_and_caches(cuda, G, hd, S, dtype):
     q, kc, vc, lens = _decode_inputs(cuda, 5, G * K, K, S, hd, dtype,
                                      G + hd + S)
     out = ops.decode_attention(q, kc, vc, lens)
-    want = ref.decode_attention(q, kc, vc, lens)
-    tol = 2e-5 if dtype == "float32" else 3e-2
-    np.testing.assert_allclose(out.float().cpu().numpy(),
-                               want.float().cpu().numpy(), atol=tol)
+    _attention_close(out, ref.decode_attention(*_f32(q, kc, vc), lens),
+                     dtype)
 
 
 @pytest.mark.cuda
@@ -581,22 +606,102 @@ def test_decode_attention_misaligned_rows(cuda, G, hd, S, dtype):
     lens = torch.from_numpy(rng.integers(1, S + 1, B).astype(
         np.int32)).to(cuda)
     out = ops.decode_attention(q, kc, vc, lens)
-    want = ref.decode_attention(q, kc, vc, lens)
-    tol = 2e-5 if dtype == "float32" else 3e-2
-    np.testing.assert_allclose(out.float().cpu().numpy(),
-                               want.float().cpu().numpy(), atol=tol)
+    _attention_close(out, ref.decode_attention(*_f32(q, kc, vc), lens),
+                     dtype)
+
+
+def _int8_inputs(cuda, B, H, K, S, hd, dtype, seed):
+    """q in ``dtype``, an int8 cache quantized as the model quantizes it
+    (one fp16 scale per row), lengths."""
+    from repro_torch.models.transformer import _quant_kv
+    q, kc, vc, lens = _decode_inputs(cuda, B, H, K, S, hd, "float32", seed)
+    kq, ks = _quant_kv(kc)
+    vq, vs = _quant_kv(vc)
+    return q.to(_DT[dtype]), kq, vq, ks, vs, lens
+
+
+INT8_SHAPES = DECODE_SHAPES + [(16, 32, 8, 4096, 120),   # h2o-danube-3-4b
+                               (16, 32, 32, 128, 128),   # deepseek-7b
+                               (16, 48, 8, 128, 128),    # qwen3-14b, G 6
+                               (3, 4, 2, 40, 24)]        # hd % 16 == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,K,S,hd", INT8_SHAPES)
+def test_decode_attention_int8_kernel_vs_plain(cuda, B, H, K, S, hd, dtype):
+    q, kq, vq, ks, vs, lens = _int8_inputs(cuda, B, H, K, S, hd, dtype,
+                                           B + H + S + hd)
+    ops.reset_launches()
+    out = ops.decode_attention_int8(q, kq, vq, ks, vs, lens)
+    assert ops.LAUNCHES["decode_attention_int8"] == 1
+    k, v = ref.dequant_kv(kq, ks, q.dtype), ref.dequant_kv(vq, vs, q.dtype)
+    _attention_close(out, ref.decode_attention(*_f32(q, k, v), lens), dtype)
+    assert torch.equal(out, ops.decode_attention(q, k, v, lens))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_int8_strided_layer_views(cuda, dtype):
+    """The model hands over one layer of (L, B, S, K, hd) int8 leaves and
+    (L, B, S, K) scales, and a q row that does not start on 16 bytes
+    takes the scalar q copies."""
+    L, B, H, K, S, hd = 3, 4, 8, 2, 96, 64
+    q, kq, vq, ks, vs, lens = _int8_inputs(cuda, L * B, H, K, S, hd, dtype,
+                                           5)
+    kq, vq = kq.reshape(L, B, S, K, hd), vq.reshape(L, B, S, K, hd)
+    ks, vs = ks.reshape(L, B, S, K), vs.reshape(L, B, S, K)
+    wide = torch.zeros((B, H, hd + 1), dtype=q.dtype, device=cuda)
+    wide[..., :hd] = q[:B]
+    qm = wide[..., :hd]
+    assert not ops._rows_aligned(qm)
+    out = ops.decode_attention_int8(qm, kq[1], vq[1], ks[1], vs[1],
+                                    lens[:B])
+    k = ref.dequant_kv(kq[1], ks[1], q.dtype)
+    v = ref.dequant_kv(vq[1], vs[1], q.dtype)
+    _attention_close(out, ref.decode_attention(*_f32(qm, k, v), lens[:B]),
+                     dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["hd18", "bf16_cache", "f32_scales",
+                                 "scale_shape", "misaligned"])
+def test_decode_attention_int8_wrapper_refuses(cuda, bad):
+    q, kq, vq, ks, vs, lens = _int8_inputs(cuda, 2, 4, 2, 32, 16,
+                                           "bfloat16", 3)
+    if bad == "hd18":
+        q, kq, vq, ks, vs, lens = _int8_inputs(cuda, 2, 4, 2, 32, 18,
+                                               "bfloat16", 3)
+    elif bad == "bf16_cache":
+        kq = kq.to(torch.bfloat16)
+        vq = vq.to(torch.bfloat16)
+    elif bad == "f32_scales":
+        ks = ks.float()
+    elif bad == "scale_shape":
+        ks, vs = ks[:, :16], vs[:, :16]
+    else:
+        wide = torch.zeros((2, 32, 2, 17), dtype=torch.int8, device=cuda)
+        kq = vq = wide[..., 1:]
+    with pytest.raises(ValueError):
+        ops.decode_attention_int8(q, kq, vq, ks, vs, lens)
 
 
 # ------------------------------------------------ captured decode programs
+_RING = dict(d_head=24, sliding_window=8)   # h2o's trait: hd % 16 == 8
 _GRAPH_FAMILIES = (("dense", pqwen.CONFIG, {}), ("ssm", pmamba.CONFIG, {}),
                    # a trailing SSD layer, as zamba2-7b has
-                   ("hybrid", pzamba.CONFIG, {"n_layers": 5}))
+                   ("hybrid", pzamba.CONFIG, {"n_layers": 5}),
+                   ("dense-int8", pqwen.CONFIG, {"kv_cache_dtype": "int8"}),
+                   ("dense-ring", ph2o.CONFIG, _RING),
+                   ("dense-ring-int8", ph2o.CONFIG,
+                    dict(_RING, kv_cache_dtype="int8")))
 GRAPH_CFGS = {f"{fam}-{dt}": pbase.tiny_variant(cfg, **kw).with_(dtype=dt)
               for fam, cfg, kw in _GRAPH_FAMILIES
               for dt in ("float32", "bfloat16")}
 #: decode_attention launches per decode step: one per layer (dense), one
 #: per application of the shared block (hybrid)
 ATTN_PER_STEP = {"dense-bfloat16": GRAPH_CFGS["dense-bfloat16"].n_layers,
+                 "dense-int8-bfloat16": GRAPH_CFGS["dense-bfloat16"].n_layers,
                  "hybrid-bfloat16": 2}
 
 
@@ -641,13 +746,14 @@ def test_captured_step_equals_eager_bit_for_bit(cuda, name):
     steps(3)
     seq = tok(B, T)
     lg, snaps = pred.verify_steps(g, seq)
-    le, esnaps = graphs.verify_body(pred._step_body, e,
-                                    pred._tokens(seq.T),
-                                    model_api.rollback_leaves(cfg))
+    le, esnaps, erows = graphs.verify_body(pred._step_body, e,
+                                           pred._tokens(seq.T),
+                                           model_api.rollback_leaves(cfg),
+                                           model_api.ring_leaves(cfg))
     assert torch.equal(lg, le)
     acc = np.array([0, 1, T, 2])
     pred.rollback(snaps, acc)
-    graphs.rollback(graphs.Snapshots(e, esnaps), acc)
+    graphs.rollback(graphs.Snapshots(e, esnaps, erows), acc)
     _same_cache(g, e)
     steps(4)
     assert graphs.STATS["captures"] >= 2
@@ -658,6 +764,8 @@ def test_captured_step_equals_eager_bit_for_bit(cuda, name):
 def test_launch_counts_are_captured_launches_times_replays(cuda, name):
     cfg = GRAPH_CFGS[name]
     per = ATTN_PER_STEP[name]
+    kern = "decode_attention_int8" if cfg.kv_cache_dtype == "int8" \
+        else "decode_attention"
     pred = ModelPredictor.random_init(cfg, seed=0, device=cuda)
     pred.set_decode_len(16)
     state = pred.begin_decode(2)
@@ -667,19 +775,83 @@ def test_launch_counts_are_captured_launches_times_replays(cuda, name):
     for _ in range(n):
         pred.decode_step(state, np.array([1, 2]))
     prog = state.slot.step
-    assert prog.launches == {"decode_attention": per}
+    assert prog.launches == {kern: per}
     assert graphs.STATS["captures"] == 1
     assert graphs.STATS["step_replays"] == n
     # the eager warm-up before capture launches for real, once
-    assert ops.LAUNCHES["decode_attention"] == per * (n + 1)
+    assert ops.LAUNCHES[kern] == per * (n + 1)
     seq = np.ones((2, 3), np.int64)
     ops.reset_launches()
     for _ in range(2):
         _, snaps = pred.verify_steps(state, seq)
         pred.rollback(snaps, np.array([1, 3]))
     prog = state.slot.verify[3][1]
-    assert prog.launches == {"decode_attention": 3 * per}
-    assert ops.LAUNCHES["decode_attention"] == 3 * per * (2 + 1)
+    assert prog.launches == {kern: 3 * per}
+    assert ops.LAUNCHES[kern] == 3 * per * (2 + 1)
+
+
+def _lockstep(pred, state, toks):
+    out = []
+    for t in range(toks.shape[1]):
+        lg, _ = pred.decode_step(state, toks[:, t])
+        out.append(lg.clone())
+    return (torch.stack(out, 1) if out else None), state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [6, 20])
+@pytest.mark.parametrize("name", ["dense-ring-bfloat16",
+                                  "dense-ring-int8-bfloat16"])
+def test_ring_rollback_after_the_wrap_equals_lockstep(cuda, name, warm):
+    """A captured verify round of 5 steps on a ring of 8 slots, crossing
+    the wrap (warm 6) or wholly past it (warm 20), each lane rolled back
+    to 0, 2 or 5 of its inputs, then 6 more captured steps: each lane's
+    logits and cache leaves equal those of a captured cache that took
+    only the kept inputs, bit for bit."""
+    cfg = GRAPH_CFGS[name]
+    pred = ModelPredictor.random_init(cfg, seed=0, device=cuda)
+    pred.set_decode_len(32)
+    rng = np.random.default_rng(warm)
+    B, T, acc = 3, 5, [0, 2, 5]
+    w, seq, after = (rng.integers(0, cfg.vocab_size - 1, (B, n))
+                     for n in (warm, T, 6))
+    g = _lockstep(pred, pred.begin_decode(B), w)[1]
+    _, snaps = pred.verify_steps(g, seq)
+    pred.rollback(snaps, np.array(acc))
+    kept = {k: v.clone() for k, v in g.items()}
+    got = _lockstep(pred, g, after)[0]
+    del g
+    for b, a in enumerate(acc):
+        r = _lockstep(pred, pred.begin_decode(B), w)[1]
+        r = _lockstep(pred, r, seq[:, :a])[1]
+        for k, v in r.items():
+            lane = (lambda x: x[b]) if k == "pos" else (lambda x: x[:, b])
+            assert torch.equal(lane(kept[k]), lane(v)), (b, k)
+        assert torch.equal(got[b], _lockstep(pred, r, after)[0][b]), b
+        del r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dense-ring-bfloat16",
+                                  "dense-ring-int8-bfloat16"])
+def test_speculative_decompress_across_the_wrap_on_the_card(cuda, name):
+    """Chunks of 40 through a ring of 8, decoded by captured verify rounds
+    whose always-wrong drafts are all rejected: the same tokens as the
+    lock-step decoder's."""
+    from repro_torch.core import LLMCompressor
+    from repro_torch.core.draft import ConstantDraft
+    from repro_torch.data.synthetic import human_like
+    from repro_torch.data.tokenizer import encode
+    pred = ModelPredictor.random_init(GRAPH_CFGS[name], seed=0, device=cuda)
+    toks = encode(human_like("wiki", 160, seed=71))
+    kw = dict(chunk_size=40, topk=8, decode_batch=4)
+    blob, _ = LLMCompressor(pred, **kw).compress(toks)
+    spec = LLMCompressor(pred, draft_k=4, draft=ConstantDraft(pred.bos_id),
+                         **kw)
+    spec._spec_window = 1 << 30      # no fall-through to lock-step
+    graphs.reset_stats()
+    assert np.array_equal(spec.decompress(blob), toks)
+    assert graphs.STATS["verify_replays"] >= 40
 
 
 @pytest.mark.cuda

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (caps torch's threads)
 
 from repro_torch.configs.paper_predictors import PRED_BASE  # noqa: E402
 from repro_torch.core import LLMCompressor, cdf  # noqa: E402

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (caps torch's threads)
 
 from _hypo import given, settings, st  # noqa: E402
 from helpers import GoldenPredictor  # noqa: E402

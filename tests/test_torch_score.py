@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (caps torch's threads)
 
 import jax  # noqa: E402
 
@@ -75,11 +76,16 @@ def test_forward_matches_jax(window):
 
 
 def test_forward_accepts_a_window_that_decode_refuses():
+    """forward takes the sliding window. The decode cache, which refused
+    it until the ring was ported, is now a ring of min(max_len, W) slots
+    (held against JAX in tests/test_torch_cache_variants.py); the vlm
+    image prefix of forward is still refused."""
     _, pcfg = QWEN[16]
     params = schema.init_params(pcfg, seed=0)
     api.forward(params, pcfg, {"tokens": torch.zeros((1, 4), dtype=int)})
-    with pytest.raises(NotImplementedError):
-        api.init_cache(pcfg, 1, 8)
+    assert api.init_cache(pcfg, 1, 8)["k"].shape[2] == 8
+    assert api.init_cache(pcfg, 1, 40)["k"].shape[2] == 16
+    assert api.ring_leaves(pcfg) == ("k", "v")
     with pytest.raises(NotImplementedError):
         api.forward(params, pcfg, {"tokens": torch.zeros((1, 4), dtype=int),
                                    "img_embeds": torch.zeros((1, 2, 64))})

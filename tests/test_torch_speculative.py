@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (caps torch's threads)
 
 from repro_torch.configs import base as pbase  # noqa: E402
 from repro_torch.configs import mamba2_130m as pmamba  # noqa: E402

@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (caps torch's threads)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -336,9 +337,16 @@ def _kernel_calls():
     g = torch.Generator().manual_seed(0)
     r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
     lens = torch.tensor([3, 5], dtype=torch.int32)
+    k8 = torch.randint(-127, 128, (2, 5, 2, 8), generator=g,
+                       dtype=torch.int8)
     return {
         "decode_attention": (lambda q, k, v: ops.decode_attention(
             q, k, v, lens), (r(2, 4, 8), r(2, 5, 2, 8), r(2, 5, 2, 8))),
+        # the int8 rows cannot carry a gradient; q and the scales can
+        "decode_attention_int8": (
+            lambda q, ks, vs: ops.decode_attention_int8(q, k8, k8, ks, vs,
+                                                        lens),
+            (r(2, 4, 8), r(2, 5, 2).abs().half(), r(2, 5, 2).abs().half())),
         "topk_cdf": (lambda x: ops.topk_cdf(x, 4, 16), (r(2, 40),)),
         "cdf_points": (lambda x: ops.cdf_points(x, 16), (r(2, 40),)),
         "flash_attention": (lambda q, k, v: ops.flash_attention(q, k, v),
