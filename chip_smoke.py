@@ -22,8 +22,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    attention widths over a 512-position cache (32 heads, G = 1, hd 112),
    and at phase 17's: h2o-danube-3-4b (32 heads, G = 4, hd 120: the
    CUDA-core path) over 128 and 4,096 positions, deepseek-7b (G = 1, K =
-   32) and qwen3-14b (48 heads, G = 6); its int8 variant
-   ``decode_attention_int8`` at deepseek-7b's shape and h2o's 4,096, held
+   32) and qwen3-14b (48 heads, G = 6), and at phases 19-20's:
+   qwen3-moe-235b-a22b (64 heads over 4: G = 16, the kernel's sixteen q
+   rows of one tensor-core product) and granite-moe-1b-a400m (16/8, hd
+   64); its int8 variant
+   ``decode_attention_int8`` at deepseek-7b's shape, h2o's 4,096 and
+   qwen3-moe's G = 16, held
    also bit for bit against the bf16 kernel on the dequantized cache,
    whose time is printed beside it (no one-call library equivalent).
    ``flash_attention`` at full
@@ -32,9 +36,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    in fp32, at zamba2-7b's (32 heads, G = 1, hd 112; S = 128, 32 and
    160), at h2o's (hd 120, window 4096; S = 128, and 2 lanes of S =
    4,352 as phase 18 scores them), qwen3-14b's (G = 6) and deepseek-7b's
-   (G = 1, K = 32). ``topk_cdf`` at qwen3-1.7b's, mamba2-130m's,
-   ``pred-base``'s, zamba2-7b's and deepseek-7b's (102,400)
-   vocabularies. ``ssd_intra`` at the mamba2-130m
+   (G = 1, K = 32), qwen3-moe's (G = 16: two CTA head groups of 8) and
+   granite-moe's (hd 64). ``topk_cdf`` at qwen3-1.7b's, mamba2-130m's,
+   ``pred-base``'s, zamba2-7b's, deepseek-7b's (102,400) and
+   granite-moe's (49,155: odd, in rows of 49,408) vocabularies. ``ssd_intra`` at the mamba2-130m
    scoring path's shapes
    (H=24, P=64, N=128, bf16): 16 chunks of Q = 128, the probe's Q = 32,
    the prefix's Q = 160, S = 512 as 32 chunks of Q = 256, and the tiny
@@ -54,7 +59,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``serve/graphs.py``). The kernel launch counts and the graph counts
    are reset just before and read just after: each service step must be
    a replay, and a kernel captured in the step must count (replays +
-   warm-up steps) x its launches per step. Then 16 replays held against
+   warm-up steps) x its launches per step. Before the jobs, one decode
+   step with the lanes permuted, and one with lane 0 kept and the other
+   lanes permuted, each bit for bit against the first; after them, the
+   captured step's bound (every weight read once over 3.35 TB/s). Then 16 replays held against
    16 eager steps on a twin cache, bit for bit (logits and every cache
    leaf, two lanes reset half way), the bytes of one lane's snapshot,
    the captured and the eager step timed side by side (host ms, and
@@ -150,26 +158,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    leaf's gradient finite and nonzero at step 1, the loss lower at step
    5 than at step 1; step ms, tokens/s, peak memory and 6 N tokens /
    step time as a share of 989 TFLOP/s.
-15. Phase 3 again for ``zamba2-7b`` (the hybrid family at full width
-   and depth: 81 SSD layers, d=3584, 112 heads x P=64, N=64, and one
-   shared attention + MLP block, 32 heads of hd 112, d_ff 14336, after
-   every 13 of them: 6 applications, then 3 SSD layers; V=32000, bf16,
-   6.75 B parameters from seed 0): shorter jobs (23 chunks), the same
-   checks (``decode_attention`` 6 x (replays + warm-up steps)), timings,
+15. Phase 3 again for ``zamba2-7b`` (the hybrid family at full width,
+   cut to 29 of its 81 SSD layers (``ZAMBA_CUT``: two applications of
+   its shared block, then its 3 trailing SSD layers, as 81 = 6 x 13 +
+   3): d=3584, 112 heads x P=64, N=64, and one shared attention + MLP
+   block, 32 heads of hd 112, d_ff 14336, after every 13 SSD layers;
+   V=32000, bf16, from seed 0): shorter jobs (23 chunks), the same
+   checks (``decode_attention`` 2 x (replays + warm-up steps)), timings,
    phase 10 and the fresh process, and the peak device memory.
-16. Phases 4, 5 and 11 for ``zamba2-7b``: scoring against the decode
-   program held through the fp32 twin (27 GB beside the bf16 model),
-   after a check that the bf16 logits are finite; ``compress(exact=
-   False)``; the routed service with ``flash_attention`` 6 and
-   ``ssd_intra`` 81 per teacher-forced forward; the shared-prefix jobs
+16. Phases 4, 5 and 11 for ``zamba2-7b`` (the same cut): scoring
+   against the decode program held through the fp32 twin, after a check
+   that the bf16 logits are finite; ``compress(exact=False)``; the
+   routed service with ``flash_attention`` 2 and ``ssd_intra`` 29 per
+   teacher-forced forward; the shared-prefix jobs
    (a prefix-cache hit of one ~166 MB lane snapshot; the service's cache
    capacity 256 tokens). Each phase's model is freed before the next;
    the peak memory of each is logged.
-17. ``h2o-danube-3-4b`` (24 layers, d=3840, hd 120, window 4096, 3.96
-   B parameters), ``deepseek-7b`` (30 layers, MHA, V = 102,400, 6.91 B)
-   with its bf16 cache and again with the int8 KV cache, and
-   ``qwen3-14b`` (40 layers, d=5120, 40 heads padded to 48, 15.19 B), at
-   full width and depth, random weights from seed 0, bf16, each freed
+17. ``h2o-danube-3-4b`` (d=3840, hd 120, window 4096), ``deepseek-7b``
+   (MHA, V = 102,400) with its bf16 cache and again with the int8 KV
+   cache, and ``qwen3-14b`` (d=5120, 40 heads padded to 48), at full
+   width, each cut to ``DENSE_CUT`` = 8 layers (of 24, 30 and 40: every
+   trait these phases hold is a layer's), random weights from seed 0,
+   bf16, each freed
    before the next: phase 3's service round trip on 23 chunks (launch
    counts; ``decode_attention_int8`` for the int8 cache), captured
    against eager, the captured step's host and device ms, idle share and
@@ -177,7 +187,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (scoring to SCORE_TOL, not for the int8 twin; the shared-prefix
    jobs), peak memory at ``init_params`` and per phase; then one fresh
    process decompresses all four configs' containers.
-18. Two lanes of ``h2o-danube-3-4b`` past its window: 4,352 positions
+18. Two lanes of ``h2o-danube-3-4b`` (cut to 8 layers, as in phase 17)
+   past its window: 4,352 positions
    through the captured step (a ring of 4,096 slots that wraps), their
    logits held to SCORE_TOL against windowed teacher-forced scoring of
    the same tokens (one ``forward`` through the flash kernel, window
@@ -187,13 +198,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    fp32 twin decodes the same positions and is held to SCORE_TOL_FP32
    against its windowed scoring, and scoring with no window (a ring that
    evicts nothing) must lie outside that limit past the window.
+19. ``granite-moe-1b-a400m`` (the moe family at full width and depth:
+   24 layers, d=1024, 16/8 heads of hd 64, 32 experts of d_ff 512, top
+   8, V = 49,155, 1.39 B parameters from seed 0, bf16): phase 3's
+   service round trip on 23 chunks (the lane permutations bit for bit),
+   captured against eager, the captured step's host and device ms, idle
+   share and kernels against its bound (every expert's weights read),
+   phase 10's speculative decompression, then phases 4 and 11 (scoring
+   against the decode program held through the fp32 twin, as for
+   mamba2-130m: see ``SCORE_TOL_FP32``; the shared-prefix jobs), with the
+   peak memory of each.
+20. The same for ``qwen3-moe-235b-a22b`` at full width (d=4096, 64/4
+   heads: G = 16, qk-norm, 128 experts of d_ff 1536, top 8, V =
+   151,936), cut to 4 of its 94 layers (11.2 B of its 235 B parameters;
+   the whole model needs expert parallelism over several cards); then
+   one fresh process decompresses both moe configs' containers.
 12. Last, one JSON line describing every kernel (its ``launches`` from
    the main path that runs it: phase 3 for ``decode_attention`` and
    ``topk_cdf``, 6 for ``cdf_points``, 5 for ``flash_attention``, 9 for
    ``ssd_intra``, 17 (deepseek-7b's int8 service) for
    ``decode_attention_int8``; phase 7 holds the CLI's own counts;
    ``launches_zamba2`` from phases 15 and 16, ``launches_phase17`` per
-   config and ``launches_phase18``), then the result line ``{"ok":
+   config, ``launches_phase18`` and ``launches_moe`` per phase 19-20
+   config), then the result line ``{"ok":
    true, "device": {...}}`` as the last line of stdout. A ``[time]``
    line gives each phase's wall seconds.
 
@@ -689,17 +716,22 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
     import torch
     from repro_torch.configs.base import tiny_variant
     from repro_torch.configs.deepseek_7b import CONFIG as DEEP
+    from repro_torch.configs.granite_moe_1b_a400m import CONFIG as GRANITE
     from repro_torch.configs.h2o_danube_3_4b import CONFIG as H2O
     from repro_torch.configs.mamba2_130m import CONFIG as MAMBA
     from repro_torch.configs.paper_predictors import PRED_BASE
     from repro_torch.configs.qwen3_14b import CONFIG as Q14
     from repro_torch.configs.qwen3_1_7b import CONFIG as QWEN
+    from repro_torch.configs.qwen3_moe_235b_a22b import CONFIG as QMOE
     from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA
     res = {}
     # phase 17's configs: (heads, kv-heads, hd) as the kernels see them
     h2o = (H2O.padded_heads, H2O.padded_kv_heads, H2O.head_dim)  # G 4, hd 120
     deep = (DEEP.padded_heads, DEEP.padded_kv_heads, DEEP.head_dim)  # G 1
     q14 = (Q14.padded_heads, Q14.padded_kv_heads, Q14.head_dim)  # G 6
+    # phases 19-20's: granite-moe (16/8, hd 64), qwen3-moe (64/4: G 16)
+    gmoe = (GRANITE.padded_heads, GRANITE.padded_kv_heads, GRANITE.head_dim)
+    qmoe = (QMOE.padded_heads, QMOE.padded_kv_heads, QMOE.head_dim)
     W = H2O.sliding_window
     S = 128                                   # chunk 128, no context
     H, K, hd = QWEN.n_heads, QWEN.n_kv_heads, QWEN.head_dim
@@ -733,6 +765,13 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
          ((16,) + h2o + (W,), bf, gen)),
         ("decode_attention@qwen3-14b", check_attention,     # kG = 8, G 6
          ((16,) + q14 + (S,), bf, gen)),
+        # sixteen q rows of one m16n8k16 product (kG = 16)
+        ("decode_attention@qwen3-moe", check_attention,
+         ((16,) + qmoe + (S,), bf, gen)),
+        ("decode_attention@granite-moe", check_attention,
+         ((16,) + gmoe + (S,), bf, gen)),
+        ("decode_attention_int8@qwen3-moe", check_attention_int8,
+         ((16,) + qmoe + (S,), bf, gen)),
         ("topk_cdf", check_topk,
          (16, QWEN.vocab_size, torch.bfloat16, gen, 48, 16,
           QWEN.padded_vocab)),
@@ -744,6 +783,11 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
          (16, ZAMBA.vocab_size, torch.bfloat16, gen)),
         ("topk_cdf@deepseek", check_topk,
          (16, DEEP.vocab_size, torch.bfloat16, gen)),
+        # V = 49,155 (odd) in rows of 49,408: slices past the first start
+        # unaligned
+        ("topk_cdf@granite-moe", check_topk,
+         (16, GRANITE.vocab_size, torch.bfloat16, gen, 48, 16,
+          GRANITE.padded_vocab)),
         ("cdf_points", check_cdf_points,
          (16, QWEN.vocab_size, torch.bfloat16, gen, 18, QWEN.padded_vocab)),
         ("cdf_points@pred-base", check_cdf_points,
@@ -778,6 +822,11 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
          (16,) + q14[:2] + (S, q14[2], bf, gen)),
         ("flash_attention@deepseek", check_flash,
          (16,) + deep[:2] + (S, deep[2], bf, gen)),
+        # G 16 in two CTA head groups of 8 (flash_geometry)
+        ("flash_attention@qwen3-moe", check_flash,
+         (16,) + qmoe[:2] + (S, qmoe[2], bf, gen)),
+        ("flash_attention@granite-moe", check_flash,
+         (16,) + gmoe[:2] + (S, gmoe[2], bf, gen)),
         ("ssd_intra", check_ssd, (16, S) + ssm + (bf, gen)),
         ("ssd_intra@probe", check_ssd, (probe_chunks, 32) + ssm + (bf, gen)),
         ("ssd_intra@prefix32", check_ssd, (16, S + 32) + ssm + (bf, gen)),
@@ -825,11 +874,15 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
 def config(spec: str):
     """A config by registry name; ``NAME+int8`` is that config with the
     int8 KV cache (``kv_cache_dtype="int8"``, as the JAX package reaches
-    it: through the config)."""
+    it: through the config); ``...@L`` cuts its depth to L layers at full
+    width (every leaf drawn from the seed at that depth)."""
     from repro_torch.configs.registry import get_config
+    spec, _, depth = spec.partition("@")
     name, _, kv = spec.partition("+")
     cfg = get_config(name)
-    return cfg.with_(kv_cache_dtype="int8") if kv == "int8" else cfg
+    if kv == "int8":
+        cfg = cfg.with_(kv_cache_dtype="int8")
+    return cfg.with_(n_layers=int(depth)) if depth else cfg
 
 
 def attn_kernel(cfg) -> str:
@@ -839,8 +892,12 @@ def attn_kernel(cfg) -> str:
 
 
 def label(cfg) -> str:
-    """A config's name, with ``+int8`` for the int8 KV cache."""
-    return cfg.name + ("+int8" if cfg.kv_cache_dtype == "int8" else "")
+    """A config's name, with ``+int8`` for the int8 KV cache and ``@L``
+    for a depth cut to L layers."""
+    from repro_torch.configs.registry import get_config
+    cut = cfg.n_layers != get_config(cfg.name).n_layers
+    return cfg.name + ("+int8" if cfg.kv_cache_dtype == "int8" else "") \
+        + (f"@{cfg.n_layers}" if cut else "")
 
 
 def decode_kernels(cfg) -> tuple:
@@ -852,9 +909,10 @@ def decode_kernels(cfg) -> tuple:
 
 def attention_blocks(cfg) -> int:
     """Attention blocks a decode step or a teacher-forced forward runs:
-    every layer of the dense family, none of the ssm family, and one per
-    application of the hybrid's shared block (zamba2-7b: 81 // 13 = 6)."""
-    return {"dense": cfg.n_layers, "ssm": 0,
+    every layer of the dense and moe families, none of the ssm family,
+    and one per application of the hybrid's shared block (zamba2-7b: 81
+    // 13 = 6; cut to 29 layers, 2)."""
+    return {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
             "hybrid": cfg.n_layers // max(1, cfg.hybrid_ssm_per_block)}[
         cfg.family]
 
@@ -947,6 +1005,30 @@ SHORT_JOBS = (("wiki", 700, 1), ("code", 500, 2), ("web", 900, 3),
               ("math", 600, 4))
 
 
+def weight_bytes(pred) -> int:
+    """Bytes of every weight of a predictor."""
+    return sum(t.numel() * t.element_size() for t in _leaves(pred.params))
+
+
+def state_bytes(cfg) -> int:
+    """Bytes of SSM state a decode step at B = 16 reads and writes (fp32;
+    none outside the ssm and hybrid families)."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return 0
+    return 2 * 16 * cfg.n_layers * cfg.ssm_heads * cfg.ssm_headdim \
+        * cfg.ssm_state * 4
+
+
+def step_bound_ms(pred) -> float:
+    """Least ms of a decode step at B = 16: every weight read once over
+    3.35 TB/s (a moe step's 16 x top-k slots reach every expert, and the
+    batched expert product reads all E experts' weights), and an SSM's
+    state read and written. The embedding table is counted whole, as
+    PERF.md's earlier bounds count it."""
+    return (weight_bytes(pred) + state_bytes(pred.cfg)) / HBM_BYTES_PER_S \
+        * 1e3
+
+
 def _free_card() -> None:
     """Let go of what only reference cycles still hold (finished services
     and their jobs keep a predictor's caches), then return the cached
@@ -997,6 +1079,7 @@ def phase_service(arch: str, sizes=SERVICE_JOBS, baselines: bool = True,
         f"params in {time.perf_counter() - t0:.1f} s")
     init_peak = _peak(f"{arch} init_params (each leaf drawn in fp32, then "
                       f"cast)")
+    step_bound = step_bound_ms(pred)
     graphs.reset_stats()
 
     # cuBLAS + kernels at a fixed batch: a lane's logits must not depend
@@ -1011,7 +1094,16 @@ def phase_service(arch: str, sizes=SERVICE_JOBS, baselines: bool = True,
     lb, _ = pred.decode_step(pred.begin_decode(B), toks[perm])
     if not torch.equal(la[torch.as_tensor(perm, device="cuda")], lb):
         fail("decode-step logits change with the lane a sequence runs on")
-    log("[service] lane permutation: decode-step logits bit-identical")
+    # lane 0 keeps its token while the other lanes' tokens are permuted
+    # among them (in the moe family the permutations move where each
+    # token lands in its experts' buffers)
+    rest = np.concatenate([[0], 1 + np.roll(np.arange(B - 1), 3)])
+    lc, _ = pred.decode_step(pred.begin_decode(B), toks[rest])
+    if not torch.equal(la[0], lc[0]):
+        fail("lane 0's decode-step logits change when the other lanes' "
+             "tokens are permuted")
+    log("[service] lane permutation: decode-step logits bit-identical; "
+        "lane 0's with the other lanes permuted too")
     log(f"[service] digests: weights {_digest(_leaves(pred.params))}, "
         f"first decode-step logits {_digest([la])}")
     log(f"[graph] {arch}: first capture of the step (B=16, S=128) "
@@ -1084,6 +1176,12 @@ def phase_service(arch: str, sizes=SERVICE_JOBS, baselines: bool = True,
             f"({rep.total_s * 1e3:.1f} ms, coverage {rep.coverage:.1%}): "
             + ", ".join(f"{k} {v:.1%}" for k, v in sorted(
                 phases[kind]["share"].items()) if v > 0))
+    log(f"[graph] {label(cfg)} captured step bound: "
+        f"{weight_bytes(pred) / 1e9:.3f} GB of weights and "
+        f"{state_bytes(cfg) / 1e9:.3f} GB of SSM state over 3.35 TB/s = "
+        f"{step_bound:.3f} ms; the captured step's device time is "
+        + ("not measured" if steps["captured"]["device_ms"] is None else
+           f"{steps['captured']['device_ms'] / step_bound:.2f} x it"))
     out = dict(tokens=n_tok, bytes_in=n_tok,
                bytes_out=sum(len(b) for b in blobs),
                compress_s=t_c, decompress_s=t_d,
@@ -1092,7 +1190,7 @@ def phase_service(arch: str, sizes=SERVICE_JOBS, baselines: bool = True,
                service_step_ms=(t_c + t_d) / (steps_c + steps_d) * 1e3,
                steps=steps, graph_stats=stats, launches=launches,
                phases=phases, snapshot_bytes=snap_bytes,
-               init_peak_bytes=init_peak)
+               init_peak_bytes=init_peak, step_bound_ms=step_bound)
     log(f"[service] {len(texts)} jobs, {n_tok} tokens: compress "
         f"{t_c:.2f} s ({n_tok / t_c:.0f} tok/s, {steps_c} steps), "
         f"decompress {t_d:.2f} s ({n_tok / t_d:.0f} tok/s, {steps_d} steps)"
@@ -1328,7 +1426,25 @@ SCORE_TOL = 2.0 ** -4
 # and max, is held to twice the distance bf16 rounding alone puts
 # between the decode program and its fp32 twin (same seed): each bf16
 # program carries a rounding error of about that size.
+# The moe family is held through its fp32 twin too, for another reason:
+# a router near-tie. Where the two programs' roundings break a near-tie
+# among a token's k-th and (k+1)-th experts differently, the token goes
+# to another expert: a jump, not a rounding difference, and it reaches
+# the lane's later positions through attention. In bf16 the router's
+# logits are rounded, so such ties are common among 32-128 experts
+# (qwen3-moe cut to 4 layers, on an H100: max |dlogit| 0.512 against
+# SCORE_TOL's 0.338, mean 0.013); in fp32 they are rare but not absent
+# (granite-moe's twin: one position at 0.067, mean 2.2e-5). So the fp32
+# twin is held routing by routing (``_moe_twin_check``): the two
+# programs' router decisions are recorded; every position before a
+# lane's first differing decision is held to SCORE_TOL_FP32, and each
+# lane's first differing decision must be a near-tie that rounding alone
+# breaks (the two programs' router logits there within SCORE_TOL_FP32 of
+# their scale).
 SCORE_TOL_FP32 = 2.0 ** -10
+#: positions of an fp32 moe twin's check that lie before their lane's
+#: first router difference, at least (else the check would hold little)
+MOE_CLEAN_SHARE = 0.5
 
 
 def _compare_logits(what: str, scored, decoded, tol=SCORE_TOL,
@@ -1458,9 +1574,10 @@ def phase_scoring(pred) -> dict:
 
 def _compare_with_fp32_twin(pred, chunks, prefix):
     """Scoring against the decode program for a model whose bf16 programs
-    drift apart (see SCORE_TOL_FP32): the fp32 twin (same config and
-    seed in float32; the fp32 ``ssd_intra`` kernel) held to
-    SCORE_TOL_FP32, then the bf16 model held against its twin."""
+    drift apart, or whose bf16 router ties break apart (see
+    SCORE_TOL_FP32): the fp32 twin (same config and seed in float32; the
+    fp32 kernels) held to SCORE_TOL_FP32, then the bf16 model held
+    against its twin."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import ModelPredictor
@@ -1468,18 +1585,120 @@ def _compare_with_fp32_twin(pred, chunks, prefix):
                                       seed=0, device="cuda")
     out = []
     for what, pre in (("fresh context", None), ("32-token prefix", prefix)):
-        ops.reset_launches()
-        s32 = twin.score_chunks(chunks, prefix=pre)
-        torch.cuda.synchronize()
-        _check_score_launches(twin.cfg, ops.LAUNCHES, "fp32 score_chunks")
-        d32 = _decode_logits(twin, chunks, pre)
-        _compare_logits(f"fp32 {what}", s32, d32, tol=SCORE_TOL_FP32)
+        if twin.cfg.family == "moe":
+            d32 = _moe_twin_check(twin, chunks, pre, f"fp32 {what}")
+        else:
+            ops.reset_launches()
+            s32 = twin.score_chunks(chunks, prefix=pre)
+            torch.cuda.synchronize()
+            _check_score_launches(twin.cfg, ops.LAUNCHES,
+                                  "fp32 score_chunks")
+            d32 = _decode_logits(twin, chunks, pre)
+            _compare_logits(f"fp32 {what}", s32, d32, tol=SCORE_TOL_FP32)
         out.append(_compare_logits(
             what, pred.score_chunks(chunks, prefix=pre),
             _decode_logits(pred, chunks, pre), fp32_twin=d32))
     del twin
     _free_card()
     return out
+
+
+def _with_routes(fn):
+    """``fn()`` with the moe router's decisions recorded: (its result,
+    [(router logits (T, E) fp32, experts (T, k))] per ``moe.route`` call,
+    in call order). The logits are the router's product computed once
+    more on the same input (the same shapes: the same bits)."""
+    from repro_torch.models import moe
+    store, route = [], moe.route
+
+    def recording(x_flat, router_w, top_k):
+        out = route(x_flat, router_w, top_k)
+        store.append(((x_flat @ router_w).float(), out[1]))
+        return out
+    moe.route = recording
+    try:
+        return fn(), store
+    finally:
+        moe.route = route
+
+
+def _moe_twin_check(twin, chunks, prefix, what: str):
+    """fp32 moe scoring against the fp32 decode program, router decision
+    by router decision (see SCORE_TOL_FP32): scoring and the eager decode
+    program (bit-identical to the captured step, phases 3 and 19-20) run
+    with their routes recorded over the same N inputs [BOS, prefix,
+    chunk[:-1]]. A lane's positions before its first differing expert
+    set (any layer) are held to SCORE_TOL_FP32 of max |logit|, and that
+    first difference must be a rounding-size near-tie: the two programs'
+    router logits there within SCORE_TOL_FP32 of the decode program's
+    largest |router logit|. At least MOE_CLEAN_SHARE of the scored
+    positions must lie before their lane's first difference. Returns the
+    decode program's logits of the chunk positions."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    B, C = chunks.shape
+    L = twin.cfg.n_layers
+    inp = np.concatenate([np.full((B, 1), twin.bos_id)]
+                         + ([] if prefix is None else [prefix])
+                         + [chunks[:, :-1]], 1)
+    N = inp.shape[1]
+    ops.reset_launches()
+    scored, rs = _with_routes(lambda: twin.score_chunks(chunks,
+                                                        prefix=prefix))
+    torch.cuda.synchronize()
+    _check_score_launches(twin.cfg, ops.LAUNCHES, "fp32 score_chunks")
+    cache = twin._init_cache(B, N)
+    decoded, rd = _with_routes(lambda: torch.stack(
+        [twin._eager_decode_step(cache, inp[:, t])[0].clone()
+         for t in range(N)], 1))
+    if len(rs) % L or len(rd) != N * L:
+        fail(f"{what}: {len(rs)} and {len(rd)} router calls for {L} "
+             f"layers and {N} steps")
+    per = len(rs) // L                  # dispatch groups a layer
+
+    def stacked(calls, i):              # scoring: layer-major, groups
+        return torch.stack([torch.cat([c[i] for c in calls[l * per:
+                                                           (l + 1) * per]])
+                            for l in range(L)]).view(L, B, N, -1)
+    ls, es = stacked(rs, 0), stacked(rs, 1)
+    # decode: step-major, a layer a call, (B, .) each
+    ld = torch.stack([c[0] for c in rd]).view(N, L, B, -1).permute(1, 2, 0,
+                                                                   3)
+    ed = torch.stack([c[1] for c in rd]).view(N, L, B, -1).permute(1, 2, 0,
+                                                                   3)
+    flip = (es.sort(-1).values != ed.sort(-1).values).any(-1)   # (L, B, N)
+    lane_flip = flip.any(0)                                      # (B, N)
+    clean = lane_flip.cumsum(-1) == 0    # before the lane's first flip
+    router_scale = ld.abs().max().item()
+    first = []
+    for b in range(B):
+        if bool(lane_flip[b].any()):
+            t = int(lane_flip[b].float().argmax().item())
+            layer = int(flip[:, b, t].float().argmax().item())
+            first.append((ls[layer, b, t] - ld[layer, b, t]).abs().max()
+                         .item())
+    dec = decoded[:, N - C:]
+    keep = clean[:, N - C:]
+    diff = (scored.float() - dec.float()).abs().amax(-1)         # (B, C)
+    scale = dec.abs().max().item()
+    held = diff[keep].max().item() if bool(keep.any()) else 0.0
+    share = keep.float().mean().item()
+    worst = max(first, default=0.0)
+    log(f"[score] {what}: {int(flip.sum())} of {flip.numel()} router "
+        f"decisions differ between scoring and the decode program, "
+        f"{len(first)} of {B} lanes; first differences at router-logit "
+        f"distance <= {worst:.3g} (limit {SCORE_TOL_FP32 * router_scale:.3g}"
+        f"); the {share:.1%} of positions before them: max |dlogit| "
+        f"{held:.4g} (tol {SCORE_TOL_FP32} x max |logit| {scale:.4g}); all "
+        f"positions: max {diff.max().item():.4g}, mean "
+        f"{(scored.float() - dec.float()).abs().mean().item():.3g}")
+    if held > SCORE_TOL_FP32 * scale or worst > SCORE_TOL_FP32 * \
+            router_scale or share < MOE_CLEAN_SHARE:
+        fail(f"{what}: scoring disagrees with the decode program beyond "
+             f"router near-ties (clean max {held}, first router distance "
+             f"{worst}, clean share {share})")
+    return dec
 
 
 # ----------------------------------------------------------- phase 5
@@ -2311,9 +2530,10 @@ def phase_model_paths(arch: str, *, scoring: bool = True,
     zamba2-7b; phase 17 for h2o-danube-3-4b, deepseek-7b and qwen3-14b,
     without the routed service): ``score_chunks`` against the decode
     program (fresh and under a 32-token prefix: SCORE_TOL for the dense
-    family, the fp32 twin for the hybrid), ``compress(exact=False)``, the
-    routed service, and two shared-prefix jobs (a prefix-cache hit), with
-    the peak device memory of each."""
+    family, the fp32 twin for the hybrid and moe families),
+    ``compress(exact=False)``, the routed service, and two shared-prefix
+    jobs (a prefix-cache hit), with the peak device memory of each
+    (phases 19-20 for the moe configs, without the routed service)."""
     import torch
     from repro_torch.serve.engine import ModelPredictor
     _free_card()
@@ -2337,16 +2557,25 @@ def phase_model_paths(arch: str, *, scoring: bool = True,
 
 
 # ---------------------------------------------------------- phase 17
+#: the depth cuts of phases 15-18 (the 1200 s budget; full width, each
+#: config's trait kept): zamba2-7b's 81 SSD layers to 29 (two
+#: applications of its shared block, then its 3 trailing SSD layers, as
+#: 81 = 6 x 13 + 3), and the dense configs of phases 17-18 to 8 layers
+#: (h2o's window and ring, deepseek's MHA and int8 twin, qwen3-14b's 48
+#: padded heads and qk-norm are per layer)
+ZAMBA_CUT = "zamba2-7b@29"
+DENSE_CUT = 8
 #: phase 17's configs: the dense ones the port gained with the int8 and
 #: ring caches, and deepseek-7b (MHA: the most cache bytes per token)
 #: once more with the int8 cache
-DENSE_17 = ("h2o-danube-3-4b", "deepseek-7b", "deepseek-7b+int8",
-            "qwen3-14b")
+DENSE_17 = tuple(f"{a}@{DENSE_CUT}" for a in (
+    "h2o-danube-3-4b", "deepseek-7b", "deepseek-7b+int8", "qwen3-14b"))
 
 
 def phase_dense_configs() -> dict:
-    """Phase 17: each of DENSE_17 at full width and depth (random weights
-    from seed 0, bf16) through the service at 16 slots (23 chunks),
+    """Phase 17: each of DENSE_17 at full width, cut to DENSE_CUT layers
+    (random weights from seed 0, bf16) through the service at 16 slots
+    (23 chunks),
     captured against eager steps, the captured step's times, speculative
     decompression and the shared-prefix jobs; scoring against the decode
     program (not for the int8 twin, whose forward is deepseek-7b's). Each
@@ -2400,7 +2629,7 @@ def phase_window() -> dict:
     from repro_torch.kernels import ops
     from repro_torch.serve import graphs
     from repro_torch.serve.engine import ModelPredictor
-    arch = "h2o-danube-3-4b"
+    arch = f"h2o-danube-3-4b@{DENSE_CUT}"
     cfg = config(arch)
     W, B = cfg.sliding_window, 2
     N = W + 256
@@ -2549,6 +2778,38 @@ def _window_fp32_twin(cfg, inp, toks) -> dict:
                 control_max_abs_diff=control, limit=limit, peak_bytes=peak)
 
 
+# ------------------------------------------------------- phases 19-20
+#: the moe family: granite-moe-1b-a400m at full width and depth (phase
+#: 19), qwen3-moe-235b-a22b at full width cut to 4 of its 94 layers
+#: (phase 20: ~470 GB of bf16 whole, 22.4 GB at 4 layers)
+MOE_CONFIGS = (("19", "granite-moe-1b-a400m"), ("20", "qwen3-moe-235b-a22b@4"))
+
+
+def phase_moe_configs() -> dict:
+    """Phases 19-20: each of MOE_CONFIGS (random weights from seed 0,
+    bf16; dropless dispatch, the experts as batched products) through
+    the service at 16 slots (23 chunks; lane permutations bit for bit,
+    lane 0 among them), captured against eager steps, the captured
+    step's times against its bound, speculative decompression; then
+    scoring against the decode program (through the fp32 twin:
+    SCORE_TOL_FP32) and the shared-prefix jobs, with the peak memory of
+    each part. Each model is freed before
+    the next; then one fresh process decompresses both configs'
+    containers."""
+    out, fresh = {}, {}
+    for phase, arch in MOE_CONFIGS:
+        t0 = time.perf_counter()
+        svc = phase_service(arch, SHORT_JOBS, baselines=False, fresh=False)
+        fresh[arch] = svc.pop("fresh")
+        paths = phase_model_paths(arch, routed=False)
+        out[arch] = dict(svc, **paths)
+        log(f"[time] {phase} {arch}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fresh_decompress(fresh)
+    log(f"[time] 19-20 fresh process: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the same synthetic texts in every run and in every child
@@ -2634,11 +2895,12 @@ def main() -> int:
     routed_ssm = timed("9 mamba2-130m paths", paths_of, "mamba2-130m")
     timed("13 paper", phase_paper)
     timed("14 qwen3-1.7b training", phase_train_full_width)
-    svc_h = timed("15 zamba2-7b service", phase_service, "zamba2-7b",
+    svc_h = timed("15 zamba2-7b service", phase_service, ZAMBA_CUT,
                   SHORT_JOBS)
-    routed_h = timed("16 zamba2-7b paths", phase_model_paths, "zamba2-7b")
+    routed_h = timed("16 zamba2-7b paths", phase_model_paths, ZAMBA_CUT)
     dense = timed("17 dense configs", phase_dense_configs)
     window = timed("18 past the window", phase_window)
+    moe = timed("19+20 moe configs", phase_moe_configs)
 
     paths = {"cdf_points": full, "flash_attention": routed,
              "ssd_intra": routed_ssm}
@@ -2647,7 +2909,7 @@ def main() -> int:
     hybrid_paths = {"flash_attention": routed_h, "ssd_intra": routed_h}
     # the int8 variant's main path: deepseek-7b's service with the int8
     # cache (phase 17)
-    paths["decode_attention_int8"] = dense["deepseek-7b+int8"]
+    paths["decode_attention_int8"] = dense[f"deepseek-7b+int8@{DENSE_CUT}"]
     rows = []
     for name, (src, replaces) in SOURCES.items():
         r = kern[name]
@@ -2661,6 +2923,9 @@ def main() -> int:
                "launches_phase17": {a: int(d["launches"][name])
                                     for a, d in dense.items()},
                "launches_phase18": int(window["launches"][name]),
+               # phases 19-20's service round trips (the moe family)
+               "launches_moe": {a: int(d["launches"][name])
+                                for a, d in moe.items()},
                "max_abs_err": r["max_abs_err"], "tol": r["tol"],
                # attention: error over its row's max |value| (the bf16
                # limit), at every shape, and a planted skipped tile's

@@ -1,7 +1,9 @@
 """Config registry of the PyTorch port: the byte-level paper predictors
 and the architectures the port runs so far (dense ``qwen3-1.7b``,
 ``h2o-danube-3-4b``, ``deepseek-7b`` and ``qwen3-14b``, ssm
-``mamba2-130m``, hybrid ``zamba2-7b``). The int8 KV cache is a field of
+``mamba2-130m``, hybrid ``zamba2-7b``, moe ``granite-moe-1b-a400m`` and
+``qwen3-moe-235b-a22b``; the vlm and encdec families are not ported
+yet). The int8 KV cache is a field of
 the config, as in the JAX package: ``get_config("deepseek-7b").with_(
 kv_cache_dtype="int8")``.
 
@@ -22,6 +24,8 @@ ARCH_IDS = [
     "qwen3_14b",
     "mamba2_130m",
     "zamba2_7b",
+    "granite_moe_1b_a400m",
+    "qwen3_moe_235b_a22b",
 ]
 
 PREDICTORS = {c.name: c for c in (PRED_TINY, PRED_SMALL, PRED_BASE,

@@ -33,7 +33,10 @@
 //      tensor-core product (`mma.sync` m16n8k16, fp32 accumulate; the
 //      products of bf16 values are exact, as in the fp32 reference) of
 //      the group's q (the A rows; rows past G are zero) with eight key
-//      rows. Otherwise a group of lanes holds a key row as 16-byte
+//      rows. Up to G = 8 the upper eight A rows are zero registers; a
+//      group of 9-16 heads (qwen3-moe-235b-a22b: 64 q-heads over 4
+//      kv-heads) fills all sixteen, so one instruction serves the whole
+//      group. Otherwise a group of lanes holds a key row as 16-byte
 //      vectors, each lane sums its products in order, and a xor butterfly
 //      finishes the dot product.
 //   3. One online-softmax state (m, l) per q-head: a warp per head takes
@@ -85,31 +88,41 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;           // positions per tile (one per lane)
-constexpr int kMaxG = 8;
+constexpr int kMaxG = 16;
 constexpr int kMaxHd = 256;
 constexpr int kMaxClusters = 8;
 constexpr int kChan = kMaxHd / kThreads;    // output channels per thread
 constexpr int kRowPad = 16;         // bytes past each q, K, V row (banks)
 constexpr int kI8Words = 8;         // int8 words a thread has in flight
+// A group of more than 8 heads takes q rows of at most this many bytes
+// (hd 256 in bf16, 128 in fp32): sixteen rows' partial outputs from eight
+// CTAs beside two K/V tiles must fit a CTA's 227 KB of shared memory.
+constexpr int kWideRowBytes = 512;
 #ifdef REPRO_KV_INT8
 constexpr bool kInt8Cache = true;   // this library's caches are int8
 #else
 constexpr bool kInt8Cache = false;
 #endif
 
+// Head rows a CTA reserves (q rows, score rows, softmax states) for kG
+// heads computed: 8 up to kG = 8 (the tensor-core path reads eight q rows
+// whatever G is), 16 above.
+__host__ __device__ constexpr int head_rows(int kG) { return kG > 8 ? 16 : 8; }
+
 // Shared-memory layout of one CTA (bytes), the same on host and device.
-// krow: a q or K/V row in bytes, padded.
+// krow: a q or K/V row in bytes, padded; R: head_rows of the kernel.
 struct Layout {
   int q, kv, s, alpha, pm, pl, fac, pacc, total;
-  __host__ __device__ Layout(int krow, int G, int nbuf, int C, int hd) {
-    q = 0;                                      // [kMaxG][krow]
-    kv = q + kMaxG * krow;                      // [nbuf][2][kTile][krow]
-    s = kv + nbuf * 2 * kTile * krow;           // [kMaxG][kTile] float
-    alpha = s + kMaxG * kTile * 4;              // [kMaxG] float
-    pm = alpha + kMaxG * 4;                     // [C][kMaxG] float
-    pl = pm + C * kMaxG * 4;                    // [C][kMaxG] float
-    fac = pl + C * kMaxG * 4;                   // [C][kMaxG] float
-    pacc = fac + C * kMaxG * 4;                 // [C][G][hd] float
+  __host__ __device__ Layout(int krow, int R, int G, int nbuf, int C,
+                             int hd) {
+    q = 0;                                      // [R][krow]
+    kv = q + R * krow;                          // [nbuf][2][kTile][krow]
+    s = kv + nbuf * 2 * kTile * krow;           // [R][kTile] float
+    alpha = s + R * kTile * 4;                  // [R] float
+    pm = alpha + R * 4;                         // [C][R] float
+    pl = pm + C * R * 4;                        // [C][R] float
+    fac = pl + C * R * 4;                       // [C][R] float
+    pacc = fac + C * R * 4;                     // [C][G][hd] float
     total = pacc + C * G * hd * 4;
   }
 };
@@ -247,9 +260,9 @@ __device__ __forceinline__ void fill_tile(
                        krow);
 }
 
-// kG: q-heads computed per group (G rounded up; heads past G are zero
-// rows whose results are dropped), so that every loop over heads is
-// unrolled. kMma: tensor-core scores (bf16, hd % 16 == 0, 16-byte rows);
+// kG: q-heads computed per group (G rounded up to 1, 2, 4, 8 or 16;
+// heads past G are zero rows whose results are dropped), so that every
+// loop over heads is unrolled. kMma: tensor-core scores (bf16, hd % 16 == 0, 16-byte rows);
 // otherwise kVPL 16-byte vectors of a key row per lane. kVec: 16-byte
 // copies (rows start on 16 bytes) or scalar ones. kI8: the caches are
 // int8 (kc / vc int8, ksc / vsc their fp16 scales with strides sc_*);
@@ -267,6 +280,7 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
                         int H, int K, int S, int hd, int per, int rowb,
                         int nbuf, float scale) {
   using CT = std::conditional_t<kI8, int8_t, T>;    // a cache element
+  constexpr int kR = head_rows(kG);
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kE = 16 / sizeof(T);            // elements per vector
   cg::cluster_group cluster = cg::this_cluster();
@@ -277,7 +291,7 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nvec = rowb / 16;
   const int krow = rowb + kRowPad;              // row stride, bytes
-  const Layout L(krow, G, nbuf, C, hd);
+  const Layout L(krow, kR, G, nbuf, C, hd);
   float* s_sc = reinterpret_cast<float*>(smem + L.s);
   float* s_alpha = reinterpret_cast<float*>(smem + L.alpha);
 
@@ -315,7 +329,7 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
   }
   for (int idx = G * krow / 4 + tid; idx < kG * krow / 4; idx += kThreads)
     reinterpret_cast<float*>(smem + L.q)[idx] = 0.0f;
-  if (tid < kMaxG) s_alpha[tid] = 0.0f;
+  if (tid < kR) s_alpha[tid] = 0.0f;
   const CT* kb = static_cast<const CT*>(kc) + b * kv_sb + kh * kv_sk;
   const CT* vb = static_cast<const CT*>(vc) + b * kv_sb + kh * kv_sk;
   const __half* ksb = kI8 ? ksc + b * sc_sb + kh * sc_sk : nullptr;
@@ -326,10 +340,10 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
                             vsb, kv_ss, sc_ss, lo, min(kTile, hi - lo), hd,
                             rowb, krow);
 
-  // running softmax state of heads warp, warp + 4 (one warp per head)
-  float m_run[kMaxG / kWarps], l_run[kMaxG / kWarps];
+  // running softmax state of heads warp, warp + 4, ... (one warp per head)
+  float m_run[kR / kWarps], l_run[kR / kWarps];
 #pragma unroll
-  for (int i = 0; i < kMaxG / kWarps; ++i) {
+  for (int i = 0; i < kR / kWarps; ++i) {
     m_run[i] = -INFINITY;
     l_run[i] = 0.0f;
   }
@@ -358,7 +372,8 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
     // 2. scores of the tile's positions for every head of the group
     if constexpr (kMma) {
       // warp w: positions 8w..8w+7; lane (r, c4) = (lane / 4, lane % 4)
-      // holds head r's scores of positions 2 c4, 2 c4 + 1
+      // holds head r's scores of positions 2 c4, 2 c4 + 1 (and, from kG =
+      // 16, head r + 8's)
       const int r = lane >> 2, c4 = lane & 3, n0 = warp * 8;
       const unsigned char* qr = smem + L.q + r * krow + 4 * c4;
       const unsigned char* kr = kbuf + (n0 + r) * krow + 4 * c4;
@@ -370,16 +385,26 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
               *reinterpret_cast<const uint32_t*>(qr + 32 * ks);
           const uint32_t a2 =
               *reinterpret_cast<const uint32_t*>(qr + 32 * ks + 16);
+          uint32_t a1 = 0u, a3 = 0u;
+          if constexpr (kG > 8) {
+            a1 = *reinterpret_cast<const uint32_t*>(qr + 8 * krow + 32 * ks);
+            a3 = *reinterpret_cast<const uint32_t*>(qr + 8 * krow + 32 * ks +
+                                                    16);
+          }
           const uint32_t b0 =
               *reinterpret_cast<const uint32_t*>(kr + 32 * ks);
           const uint32_t b1 =
               *reinterpret_cast<const uint32_t*>(kr + 32 * ks + 16);
-          mma16816(c, a0, 0u, a2, 0u, b0, b1);
+          mma16816(c, a0, a1, a2, a3, b0, b1);
         }
       }
       const int j = n0 + 2 * c4;
       if (r < kG && j < n) s_sc[r * kTile + j] = c[0] * scale;
       if (r < kG && j + 1 < n) s_sc[r * kTile + j + 1] = c[1] * scale;
+      if constexpr (kG > 8) {
+        if (j < n) s_sc[(r + 8) * kTile + j] = c[2] * scale;
+        if (j + 1 < n) s_sc[(r + 8) * kTile + j + 1] = c[3] * scale;
+      }
     } else {
       // groups of W lanes hold one key row as kVPL 16-byte vectors a lane;
       // a group takes two positions per pass (every lane of a warp runs
@@ -440,7 +465,7 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
 
     // 3. online softmax, one warp per head
 #pragma unroll
-    for (int i = 0; i < kMaxG / kWarps; ++i) {
+    for (int i = 0; i < kR / kWarps; ++i) {
       const int g = warp + i * kWarps;
       if (g >= G) break;
       const float sc = lane < n ? s_sc[g * kTile + lane] : -INFINITY;
@@ -501,7 +526,7 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
   if (solo) {
     if (lane == 0) {
 #pragma unroll
-      for (int i = 0; i < kMaxG / kWarps; ++i) {
+      for (int i = 0; i < kR / kWarps; ++i) {
         const int g = warp + i * kWarps;
         if (g < G) pl_own[g] = l_run[i];
       }
@@ -528,11 +553,11 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
       cluster.map_shared_rank(reinterpret_cast<float*>(smem + L.pacc), 0);
   if (lane == 0) {
 #pragma unroll
-    for (int i = 0; i < kMaxG / kWarps; ++i) {
+    for (int i = 0; i < kR / kWarps; ++i) {
       const int g = warp + i * kWarps;
       if (g < G) {
-        pm[rank * kMaxG + g] = m_run[i];
-        pl[rank * kMaxG + g] = l_run[i];
+        pm[rank * kR + g] = m_run[i];
+        pl[rank * kR + g] = l_run[i];
       }
     }
   }
@@ -554,14 +579,15 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
   const float* sa = reinterpret_cast<const float*>(smem + L.pacc);
   float* fac = reinterpret_cast<float*>(smem + L.fac);
   {
-    const int r = tid / kMaxG, g = tid - r * kMaxG;
+    // kR x kMaxClusters = 128 = kThreads at most: one (slice, head) each
+    const int r = tid / kR, g = tid - r * kR;
     if (r < C && g < G) {
       float M = -INFINITY;
 #pragma unroll
       for (int q2 = 0; q2 < kMaxClusters; ++q2)
-        if (q2 < C) M = fmaxf(M, sm[q2 * kMaxG + g]);
-      const float mr = sm[r * kMaxG + g];
-      fac[r * kMaxG + g] = mr == -INFINITY ? 0.0f : expf(mr - M);
+        if (q2 < C) M = fmaxf(M, sm[q2 * kR + g]);
+      const float mr = sm[r * kR + g];
+      fac[r * kR + g] = mr == -INFINITY ? 0.0f : expf(mr - M);
     }
   }
   __syncthreads();
@@ -571,8 +597,8 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
 #pragma unroll
     for (int r = 0; r < kMaxClusters; ++r) {
       if (r >= C) break;
-      const float a = fac[r * kMaxG + g];
-      Ls += sl_[r * kMaxG + g] * a;
+      const float a = fac[r * kR + g];
+      Ls += sl_[r * kR + g] * a;
       O += sa[(r * G + g) * hd + d] * a;
     }
     out[((long long)b * H + kh * G + g) * hd + d] =
@@ -596,7 +622,8 @@ cudaError_t launch(const void* q, long long q_sb, long long q_sh,
                    cudaStream_t st) {
   auto kern = decode_attention_kernel<T, kG, kMma, kVPL, kVec, kInt8Cache>;
   const int nbuf = per > kTile ? 2 : 1;
-  const size_t smem = (size_t)Layout(rowb + kRowPad, H / K, nbuf, C, hd).total;
+  const size_t smem =
+      (size_t)Layout(rowb + kRowPad, head_rows(kG), H / K, nbuf, C, hd).total;
   static size_t allowed = 48 * 1024;    // no static shared memory
   if (smem > allowed) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -629,8 +656,9 @@ cudaError_t launch(const void* q, long long q_sb, long long q_sh,
 // The kernel for this dtype, row width and group size. Rows of 16-byte
 // vectors: bf16 with hd % 16 == 0 on the tensor cores, the rest on lanes
 // holding one vector, or two from 9 vectors a row (fp32 hd > 32, bf16 hd
-// 120), with the heads rounded up to 1, 2, 4 or 8. Rows that do not
-// start on 16 bytes take scalar copies.
+// 120), with the heads rounded up to 1, 2, 4, 8 or 16. Rows that do not
+// start on 16 bytes take scalar copies. Every G <= 8 takes the instance it
+// took before groups of 16 were added, so its output is unchanged.
 template <typename T>
 cudaError_t dispatch(int vec, const void* q, long long q_sb, long long q_sh,
                      const void* k, const void* v, long long kv_sb,
@@ -646,15 +674,23 @@ cudaError_t dispatch(int vec, const void* q, long long q_sb, long long q_sh,
   launch<T, kG, kMma, kVPL, kVec>(q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sk, \
                                   sc, lengths, out, B, H, K, S, hd, C, per, \
                                   rowb, scale, st)
-  if (!vec || (hd * (int)sizeof(T)) % 16 != 0)
+  const bool wide = G > 8;
+  if (!vec || (hd * (int)sizeof(T)) % 16 != 0) {
+    if (wide)
+      return two ? REPRO_LAUNCH(16, false, 2, false)
+                 : REPRO_LAUNCH(16, false, 1, false);
     return two ? REPRO_LAUNCH(8, false, 2, false)
                : REPRO_LAUNCH(8, false, 1, false);
+  }
   if constexpr (kBf16) {
-    if (hd % 16 != 0) return REPRO_LAUNCH(8, false, 2, true);
+    if (hd % 16 != 0)
+      return wide ? REPRO_LAUNCH(16, false, 2, true)
+                  : REPRO_LAUNCH(8, false, 2, true);
     if (G == 1) return REPRO_LAUNCH(1, true, 1, true);
     if (G == 2) return REPRO_LAUNCH(2, true, 1, true);
     if (G <= 4) return REPRO_LAUNCH(4, true, 1, true);
-    return REPRO_LAUNCH(8, true, 1, true);
+    if (G <= 8) return REPRO_LAUNCH(8, true, 1, true);
+    return REPRO_LAUNCH(16, true, 1, true);
   } else {
     if (G == 1)
       return two ? REPRO_LAUNCH(1, false, 2, true)
@@ -665,8 +701,11 @@ cudaError_t dispatch(int vec, const void* q, long long q_sb, long long q_sh,
     if (G <= 4)
       return two ? REPRO_LAUNCH(4, false, 2, true)
                  : REPRO_LAUNCH(4, false, 1, true);
-    return two ? REPRO_LAUNCH(8, false, 2, true)
-               : REPRO_LAUNCH(8, false, 1, true);
+    if (G <= 8)
+      return two ? REPRO_LAUNCH(8, false, 2, true)
+                 : REPRO_LAUNCH(8, false, 1, true);
+    return two ? REPRO_LAUNCH(16, false, 2, true)
+               : REPRO_LAUNCH(16, false, 1, true);
   }
 #undef REPRO_LAUNCH
 }
@@ -678,6 +717,7 @@ int run(const void* q, long long q_sb, long long q_sh, const void* k,
         int K, int S, int hd, int dtype, float scale, int clusters, int per,
         int vec, void* stream) {
   if (K <= 0 || H % K != 0 || H / K > kMaxG || hd <= 0 || hd > kMaxHd ||
+      (H / K > 8 && hd * (dtype == repro::kFloat32 ? 4 : 2) > kWideRowBytes) ||
       S < 1 || B < 1 || B > 65535 || clusters < 1 ||
       clusters > kMaxClusters || per < 1 || per % kTile != 0 ||
       (long long)clusters * per < S || (long long)(clusters - 1) * per >= S ||

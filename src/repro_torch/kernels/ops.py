@@ -81,6 +81,12 @@ def _raise_on(name: str, rc: int) -> None:
 DECODE_TILE = 32
 #: CTAs per (kv-head, lane) at most (the portable thread-block cluster size)
 DECODE_MAX_CLUSTERS = 8
+#: q-heads per kv-head at most (csrc/decode_attention.cu kMaxG: the 16 A
+#: rows of one m16n8k16 product)
+DECODE_MAX_G = 16
+#: bytes of a q row at most when G > 8 (kWideRowBytes: hd 256 in bf16,
+#: 128 in fp32), so that sixteen heads' state fits shared memory
+DECODE_WIDE_ROW = 512
 
 
 def decode_geometry(S: int, G: int, hd: int,
@@ -93,7 +99,8 @@ def decode_geometry(S: int, G: int, hd: int,
     not depend on what else shares the step. The slices are whole tiles of
     DECODE_TILE positions, cover S, and none is empty: S = 128 takes 4 CTAs
     of 32 positions, S = 512 takes 8 of 64. (G, hd and the dtype do not
-    move the split today: every case up to G = 8, hd = 256 in fp32 fits a
+    move the split today: every case the wrapper takes -- G up to 8 at hd
+    256 in fp32, G up to 16 at rows of DECODE_WIDE_ROW bytes -- fits a
     CTA's shared memory with 32-position tiles.)"""
     least = -(-S // DECODE_MAX_CLUSTERS)      # positions per CTA, at least
     per = DECODE_TILE * max(1, -(-least // DECODE_TILE))
@@ -117,9 +124,12 @@ def _check_decode(name: str, q: torch.Tensor, k_cache: torch.Tensor,
             or k_cache.stride() != v_cache.stride():
         raise ValueError(f"{name}: unit stride over hd and equal k/v "
                          f"strides required")
-    if H // K > 8 or hd > 256:
-        raise ValueError(f"{name}: G={H // K} > 8 or hd={hd} > 256 not "
-                         f"supported by the kernel")
+    G, row = H // K, hd * q.element_size()
+    if G > DECODE_MAX_G or hd > 256 or (G > 8 and row > DECODE_WIDE_ROW):
+        raise ValueError(
+            f"{name}: G={G}, hd={hd} in {q.dtype} not supported by the "
+            f"kernel (G <= {DECODE_MAX_G}, hd <= 256; a group of more than "
+            f"8 heads takes q rows of at most {DECODE_WIDE_ROW} bytes)")
     if B > 65535:
         raise ValueError(f"{name}: B={B} exceeds the grid")
 

@@ -1,2 +1,2 @@
-"""The port's model families (dense, ssm, hybrid) in PyTorch, with the
+"""The port's model families (dense, moe, ssm, hybrid) in PyTorch, with the
 JAX package's layouts."""

@@ -1,7 +1,7 @@
 """Family dispatch: one forward/init_cache/decode_step API over the model
-families the port has (dense, ssm and hybrid so far; the JAX package's
-``models/api.py`` covers six), and the training loss ``loss_fn`` (the
-dense family so far)."""
+families the port has (dense, moe, ssm and hybrid; the JAX package's
+``models/api.py`` also covers encdec and the vlm image prefix), and the
+training loss ``loss_fn`` (the dense family so far)."""
 from __future__ import annotations
 
 import torch
@@ -9,12 +9,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from . import hybrid, mamba2, transformer
+from . import hybrid, mamba2, moe, transformer
 from .schema import count_params, from_jax, init_params, schema
 
 _FAMS = {
     "dense": transformer,
     "vlm": transformer,
+    "moe": moe,
     "ssm": mamba2,
     "hybrid": hybrid,
 }
@@ -52,8 +53,9 @@ def rollback_leaves(cfg: ModelConfig) -> tuple[str, ...]:
 def ring_leaves(cfg: ModelConfig) -> tuple[str, ...]:
     """The ring-cache leaves (a sliding window) whose slots a verify round
     overwrites: a rollback writes back the rows of the rejected steps
-    (see ``transformer.ring_leaves``); none without a window, and none
-    in a family without a ring (ssm, hybrid)."""
+    (see ``transformer.ring_leaves``, which the moe family's cache
+    shares); none without a window, and none in a family without a ring
+    (ssm, hybrid)."""
     ring = getattr(module_for(cfg), "ring_leaves", None)
     return ring(cfg) if ring else ()
 
@@ -79,7 +81,10 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0):
     time."""
     if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
-            f"training runs the dense family so far (got {cfg.family!r})")
+            f"training runs the dense family so far (got {cfg.family!r}: "
+            f"the other families' training is not ported yet; the moe "
+            f"family's trains with capacity-dropped dispatch, which the "
+            f"port's dropless moe.py does not have)")
     tokens = batch["tokens"]
     targets = F.pad(tokens[:, 1:], (0, 1))
     mask = torch.ones(targets.shape, dtype=torch.float32,

@@ -9,7 +9,9 @@ GB; it is never staged on the host). ``from_jax`` turns the JAX package's
 parameter tree, as numpy arrays, into the port's tensors, so that the two
 packages compute the same function in the tests.
 
-The dense, ssm (mamba2) and hybrid (zamba2) families, so far.
+The dense, moe (granite-moe, qwen3-moe), ssm (mamba2) and hybrid
+(zamba2) families; the vlm image prefix and the encdec family are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -62,6 +64,23 @@ def _mlp_leaves(cfg: ModelConfig, L: Optional[int]) -> dict:
     }
 
 
+def _moe_leaves(cfg: ModelConfig, L: int) -> dict:
+    """The router and the E experts' SwiGLU weights of every layer, stacked
+    over layers and experts: ``x @ router`` gives the (T, E) logits,
+    ``buf[e] @ we_gate[e]`` expert e's gate."""
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    s_in, s_out = 1.0 / np.sqrt(D), 1.0 / np.sqrt(F)
+    return {
+        "router": Leaf((L, D, E), ("layers", "embed", None), "normal", s_in),
+        "we_gate": Leaf((L, E, D, F), ("layers", "expert", "expert_embed",
+                                       None), "normal", s_in),
+        "we_up": Leaf((L, E, D, F), ("layers", "expert", "expert_embed",
+                                     None), "normal", s_in),
+        "we_down": Leaf((L, E, F, D), ("layers", "expert", None,
+                                       "expert_embed"), "normal", s_out),
+    }
+
+
 def _ssm_leaves(cfg: ModelConfig, L: int) -> dict:
     D = cfg.d_model
     di, N, Hs, KC = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
@@ -89,13 +108,15 @@ def _norm(L: Optional[int], name: str, D: int) -> dict:
 
 
 def schema(cfg: ModelConfig) -> dict:
-    """Nested dict of Leaf for the given (dense, ssm or hybrid) config.
-    The hybrid's ``shared_attn`` (one unstacked attention + MLP block)
-    sorts after every other key, so ``init_params`` draws it last."""
-    if cfg.family not in ("dense", "vlm", "ssm", "hybrid"):
+    """Nested dict of Leaf for the given (dense, moe, ssm or hybrid)
+    config. A moe layer has the dense layer's attention and norms, and the
+    router and experts in place of the MLP. The hybrid's ``shared_attn``
+    (one unstacked attention + MLP block) sorts after every other key, so
+    ``init_params`` draws it last."""
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"the port has the dense, ssm and hybrid families only so far "
-            f"(got {cfg.family!r})")
+            f"the port has the dense, moe, ssm and hybrid families only so "
+            f"far (got {cfg.family!r})")
     D, L, Vp = cfg.d_model, cfg.n_layers, cfg.padded_vocab
     tree: dict = {"embed": Leaf((Vp, D), ("vocab_rows", "embed"), "normal", 1.0)}
     if not cfg.tie_embeddings:
@@ -110,6 +131,9 @@ def schema(cfg: ModelConfig) -> dict:
                                **_mlp_leaves(cfg, None),
                                **_norm(None, "ln1", D),
                                **_norm(None, "ln2", D)}
+    elif cfg.family == "moe":
+        tree["layers"] = {**_attn_leaves(cfg, L), **_moe_leaves(cfg, L),
+                          **_norm(L, "ln1", D), **_norm(L, "ln2", D)}
     else:
         tree["layers"] = {**_attn_leaves(cfg, L), **_mlp_leaves(cfg, L),
                           **_norm(L, "ln1", D), **_norm(L, "ln2", D)}
@@ -177,11 +201,13 @@ def from_jax(params_np: dict, device=None) -> dict:
     """The JAX package's parameter tree (nested dict of numpy arrays:
     ``embed``, ``lm_head``, ``final_norm``, and ``layers/{wq, wk, wv, wo,
     q_norm, k_norm, wi_gate, wi_up, wo_mlp, ln1, ln2}`` for the dense
-    family or ``layers/{ln, in_z, in_x, in_B, in_C, in_dt, conv_w, A_log,
-    D_skip, dt_bias, out_proj}`` for the ssm family; the hybrid family
-    has the ssm ``layers`` and ``shared_attn/{wq, wk, wv, wo, wi_gate,
-    wi_up, wo_mlp, ln1, ln2}``, unstacked) as the port's tensors: same
-    names, same layouts, same dtypes."""
+    family (the moe family has ``router, we_gate, we_up, we_down`` in
+    place of the MLP's three) or ``layers/{ln, in_z, in_x, in_B, in_C,
+    in_dt, conv_w, A_log, D_skip, dt_bias, out_proj}`` for the ssm
+    family; the hybrid family has the ssm ``layers`` and
+    ``shared_attn/{wq, wk, wv, wo, wi_gate, wi_up, wo_mlp, ln1, ln2}``,
+    unstacked) as the port's tensors: same names, same layouts, same
+    dtypes."""
     device = torch.device("cpu" if device is None else device)
     return {k: from_jax(v, device) if isinstance(v, dict)
             else _leaf_tensor(v, device) for k, v in params_np.items()}

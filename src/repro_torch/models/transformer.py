@@ -50,12 +50,15 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm"):
+def _check_family(cfg: ModelConfig, *also: str) -> None:
+    """Refuse a config outside the dense family (and the families
+    ``also``, which share the function called)."""
+    if cfg.family not in ("dense", "vlm") + also:
         raise NotImplementedError(
             f"models/transformer.py runs the dense family (got "
-            f"{cfg.family!r}; the port's ssm family is models/mamba2.py, "
-            f"its hybrid family models/hybrid.py)")
+            f"{cfg.family!r}; the port's moe family is models/moe.py, its "
+            f"ssm family models/mamba2.py, its hybrid family "
+            f"models/hybrid.py)")
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
@@ -173,8 +176,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     decode step's cache bytes of bf16, as in the JAX package). ``pos`` is
     PER-LANE: every lane carries its own decode position, so the
     continuous-batching scheduler can reset one slot to a fresh context
-    while the rest keep stepping."""
-    _check_family(cfg)
+    while the rest keep stepping. The moe family's cache is this one
+    (``models/moe.py``: its attention is the dense block's)."""
+    _check_family(cfg, "moe")
     dtype = dtype or torch_dtype(cfg.dtype)
     L, Kp, hd = cfg.n_layers, cfg.padded_kv_heads, cfg.head_dim
     S = min(max_len, cfg.sliding_window) if cfg.sliding_window \

@@ -1,7 +1,7 @@
 """Serving engine: lock-step decode over the port's models.
 
 ``ModelPredictor`` implements the compressor's ``PredictorAdapter``
-(core/compressor.py) over the port's models (dense, ssm and hybrid) in
+(core/compressor.py) over the port's models (dense, moe, ssm and hybrid) in
 PyTorch, as the JAX package's ``serve/engine.py`` does over its model
 zoo:
 

@@ -52,9 +52,9 @@ warm-up launches for real and counts as such. ``STATS`` counts captures
 (with their host ms, warm-up included), the decode steps their warm-ups
 ran, and the replays of each kind, so that a kernel's launches are
 (replayed steps + warm-up steps) x its launches per step. A captured
-step holds ``decode_attention`` n_layers times for the dense family,
-never for the ssm family (its step is the recurrence) and once per
-application of the shared block for the hybrid (6 for zamba2-7b).
+step holds ``decode_attention`` n_layers times for the dense and moe
+families, never for the ssm family (its step is the recurrence) and once
+per application of the shared block for the hybrid (6 for zamba2-7b).
 """
 from __future__ import annotations
 

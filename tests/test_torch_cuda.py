@@ -22,12 +22,15 @@ its fp32 factors into two bf16 parts for the tensor cores, which keeps
 ~16 of their 24 bits.
 
 The captured decode programs (``serve/graphs.py``) are held against the
-eager step bit for bit (logits and every cache leaf), for the three
-families (the hybrid with a trailing SSD layer) in fp32 and bf16, on
+eager step bit for bit (logits and every cache leaf), for the four
+families (the hybrid with a trailing SSD layer, the moe with G = 16) in
+fp32 and bf16, on
 fresh lanes, after a lane reset, after ``restore_slot`` and after a
 speculative ``rollback``; the launch counters against captured launches
-x replays (dense and hybrid); and a cache of another length against its
-own capture. Kernels also run at zamba2-7b's shapes (hd 112 and G = 1,
+x replays (dense, hybrid and moe); and a cache of another length
+against its own capture. A moe lane's logits are bit-identical whatever
+the other lanes hold, through the captured step. The decode kernel takes
+groups of up to 16 q-heads per kv-head (qwen3-moe-235b-a22b's G = 16). Kernels also run at zamba2-7b's shapes (hd 112 and G = 1,
 H = 112 and N = 64, V = 32000).
 
 The int8 decode-attention kernel (``ops.decode_attention_int8``) is held
@@ -56,6 +59,7 @@ from repro_torch.configs import base as pbase  # noqa: E402
 from repro_torch.configs import h2o_danube_3_4b as ph2o  # noqa: E402
 from repro_torch.configs import mamba2_130m as pmamba  # noqa: E402
 from repro_torch.configs import qwen3_1_7b as pqwen  # noqa: E402
+from repro_torch.configs import qwen3_moe_235b_a22b as pqmoe  # noqa: E402
 from repro_torch.configs import zamba2_7b as pzamba  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
@@ -65,7 +69,10 @@ from repro_torch.serve.engine import ModelPredictor  # noqa: E402
 _DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 DECODE_SHAPES = [(2, 4, 2, 64, 16), (3, 4, 4, 128, 32), (2, 2, 1, 96, 16),
                  (1, 8, 8, 512, 64), (16, 16, 8, 128, 128),
-                 (16, 8, 4, 128, 32)]
+                 (16, 8, 4, 128, 32),
+                 # G 16: qwen3-moe-235b-a22b's 64 q-heads over 4 kv-heads,
+                 # and 16 over 1 at hd 64
+                 (16, 64, 4, 128, 128), (3, 16, 1, 96, 64)]
 
 
 @pytest.fixture
@@ -539,7 +546,8 @@ def _decode_inputs(cuda, B, H, K, S, hd, dtype, seed):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,H,K,S,hd", [(16, 16, 8, 128, 128),
                                          (16, 8, 4, 128, 32),
-                                         (4, 8, 8, 512, 112)])
+                                         (4, 8, 8, 512, 112),
+                                         (16, 64, 4, 128, 128)])
 def test_decode_attention_lanes_are_independent(cuda, B, H, K, S, hd,
                                                 dtype):
     """A lane's output is bit-identical whatever the other lanes hold,
@@ -577,10 +585,11 @@ def test_decode_attention_masked_slices(cuda, S, hd, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S", [128, 512])
 @pytest.mark.parametrize("hd", [112, 120])
-@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("G", [1, 8, 12, 16])
 def test_decode_attention_widths_groups_and_caches(cuda, G, hd, S, dtype):
-    """hd 112 and 120 (zamba2's and danube's widths), G = 1 and 8, a
-    512-position cache; against the plain version."""
+    """hd 112 and 120 (zamba2's and danube's widths), G = 1, 8, 12 and 16
+    (the last two: sixteen head rows computed), a 512-position cache;
+    against the plain version."""
     K = 2
     q, kc, vc, lens = _decode_inputs(cuda, 5, G * K, K, S, hd, dtype,
                                      G + hd + S)
@@ -592,7 +601,7 @@ def test_decode_attention_widths_groups_and_caches(cuda, G, hd, S, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("G,hd,S", [(2, 128, 128), (1, 112, 512),
-                                     (2, 32, 128)])
+                                     (2, 32, 128), (16, 64, 128)])
 def test_decode_attention_misaligned_rows(cuda, G, hd, S, dtype):
     """q and cache rows that do not start on 16 bytes (views of hd + 1
     wide rows) take the kernel's scalar copies."""
@@ -694,15 +703,18 @@ _GRAPH_FAMILIES = (("dense", pqwen.CONFIG, {}), ("ssm", pmamba.CONFIG, {}),
                    ("dense-int8", pqwen.CONFIG, {"kv_cache_dtype": "int8"}),
                    ("dense-ring", ph2o.CONFIG, _RING),
                    ("dense-ring-int8", ph2o.CONFIG,
-                    dict(_RING, kv_cache_dtype="int8")))
+                    dict(_RING, kv_cache_dtype="int8")),
+                   # qk-norm and G = 16, as qwen3-moe-235b-a22b
+                   ("moe", pqmoe.CONFIG, {"n_heads": 16, "n_kv_heads": 1}))
 GRAPH_CFGS = {f"{fam}-{dt}": pbase.tiny_variant(cfg, **kw).with_(dtype=dt)
               for fam, cfg, kw in _GRAPH_FAMILIES
               for dt in ("float32", "bfloat16")}
-#: decode_attention launches per decode step: one per layer (dense), one
-#: per application of the shared block (hybrid)
+#: decode_attention launches per decode step: one per layer (dense, moe),
+#: one per application of the shared block (hybrid)
 ATTN_PER_STEP = {"dense-bfloat16": GRAPH_CFGS["dense-bfloat16"].n_layers,
                  "dense-int8-bfloat16": GRAPH_CFGS["dense-bfloat16"].n_layers,
-                 "hybrid-bfloat16": 2}
+                 "hybrid-bfloat16": 2,
+                 "moe-bfloat16": GRAPH_CFGS["moe-bfloat16"].n_layers}
 
 
 def _same_cache(a, b):
@@ -788,6 +800,30 @@ def test_launch_counts_are_captured_launches_times_replays(cuda, name):
     prog = state.slot.verify[3][1]
     assert prog.launches == {kern: 3 * per}
     assert ops.LAUNCHES[kern] == 3 * per * (2 + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_lane_is_independent_on_the_card(cuda, dtype):
+    """Through the captured step, bit for bit: a lane's logits are the
+    same whatever the other lanes' tokens are (permuted or replaced,
+    which moves where its tokens land in each expert's buffer), and a
+    sequence's logits are the same on whichever lane it runs."""
+    cfg = GRAPH_CFGS[f"moe-{dtype}"]
+    pred = ModelPredictor.random_init(cfg, seed=0, device=cuda)
+    B, n = 16, 8
+    pred.set_decode_len(16)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size - 1, (B, n))
+    base = _lockstep(pred, pred.begin_decode(B), toks)[0]
+    moved = np.roll(np.arange(B), 5)
+    assert torch.equal(_lockstep(pred, pred.begin_decode(B),
+                                 toks[moved])[0], base[moved])
+    for lane in (0, 9):
+        other = rng.integers(0, cfg.vocab_size - 1, (B, n))
+        other[lane] = toks[lane]
+        got = _lockstep(pred, pred.begin_decode(B), other)[0]
+        assert torch.equal(got[lane], base[lane])
 
 
 def _lockstep(pred, state, toks):

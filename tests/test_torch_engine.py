@@ -17,9 +17,10 @@ restore, prefill, the service's context paths and the CLI flags.
 * Every engine call leaves each cache leaf's storage where it was: the
   precondition of the captured step on the card.
 
-Tiny configs (d=64) of the three families (dense and ssm with 2
-layers; hybrid with 5 SSD layers and the shared block after every 2),
-weights from fixed seeds.
+Tiny configs (d=64) of the four families (dense, moe and ssm with 2
+layers, the moe one with qwen3-moe's qk-norm and 4 experts, top 2; hybrid
+with 5 SSD layers and the shared block after every 2), weights from
+fixed seeds.
 """
 import dataclasses
 
@@ -34,6 +35,7 @@ import jax  # noqa: E402
 from repro.configs import base as jbase  # noqa: E402
 from repro.configs import mamba2_130m as jmamba  # noqa: E402
 from repro.configs import qwen3_1_7b as jqwen  # noqa: E402
+from repro.configs import qwen3_moe_235b_a22b as jqmoe  # noqa: E402
 from repro.configs import zamba2_7b as jzamba  # noqa: E402
 from repro.models import schema as jschema  # noqa: E402
 from repro.serve.engine import ModelPredictor as JaxPredictor  # noqa: E402
@@ -41,6 +43,7 @@ from repro_torch.cli import main as cli_main  # noqa: E402
 from repro_torch.configs import base as pbase  # noqa: E402
 from repro_torch.configs import mamba2_130m as pmamba  # noqa: E402
 from repro_torch.configs import qwen3_1_7b as pqwen  # noqa: E402
+from repro_torch.configs import qwen3_moe_235b_a22b as pqmoe  # noqa: E402
 from repro_torch.configs import zamba2_7b as pzamba  # noqa: E402
 from repro_torch.core import LLMCompressor, read_index  # noqa: E402
 from repro_torch.core.compressor import (RECIPE_CARRY,  # noqa: E402
@@ -57,7 +60,9 @@ CFGS = {"dense": (jbase.tiny_variant(jqwen.CONFIG),
                 pbase.tiny_variant(pmamba.CONFIG)),
         # 5 SSD layers in groups of 2: a trailing layer, as zamba2-7b has
         "hybrid": (jbase.tiny_variant(jzamba.CONFIG, n_layers=5),
-                   pbase.tiny_variant(pzamba.CONFIG, n_layers=5))}
+                   pbase.tiny_variant(pzamba.CONFIG, n_layers=5)),
+        "moe": (jbase.tiny_variant(jqmoe.CONFIG),
+                pbase.tiny_variant(pqmoe.CONFIG))}
 FAMILIES = sorted(CFGS)
 
 

@@ -238,7 +238,8 @@ def test_cdf_geometry_at_the_configs_vocabularies():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,hd", [(1, 112), (2, 32), (2, 128), (8, 256)])
+@pytest.mark.parametrize("G,hd", [(1, 112), (2, 32), (2, 128), (8, 256),
+                                  (16, 128)])
 @pytest.mark.parametrize("S", DECODE_CACHES)
 def test_decode_geometry_slices_cover_the_cache(S, G, hd, dtype):
     clusters, per = ops.decode_geometry(S, G, hd, dtype)
@@ -255,6 +256,9 @@ def test_decode_geometry_at_the_configs_shapes():
     assert ops.decode_geometry(128, 2, 32, torch.float32) == (4, 32)
     assert ops.decode_geometry(161, 2, 128, bf) == (6, 32)
     assert ops.decode_geometry(512, 1, 112, bf) == (8, 64)
+    # granite-moe-1b-a400m (G 2, hd 64), qwen3-moe-235b-a22b (G 16)
+    assert ops.decode_geometry(128, 2, 64, bf) == (4, 32)
+    assert ops.decode_geometry(128, 16, 128, bf) == (4, 32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -272,7 +276,9 @@ def test_cdf_launch_geometry_ignores_the_row_count(launches, V, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,H,K,hd", [(128, 16, 8, 128), (128, 8, 4, 32),
                                       (161, 16, 8, 128), (512, 8, 8, 112),
-                                      (161, 32, 32, 112)])   # zamba2-7b
+                                      (161, 32, 32, 112),    # zamba2-7b
+                                      (128, 64, 4, 128),     # qwen3-moe
+                                      (128, 16, 8, 64)])     # granite-moe
 def test_decode_launch_geometry_ignores_lanes_and_lengths(launches, S, H, K,
                                                           hd, dtype):
     """The wrapper never reads the lengths, and the split it passes on
@@ -439,7 +445,8 @@ def _decode_replay(q, kc, vc, lengths):
 @pytest.mark.parametrize("B,H,K,S,hd", [(16, 16, 8, 128, 128),
                                          (16, 8, 4, 128, 32),
                                          (4, 8, 8, 512, 112),
-                                         (3, 16, 2, 161, 64)])
+                                         (3, 16, 2, 161, 64),
+                                         (4, 64, 4, 128, 128)])   # G 16
 def test_decode_replay_of_the_cluster_split_matches_the_plain_version(
         B, H, K, S, hd):
     """Per-slice softmax states merged in rank order give the plain
@@ -459,6 +466,36 @@ def test_decode_replay_of_the_cluster_split_matches_the_plain_version(
     zero = _decode_replay(q[:1], kc[:1], vc[:1],
                           torch.zeros(1, dtype=torch.int32))
     assert torch.equal(zero, torch.zeros_like(zero))
+
+
+@pytest.mark.parametrize("H,K,hd,dtype,ok", [
+    (64, 4, 128, torch.bfloat16, True),     # qwen3-moe-235b-a22b: G 16
+    (16, 1, 256, torch.bfloat16, True),     # G 16 at rows of 512 bytes
+    (16, 1, 128, torch.float32, True),
+    (16, 1, 256, torch.float32, False),     # G 16 at rows of 1 KB
+    (8, 1, 256, torch.float32, True),       # G 8 takes any hd to 256
+    (12, 1, 64, torch.bfloat16, True),      # G 12: 16 rows computed
+    (32, 1, 64, torch.bfloat16, False),     # G 32
+    (17, 1, 64, torch.bfloat16, False)])
+def test_decode_wrappers_take_groups_of_up_to_16(launches, H, K, hd, dtype,
+                                                 ok):
+    """Both decode wrappers take G = H / K up to DECODE_MAX_G; above 8
+    heads, q rows of at most DECODE_WIDE_ROW bytes (the sixteen heads'
+    partial outputs of eight CTAs must fit a CTA's shared memory)."""
+    q = torch.empty((2, H, hd), dtype=dtype, device="meta")
+    kc = torch.empty((2, 128, K, hd), dtype=dtype, device="meta")
+    k8 = torch.empty((2, 128, K, hd), dtype=torch.int8, device="meta")
+    sc = torch.empty((2, 128, K), dtype=torch.float16, device="meta")
+    lens = torch.empty((2,), dtype=torch.int32, device="meta")
+    for run in (lambda: ops.decode_attention(q, kc, kc.clone(), lens),
+                lambda: ops.decode_attention_int8(q, k8, k8.clone(), sc,
+                                                  sc.clone(), lens)):
+        if ok:
+            run()
+        else:
+            with pytest.raises(ValueError, match="G="):
+                run()
+    assert len(launches.calls) == (2 if ok else 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -6,7 +6,7 @@ program over K + 1 positions, ``rollback`` of each lane to what it
 accepted) must give exactly the lock-step decoder's output for every
 proposer: the suffix self-draft, one that is always wrong, and an oracle.
 The cases of ``tests/test_speculative.py``, on the port's
-``ModelPredictor`` (tiny dense, ssm and hybrid configs, random weights
+``ModelPredictor`` (tiny dense, moe, ssm and hybrid configs, random weights
 from seed 0) instead of a lookup-table predictor: both coded alphabets,
 an escape-heavy top-k stream, ragged tails, the AC codec (which ignores
 the draft) and empty inputs. On predictable text an oracle draft issues
@@ -21,6 +21,7 @@ import torch_threads  # noqa: E402,F401  (caps torch's threads)
 from repro_torch.configs import base as pbase  # noqa: E402
 from repro_torch.configs import mamba2_130m as pmamba  # noqa: E402
 from repro_torch.configs import qwen3_1_7b as pqwen  # noqa: E402
+from repro_torch.configs import qwen3_moe_235b_a22b as pqmoe  # noqa: E402
 from repro_torch.configs import zamba2_7b as pzamba  # noqa: E402
 from repro_torch.core import LLMCompressor  # noqa: E402
 from repro_torch.core.draft import ConstantDraft, OracleDraft  # noqa: E402
@@ -29,7 +30,8 @@ from repro_torch.service import CompressionService  # noqa: E402
 
 CFGS = {"dense": pbase.tiny_variant(pqwen.CONFIG),
         "ssm": pbase.tiny_variant(pmamba.CONFIG),
-        "hybrid": pbase.tiny_variant(pzamba.CONFIG, n_layers=5)}
+        "hybrid": pbase.tiny_variant(pzamba.CONFIG, n_layers=5),
+        "moe": pbase.tiny_variant(pqmoe.CONFIG)}
 
 
 class CountingPredictor(ModelPredictor):
