@@ -27,7 +27,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    rows of one tensor-core product) and granite-moe-1b-a400m (16/8, hd
    64); its int8 variant
    ``decode_attention_int8`` at deepseek-7b's shape, h2o's 4,096 and
-   qwen3-moe's G = 16, held
+   qwen3-moe's G = 16, and at phases 21-22's: llava-next-34b (64/8, G 8,
+   hd 128), whisper-large-v3's self-attention (32/32, hd 64, S 128) and
+   its cross-attention (S 1,500, not a multiple of the 32-position tile:
+   8 CTAs of 192, the last past S; one source expanded over 16 lanes
+   with stride 0, every length 1,500); the int8 variant held
    also bit for bit against the bf16 kernel on the dequantized cache,
    whose time is printed beside it (no one-call library equivalent).
    ``flash_attention`` at full
@@ -37,9 +41,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    160), at h2o's (hd 120, window 4096; S = 128, and 2 lanes of S =
    4,352 as phase 18 scores them), qwen3-14b's (G = 6) and deepseek-7b's
    (G = 1, K = 32), qwen3-moe's (G = 16: two CTA head groups of 8) and
-   granite-moe's (hd 64). ``topk_cdf`` at qwen3-1.7b's, mamba2-130m's,
-   ``pred-base``'s, zamba2-7b's, deepseek-7b's (102,400) and
-   granite-moe's (49,155: odd, in rows of 49,408) vocabularies. ``ssd_intra`` at the mamba2-130m
+   granite-moe's (hd 64), llava's with its image (S 576 + 128, causal),
+   and whisper's non-causal shapes: the encoder (1 source, 1,500 frames
+   both ways) and scoring's cross-attention (128 queries over 1,500
+   keys shared by 16 lanes; SDPA timed without ``is_causal``), beside its
+   causal self-attention. ``topk_cdf`` at qwen3-1.7b's, mamba2-130m's,
+   ``pred-base``'s, zamba2-7b's, deepseek-7b's (102,400),
+   granite-moe's (49,155: odd, in rows of 49,408), whisper's (51,866 in
+   rows of 51,968) and llava's (64,000) vocabularies. ``ssd_intra`` at the mamba2-130m
    scoring path's shapes
    (H=24, P=64, N=128, bf16): 16 chunks of Q = 128, the probe's Q = 32,
    the prefix's Q = 160, S = 512 as 32 chunks of Q = 256, and the tiny
@@ -213,14 +222,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    151,936), cut to 4 of its 94 layers (11.2 B of its 235 B parameters;
    the whole model needs expert parallelism over several cards); then
    one fresh process decompresses both moe configs' containers.
+21. ``llava-next-34b`` (the vlm family) at full width (d=7168, 56 heads
+   padded to 64 over 8 kv-heads, d_ff 20480, V 64,000), cut to 4 of its
+   60 layers (3.21 B of 35.3 B parameters, 6.4 GB: the whole model
+   leaves no room for caches on one card, and 4 layers keep the script
+   within its time): phases 19-20's checks
+   (service on 23 chunks, lane permutations, captured = eager, step vs
+   bound, speculative, text scoring to SCORE_TOL, shared prefix), then
+   its image prefix: 16 chunks scored under ``img_embeds`` (16, 576, D)
+   drawn from seed 0, the flash forward held to SCORE_TOL against the
+   port's ``masked`` forward, and the control: text logits with and
+   without the image must differ by more than SCORE_TOL.
+22. ``whisper-large-v3`` (the encdec family) at full width and depth
+   (32 encoder and 32 decoder layers, d=1280, 20 heads padded to 32, hd
+   64, V 51,866; 2.40 B parameters), its frames (1, 1500, 1280) drawn
+   from seed 0 by ``random_init``: phase 21's checks (scoring, fresh and
+   under a 32-token prefix, to SCORE_TOL), then its cross-attention
+   cache: layout and bytes (one copy read by every lane), a lane reset
+   in mid-job whose next logits equal a fresh cache's bit for bit, and
+   a lane snapshot holding none of the cross K/V (phase 11 also refuses
+   a stored snapshot that holds conditioning leaves). Then one fresh
+   process decompresses both configs' containers.
 12. Last, one JSON line describing every kernel (its ``launches`` from
    the main path that runs it: phase 3 for ``decode_attention`` and
    ``topk_cdf``, 6 for ``cdf_points``, 5 for ``flash_attention``, 9 for
    ``ssd_intra``, 17 (deepseek-7b's int8 service) for
    ``decode_attention_int8``; phase 7 holds the CLI's own counts;
    ``launches_zamba2`` from phases 15 and 16, ``launches_phase17`` per
-   config, ``launches_phase18`` and ``launches_moe`` per phase 19-20
-   config), then the result line ``{"ok":
+   config, ``launches_phase18``, ``launches_moe`` per phase 19-20
+   config and ``launches_phase21_22`` per phase 21-22 config), then the
+   card's name and power limit again (the tail of a long log keeps
+   them) and the result line ``{"ok":
    true, "device": {...}}`` as the last line of stdout. A ``[time]``
    line gives each phase's wall seconds.
 
@@ -435,17 +467,23 @@ def _decode_planted(q32, k32, v32, lengths, want32, dtype, what):
     return _planted(what, fault, want32, dtype)
 
 
-def check_attention(shape, dtype, gen):
+def check_attention(shape, dtype, gen, shared: bool = False):
+    """Decode attention at (B, H, K, hd, S), random lengths; ``shared``:
+    as the encdec cross-attention calls it, one (S, K, hd) source
+    expanded over the B lanes with stride 0, every lane's length S."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     B, H, K, hd, S = shape
     dev = "cuda"
     q = torch.randn((B, H, hd), generator=gen, device=dev).to(dtype)
-    kc = torch.randn((B, S, K, hd), generator=gen, device=dev).to(dtype)
-    vc = torch.randn((B, S, K, hd), generator=gen, device=dev).to(dtype)
-    lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
-                            dtype=torch.int32)
+    kc = torch.randn((1 if shared else B, S, K, hd), generator=gen,
+                     device=dev).to(dtype).expand(B, -1, -1, -1)
+    vc = torch.randn((1 if shared else B, S, K, hd), generator=gen,
+                     device=dev).to(dtype).expand(B, -1, -1, -1)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=dev) \
+        if shared else torch.randint(1, S + 1, (B,), generator=gen,
+                                     device=dev, dtype=torch.int32)
     out = ops.decode_attention(q, kc, vc, lengths)
     q32, k32, v32 = q.float(), kc.float(), vc.float()
     want32 = ref.decode_attention(q32, k32, v32, lengths)
@@ -471,7 +509,9 @@ def check_attention(shape, dtype, gen):
     plain_ms = time_ms(lambda: ref.decode_attention(q, kc, vc, lengths))
     el = q.element_size()
     live = int(lengths.sum().item())
-    nbytes = 2 * B * H * hd * el + 2 * live * K * hd * el + B * 4
+    # a shared source's rows are read once, whatever the lanes
+    rows = S if shared else live
+    nbytes = 2 * B * H * hd * el + 2 * rows * K * hd * el + B * 4
     flops = 4.0 * live * H * hd
     b_ms, b_by = bound(nbytes, flops, dtype)
     return dict(r, ms=ms, device_ms=dev_ms,
@@ -530,19 +570,22 @@ def check_attention_int8(shape, dtype, gen):
                 bf16_kernel_ms=bf_ms, bf16_kernel_device_ms=bf_dev_ms)
 
 
-def _flash_planted(q32, k32, v32, window, want32, dtype, what):
+def _flash_planted(q32, k32, v32, window, want32, dtype, what,
+                   causal=True):
     """Flash attention's plain version for lane 0's last 64 queries with
     one 64-key tile skipped, from the middle of the keys they all see."""
     import math
     import torch
     from repro_torch.kernels import ref
     _, H, S, hd = q32.shape
-    K, T = k32.shape[1], 64
+    K, T, Sk = k32.shape[1], 64, k32.shape[2]
     if S < 2 * T:
         return {}
     rows = slice(S - T, S)
-    a = (S - min(S, window or S) // 2) // T * T
-    mask = ref.attention_mask(S, S, True, window, q32.device)[rows].clone()
+    a = (Sk - min(Sk, window or Sk) // 2) // T * T if causal \
+        else Sk // 2 // T * T
+    mask = ref.attention_mask(S, Sk, causal, window,
+                              q32.device)[rows].clone()
     mask[:, a:a + T] = False
     kh = k32[0].repeat_interleave(H // K, 0)            # (H, S, hd)
     vh = v32[0].repeat_interleave(H // K, 0)
@@ -553,44 +596,53 @@ def _flash_planted(q32, k32, v32, window, want32, dtype, what):
     return _planted(what, fault, want32, dtype)
 
 
-def check_flash(B, H, K, S, hd, dtype, gen, window=None):
+def check_flash(B, H, K, S, hd, dtype, gen, window=None, causal=True,
+                Sk=None, shared_kv=False):
     """Prefill attention as the model calls it: q/k/v made in the model's
-    (B, S, heads, hd) layout and handed over as transposed views."""
+    (B, S, heads, hd) layout and handed over as transposed views. ``Sk``:
+    keys of another length than the S queries (cross-attention);
+    ``shared_kv``: one (Sk, K, hd) source expanded over the B lanes with
+    stride 0, as encdec scoring passes its cross K/V."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     dev = "cuda"
+    Sk = Sk or S
+    kb = 1 if shared_kv else B
     q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dtype)
-    k = torch.randn((B, S, K, hd), generator=gen, device=dev).to(dtype)
-    v = torch.randn((B, S, K, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((kb, Sk, K, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((kb, Sk, K, hd), generator=gen, device=dev).to(dtype)
+    k, v = k.expand(B, -1, -1, -1), v.expand(B, -1, -1, -1)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    out = ops.flash_attention(q, k, v, True, window)
+    out = ops.flash_attention(q, k, v, causal, window)
     q32, k32, v32 = q.float(), k.float(), v.float()
-    want32 = ref.flash_attention(q32, k32, v32, True, window)
+    want32 = ref.flash_attention(q32, k32, v32, causal, window)
     torch.cuda.synchronize()
-    what = f"flash_attention ({B},{H},{K},{S},{hd}) window {window} {dtype}"
+    what = (f"flash_attention ({B},{H},{K},{S},{Sk},{hd}) causal {causal} "
+            f"window {window} {dtype}")
     r = _attn_held(out, want32, dtype)
     if not r["ok"]:
         fail(f"{what}: {r}")
-    r.update(_flash_planted(q32, k32, v32, window, want32, dtype, what))
+    r.update(_flash_planted(q32, k32, v32, window, want32, dtype, what,
+                            causal))
     del q32, k32, v32, want32
-    mask = ref.attention_mask(S, S, True, window, dev)
+    mask = ref.attention_mask(S, Sk, causal, window, dev)
     if window is None:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q, k, v, is_causal=True, enable_gqa=True)
+            q, k, v, is_causal=causal, enable_gqa=True)
     else:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, attn_mask=mask, enable_gqa=True)
     lib_ms = time_ms(lib)
     lib_dev_ms = library_device_ms(lib)
-    ms = time_ms(lambda: ops.flash_attention(q, k, v, True, window))
-    dev_ms = device_ms(lambda: ops.flash_attention(q, k, v, True, window),
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, causal, window))
+    dev_ms = device_ms(lambda: ops.flash_attention(q, k, v, causal, window),
                        "flash_bf16_kernel" if dtype == torch.bfloat16
                        else "flash_f32_kernel")
-    plain_ms = time_ms(lambda: ref.flash_attention(q, k, v, True, window),
+    plain_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal, window),
                        10)
     el = q.element_size()
-    nbytes = (2 * B * H * S * hd + 2 * B * K * S * hd) * el
+    nbytes = (2 * B * H * S * hd + 2 * kb * K * Sk * hd) * el
     flops = 4.0 * B * H * hd * int(mask.sum().item())
     b_ms, b_by = bound(nbytes, flops, dtype)
     return dict(r, ms=ms, device_ms=dev_ms,
@@ -718,11 +770,13 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
     from repro_torch.configs.deepseek_7b import CONFIG as DEEP
     from repro_torch.configs.granite_moe_1b_a400m import CONFIG as GRANITE
     from repro_torch.configs.h2o_danube_3_4b import CONFIG as H2O
+    from repro_torch.configs.llava_next_34b import CONFIG as LLAVA
     from repro_torch.configs.mamba2_130m import CONFIG as MAMBA
     from repro_torch.configs.paper_predictors import PRED_BASE
     from repro_torch.configs.qwen3_14b import CONFIG as Q14
     from repro_torch.configs.qwen3_1_7b import CONFIG as QWEN
     from repro_torch.configs.qwen3_moe_235b_a22b import CONFIG as QMOE
+    from repro_torch.configs.whisper_large_v3 import CONFIG as WHISPER
     from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA
     res = {}
     # phase 17's configs: (heads, kv-heads, hd) as the kernels see them
@@ -732,6 +786,12 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
     # phases 19-20's: granite-moe (16/8, hd 64), qwen3-moe (64/4: G 16)
     gmoe = (GRANITE.padded_heads, GRANITE.padded_kv_heads, GRANITE.head_dim)
     qmoe = (QMOE.padded_heads, QMOE.padded_kv_heads, QMOE.head_dim)
+    # phases 21-22's: llava-next-34b (64/8: G 8, hd 128; 576 image + 128
+    # text positions), whisper-large-v3 (32/32: G 1, hd 64; 1,500 frames)
+    llava = (LLAVA.padded_heads, LLAVA.padded_kv_heads, LLAVA.head_dim)
+    whisper = (WHISPER.padded_heads, WHISPER.padded_kv_heads,
+               WHISPER.head_dim)
+    Se, n_img = WHISPER.max_source_len, LLAVA.n_img_tokens
     W = H2O.sliding_window
     S = 128                                   # chunk 128, no context
     H, K, hd = QWEN.n_heads, QWEN.n_kv_heads, QWEN.head_dim
@@ -772,6 +832,14 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
          ((16,) + gmoe + (S,), bf, gen)),
         ("decode_attention_int8@qwen3-moe", check_attention_int8,
          ((16,) + qmoe + (S,), bf, gen)),
+        ("decode_attention@llava", check_attention,
+         ((16,) + llava + (S,), bf, gen)),
+        ("decode_attention@whisper-self", check_attention,
+         ((16,) + whisper + (S,), bf, gen)),
+        # the cross cache: S = 1,500 (8 CTAs of 192 positions, the last
+        # past S), one source read by every lane with stride 0
+        ("decode_attention@whisper-cross", check_attention,
+         ((16,) + whisper + (Se,), bf, gen, True)),
         ("topk_cdf", check_topk,
          (16, QWEN.vocab_size, torch.bfloat16, gen, 48, 16,
           QWEN.padded_vocab)),
@@ -788,6 +856,13 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
         ("topk_cdf@granite-moe", check_topk,
          (16, GRANITE.vocab_size, torch.bfloat16, gen, 48, 16,
           GRANITE.padded_vocab)),
+        # V = 51,866 in rows of 51,968 (unaligned slices), and 64,000
+        ("topk_cdf@whisper", check_topk,
+         (16, WHISPER.vocab_size, torch.bfloat16, gen, 48, 16,
+          WHISPER.padded_vocab)),
+        ("topk_cdf@llava", check_topk,
+         (16, LLAVA.vocab_size, torch.bfloat16, gen, 48, 16,
+          LLAVA.padded_vocab)),
         ("cdf_points", check_cdf_points,
          (16, QWEN.vocab_size, torch.bfloat16, gen, 18, QWEN.padded_vocab)),
         ("cdf_points@pred-base", check_cdf_points,
@@ -827,6 +902,19 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
          (16,) + qmoe[:2] + (S, qmoe[2], bf, gen)),
         ("flash_attention@granite-moe", check_flash,
          (16,) + gmoe[:2] + (S, gmoe[2], bf, gen)),
+        # the image prefix: 576 + 128 positions, causal
+        ("flash_attention@llava-image", check_flash,
+         (16,) + llava[:2] + (n_img + S, llava[2], bf, gen)),
+        # whisper's encoder: bidirectional over the 1,500 frames of one
+        # source; its decoder's self-attention; scoring's cross-attention
+        # (128 queries over 1,500 keys, the source shared by 16 lanes)
+        ("flash_attention@whisper-encoder", check_flash,
+         (1,) + whisper[:2] + (Se, whisper[2], bf, gen, None, False)),
+        ("flash_attention@whisper-self", check_flash,
+         (16,) + whisper[:2] + (S, whisper[2], bf, gen)),
+        ("flash_attention@whisper-cross", check_flash,
+         (16,) + whisper[:2] + (S, whisper[2], bf, gen, None, False, Se,
+                                True)),
         ("ssd_intra", check_ssd, (16, S) + ssm + (bf, gen)),
         ("ssd_intra@probe", check_ssd, (probe_chunks, 32) + ssm + (bf, gen)),
         ("ssd_intra@prefix32", check_ssd, (16, S + 32) + ssm + (bf, gen)),
@@ -908,11 +996,13 @@ def decode_kernels(cfg) -> tuple:
 
 
 def attention_blocks(cfg) -> int:
-    """Attention blocks a decode step or a teacher-forced forward runs:
-    every layer of the dense and moe families, none of the ssm family,
-    and one per application of the hybrid's shared block (zamba2-7b: 81
-    // 13 = 6; cut to 29 layers, 2)."""
-    return {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
+    """Attention blocks of the decoder that a decode step or a
+    teacher-forced forward runs: every layer of the dense, vlm and moe
+    families, none of the ssm family, one per application of the
+    hybrid's shared block (zamba2-7b: 81 // 13 = 6; cut to 29 layers,
+    2), and two per encdec decoder layer (self and cross: whisper 64)."""
+    return {"dense": cfg.n_layers, "vlm": cfg.n_layers,
+            "moe": cfg.n_layers, "ssm": 0, "encdec": 2 * cfg.n_layers,
             "hybrid": cfg.n_layers // max(1, cfg.hybrid_ssm_per_block)}[
         cfg.family]
 
@@ -1006,13 +1096,27 @@ SHORT_JOBS = (("wiki", 700, 1), ("code", 500, 2), ("web", 900, 3),
 
 
 def weight_bytes(pred) -> int:
-    """Bytes of every weight of a predictor."""
-    return sum(t.numel() * t.element_size() for t in _leaves(pred.params))
+    """Bytes of every weight of a predictor that its decode step reads:
+    all of them, but for an encdec model's encoder and cross K/V
+    projections (``wxk``/``wxv``), which run once per source."""
+    params = pred.params
+    if pred.cfg.family == "encdec":
+        params = {k: v for k, v in params.items()
+                  if k not in ("enc_layers", "enc_final_norm")}
+        params["dec_layers"] = {k: v for k, v in
+                                params["dec_layers"].items()
+                                if k not in ("wxk", "wxv")}
+    return sum(t.numel() * t.element_size() for t in _leaves(params))
 
 
 def state_bytes(cfg) -> int:
-    """Bytes of SSM state a decode step at B = 16 reads and writes (fp32;
-    none outside the ssm and hybrid families)."""
+    """Bytes of state a decode step at B = 16 reads besides the weights
+    and its own K/V: SSM state read and written (fp32: the ssm and hybrid
+    families), or an encdec model's cross K/V of one source of
+    max_source_len frames (one copy serves every lane: read once)."""
+    if cfg.family == "encdec":
+        return 2 * cfg.n_layers * cfg.max_source_len \
+            * cfg.padded_kv_heads * cfg.head_dim * 2
     if cfg.family not in ("ssm", "hybrid"):
         return 0
     return 2 * 16 * cfg.n_layers * cfg.ssm_heads * cfg.ssm_headdim \
@@ -1020,11 +1124,12 @@ def state_bytes(cfg) -> int:
 
 
 def step_bound_ms(pred) -> float:
-    """Least ms of a decode step at B = 16: every weight read once over
-    3.35 TB/s (a moe step's 16 x top-k slots reach every expert, and the
-    batched expert product reads all E experts' weights), and an SSM's
-    state read and written. The embedding table is counted whole, as
-    PERF.md's earlier bounds count it."""
+    """Least ms of a decode step at B = 16: every weight the step reads,
+    read once over 3.35 TB/s (a moe step's 16 x top-k slots reach every
+    expert, and the batched expert product reads all E experts'
+    weights), and an SSM's state read and written or an encdec model's
+    cross K/V read. The embedding table is counted whole, as PERF.md's
+    earlier bounds count it."""
     return (weight_bytes(pred) + state_bytes(pred.cfg)) / HBM_BYTES_PER_S \
         * 1e3
 
@@ -1178,7 +1283,8 @@ def phase_service(arch: str, sizes=SERVICE_JOBS, baselines: bool = True,
                 phases[kind]["share"].items()) if v > 0))
     log(f"[graph] {label(cfg)} captured step bound: "
         f"{weight_bytes(pred) / 1e9:.3f} GB of weights and "
-        f"{state_bytes(cfg) / 1e9:.3f} GB of SSM state over 3.35 TB/s = "
+        f"{state_bytes(cfg) / 1e9:.3f} GB of SSM state or cross K/V over "
+        f"3.35 TB/s = "
         f"{step_bound:.3f} ms; the captured step's device time is "
         + ("not measured" if steps["captured"]["device_ms"] is None else
            f"{steps['captured']['device_ms'] / step_bound:.2f} x it"))
@@ -1211,7 +1317,7 @@ def phase_service(arch: str, sizes=SERVICE_JOBS, baselines: bool = True,
     _free_card()
 
     # the user's flow: decompression in a process of its own (now, or
-    # with the other configs of phase 17 in one process: ``fresh``)
+    # with the other configs of its phase in one process: ``fresh``)
     work = ROOT / "build" / "chip_smoke" / f"full_width_{arch}"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -1358,7 +1464,7 @@ def _count(x) -> str:
 
 
 def decompress_in_fresh_process(order: str, *pairs) -> int:
-    """The second half of phases 3, 8, 15 and 17, run by a new
+    """The second half of phases 3, 8, 15, 17, 19-20 and 21-22, run by a new
     interpreter: for each ``WORK=ARCH`` of ``pairs``, ARCH (a ``config``
     spec) from seed 0 again, the containers saved in WORK decompressed in
     ``order`` (job numbers, comma-separated), the tokens saved beside
@@ -1502,11 +1608,13 @@ def _decode_logits(pred, chunks, prefix=None):
 
 def score_launches(cfg) -> dict:
     """The kernels of each family's teacher-forced forward and their
-    launches per forward: ``flash_attention`` per attention block,
+    launches per forward: ``flash_attention`` per attention block (an
+    encdec model's encoder layers too: whisper 32 + 2 x 32),
     ``ssd_intra`` per SSD layer (zamba2-7b: 6 and 81)."""
     out = {}
     if attention_blocks(cfg):
-        out["flash_attention"] = attention_blocks(cfg)
+        out["flash_attention"] = attention_blocks(cfg) + (
+            cfg.n_enc_layers if cfg.family == "encdec" else 0)
     if cfg.family in ("ssm", "hybrid"):
         out["ssd_intra"] = cfg.n_layers
     return out
@@ -1545,7 +1653,7 @@ def phase_scoring(pred) -> dict:
     score_ms = (time.perf_counter() - t0) / 5 * 1e3
     score_dev_ms, score_launches, _ = profile_calls(
         lambda: pred.score_chunks(chunks), 3)
-    if pred.cfg.family == "dense":
+    if pred.cfg.family in ("dense", "vlm", "encdec"):
         fresh = _compare_logits("fresh context", scored,
                                 _decode_logits(pred, chunks))
         pre = _compare_logits("32-token prefix",
@@ -1554,8 +1662,8 @@ def phase_scoring(pred) -> dict:
     else:
         fresh, pre = _compare_with_fp32_twin(pred, chunks, prefix)
     comp = LLMCompressor(pred, chunk_size=C, topk=48, decode_batch=B)
-    ops.reset_launches()
     blob_x, st_x = comp.compress(chunks.ravel())
+    ops.reset_launches()
     blob_e, st_e = comp.compress(chunks.ravel(), exact=False)
     torch.cuda.synchronize()
     _check_score_launches(pred.cfg, ops.LAUNCHES, "compress(exact=False)")
@@ -1792,6 +1900,7 @@ def phase_shared_prefix(pred) -> dict:
     import torch
     from repro_torch.data.synthetic import human_like
     from repro_torch.data.tokenizer import encode
+    from repro_torch.models import api as model_api
     from repro_torch.service import CompressionService
     sp = encode(human_like("article", 64, seed=21))[:32]
     jobs = [encode(human_like("wiki", 1500, seed=31)),
@@ -1825,6 +1934,10 @@ def phase_shared_prefix(pred) -> dict:
         fail("shared prefix: a fresh service decodes job 1 differently")
     snap = svc.prefix_cache.lookup(sp)[1]
     snap_bytes = sum(t.numel() * t.element_size() for t in snap.values())
+    cond = set(snap) & set(model_api.conditioning_leaves(pred.cfg))
+    if cond:
+        fail(f"shared prefix: a stored snapshot holds the conditioning "
+             f"leaves {sorted(cond)}")
     log(f"[prefix] {label(pred.cfg)}: 2 jobs with one 32-token shared "
         f"prefix in {dt:.2f} s; the second hit the cache {hits1} times "
         f"(hits {reg.value('prefix_cache.hits')}, misses "
@@ -2525,7 +2638,7 @@ def phase_train_full_width() -> dict:
 
 # ---------------------------------------------------------- phase 16
 def phase_model_paths(arch: str, *, scoring: bool = True,
-                      routed: bool = True) -> dict:
+                      routed: bool = True, extra=None) -> dict:
     """Phases 4, 5 and 11 for a large model at full width (phase 16 for
     zamba2-7b; phase 17 for h2o-danube-3-4b, deepseek-7b and qwen3-14b,
     without the routed service): ``score_chunks`` against the decode
@@ -2533,7 +2646,9 @@ def phase_model_paths(arch: str, *, scoring: bool = True,
     family, the fp32 twin for the hybrid and moe families),
     ``compress(exact=False)``, the routed service, and two shared-prefix
     jobs (a prefix-cache hit), with the peak device memory of each
-    (phases 19-20 for the moe configs, without the routed service)."""
+    (phases 19-20 for the moe configs, without the routed service; 21-22
+    for the vlm and encdec configs, with their own checks: ``extra``,
+    called on the predictor, returns {name: results})."""
     import torch
     from repro_torch.serve.engine import ModelPredictor
     _free_card()
@@ -2551,6 +2666,11 @@ def phase_model_paths(arch: str, *, scoring: bool = True,
     torch.cuda.reset_peak_memory_stats()
     out["prefix"] = phase_shared_prefix(pred)
     out["prefix"]["peak_bytes"] = _peak(f"{arch} shared-prefix jobs")
+    for name, fn in (extra or {}).items():
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = fn(pred)
+        out[name]["peak_bytes"] = _peak(f"{arch} {name}")
     del pred
     _free_card()
     return out
@@ -2810,6 +2930,138 @@ def phase_moe_configs() -> dict:
     return out
 
 
+# ------------------------------------------------------- phases 21-22
+#: the vlm and encdec families: llava-next-34b at full width cut to 4 of
+#: its 60 layers (phase 21: 70.5 GB of bf16 whole, 6.4 GB at 4 layers),
+#: whisper-large-v3 at full width and depth (phase 22: 4.8 GB)
+CONDITIONED_CONFIGS = (("21", "llava-next-34b@4"), ("22", "whisper-large-v3"))
+
+
+def phase_image_prefix(pred) -> dict:
+    """Phase 21's image prefix: 16 chunks x 128 scored under img_embeds
+    (16, 576, D) drawn from seed 0, through the flash forward (one
+    ``flash_attention`` a layer over 704 positions), held to SCORE_TOL
+    against the port's ``masked`` forward (the plain attention) on the
+    same weights and inputs; and the control: the text logits with and
+    without the image must differ by more than SCORE_TOL, so the prefix
+    is seen to reach the text."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import human_like
+    from repro_torch.data.tokenizer import encode
+    from repro_torch.kernels import ops
+    from repro_torch.models import api as model_api
+    from repro_torch.serve.engine import ModelPredictor
+    cfg = pred.cfg
+    B, C = 16, 128
+    toks = encode(human_like("wiki", 2 * B * C, seed=11))
+    chunks = toks[:B * C].reshape(B, C).astype(np.int64)
+    img = model_api.stub_inputs(cfg, B, seed=0, device="cuda")
+    ipred = ModelPredictor(pred.params, cfg, extra_batch=img, device="cuda")
+    ops.reset_launches()
+    flash = ipred.score_chunks(chunks)
+    torch.cuda.synchronize()
+    _check_score_launches(cfg, ops.LAUNCHES, "score_chunks with the image")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ipred.score_chunks(chunks)
+    torch.cuda.synchronize()
+    image_ms = (time.perf_counter() - t0) / 3 * 1e3
+    inp = np.concatenate([np.full((B, 1), pred.bos_id), chunks[:, :-1]], 1)
+    with torch.no_grad():
+        masked = model_api.forward(
+            pred.params, cfg, {"tokens": torch.as_tensor(inp, device="cuda"),
+                               **img}, attn_impl="masked")[
+            ..., :cfg.vocab_size]
+    held = _compare_logits("image prefix: flash forward vs masked forward",
+                           flash, masked)
+    del masked
+    text = pred.score_chunks(chunks)
+    d = (flash.float() - text.float()).abs().max().item()
+    scale = text.float().abs().max().item()
+    log(f"[image] {label(cfg)}: scoring with a 576-position image "
+        f"({B} x {C}) {image_ms:.2f} ms; text logits with and without the "
+        f"image differ by max |dlogit| {d:.4g} (control: must exceed "
+        f"SCORE_TOL x max |logit| = {SCORE_TOL * scale:.4g})")
+    if d <= SCORE_TOL * scale:
+        fail(f"image prefix: the text logits do not move with the image "
+             f"(max |dlogit| {d} <= {SCORE_TOL * scale})")
+    del ipred, flash, text
+    return dict(image_score_ms=image_ms, flash_vs_masked=held,
+                control_max_abs_diff=d, control_limit=SCORE_TOL * scale)
+
+
+def phase_cross_cache(pred) -> dict:
+    """Phase 22's cross-attention cache: its layout and bytes; a lane
+    reset in mid-job whose next logits equal a fresh cache's bit for bit
+    (the cross K/V survive the reset: zeroed, the lane would attend
+    zeros); a lane snapshot that holds none of the cross K/V."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api as model_api
+    B, lane = 16, 5
+    pred.set_decode_len(128)
+    rng = np.random.default_rng(23)
+    old, new = (rng.integers(0, pred.vocab_size - 1, (B, n))
+                for n in (9, 6))
+    state = pred.begin_decode(B)
+    xk = state["xk"]
+    cross_bytes = sum(state[k].numel() * state[k].element_size()
+                      for k in model_api.conditioning_leaves(pred.cfg))
+    _steps_of(pred, state, old)
+    before = {k: state[k].clone() for k in ("xk", "xv")}
+    pred.reset_slots(state, np.arange(B) == lane)
+    got = _steps_of(pred, state, new)
+    for k, v in before.items():
+        if not torch.equal(state[k], v):
+            fail(f"reset_slots changed the cross cache leaf {k}")
+    snap = pred.snapshot_slot(state, lane)
+    snap_bytes = sum(t.numel() * t.element_size() for t in snap.values())
+    if set(snap) & {"xk", "xv"}:
+        fail("a lane snapshot holds the cross K/V")
+    fresh = pred.begin_decode(B)
+    want = _steps_of(pred, fresh, new)
+    if not torch.equal(got[lane], want[lane]):
+        fail(f"a lane reset in mid-job: its logits differ from a fresh "
+             f"cache's (max {(got[lane] - want[lane]).abs().max().item()})")
+    log(f"[cross] {label(pred.cfg)}: cross K/V {tuple(xk.shape)} "
+        f"{xk.dtype} x 2 = {cross_bytes} B, one copy read by all {B} lanes "
+        f"with stride 0 (a copy per lane would be {cross_bytes * B} B); lane "
+        f"{lane} reset after 9 steps: its next 6 logits equal a fresh "
+        f"cache's bit for bit, the cross K/V unchanged; a lane snapshot "
+        f"(S=128) is {snap_bytes} B, none of it cross K/V")
+    del state, fresh
+    return dict(cross_bytes=cross_bytes, snapshot_bytes=snap_bytes)
+
+
+def phase_conditioned_configs() -> dict:
+    """Phases 21-22: each of CONDITIONED_CONFIGS (random weights from seed
+    0, bf16; whisper's frames (1, 1500, 1280) drawn from the same seed by
+    ``random_init``) through the service at 16 slots (23 chunks; lane
+    permutations bit for bit), captured against eager steps, the
+    captured step's times against its bound, speculative decompression;
+    then scoring against the decode program (SCORE_TOL) and the
+    shared-prefix jobs, with the peak memory of each part; llava's image
+    prefix (``phase_image_prefix``), whisper's cross cache
+    (``phase_cross_cache``). Each model is freed before the next; then
+    one fresh process decompresses both configs' containers."""
+    out, fresh = {}, {}
+    for phase, arch in CONDITIONED_CONFIGS:
+        t0 = time.perf_counter()
+        svc = phase_service(arch, SHORT_JOBS, baselines=False, fresh=False)
+        fresh[arch] = svc.pop("fresh")
+        extra = {"image": phase_image_prefix} \
+            if config(arch).family == "vlm" else \
+            {"cross": phase_cross_cache}
+        paths = phase_model_paths(arch, routed=False, extra=extra)
+        out[arch] = dict(svc, **paths)
+        log(f"[time] {phase} {arch}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fresh_decompress(fresh)
+    log(f"[time] 21-22 fresh process: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the same synthetic texts in every run and in every child
@@ -2901,6 +3153,7 @@ def main() -> int:
     dense = timed("17 dense configs", phase_dense_configs)
     window = timed("18 past the window", phase_window)
     moe = timed("19+20 moe configs", phase_moe_configs)
+    cond = timed("21+22 vlm and encdec configs", phase_conditioned_configs)
 
     paths = {"cdf_points": full, "flash_attention": routed,
              "ssd_intra": routed_ssm}
@@ -2926,6 +3179,11 @@ def main() -> int:
                # phases 19-20's service round trips (the moe family)
                "launches_moe": {a: int(d["launches"][name])
                                 for a, d in moe.items()},
+               # phases 21-22's service round trips (llava-next-34b,
+               # whisper-large-v3: its encoder runs flash_attention in
+               # each begin_decode)
+               "launches_phase21_22": {a: int(d["launches"][name])
+                                       for a, d in cond.items()},
                "max_abs_err": r["max_abs_err"], "tol": r["tol"],
                # attention: error over its row's max |value| (the bf16
                # limit), at every shape, and a planted skipped tile's
@@ -2949,6 +3207,7 @@ def main() -> int:
     log(f"[done] every phase in {time.perf_counter() - t_run:.1f} s, the "
         f"build included; by phase {times}")
     log(json.dumps({"kernels": rows}))
+    log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,8 +2,11 @@
 and the architectures the port runs so far (dense ``qwen3-1.7b``,
 ``h2o-danube-3-4b``, ``deepseek-7b`` and ``qwen3-14b``, ssm
 ``mamba2-130m``, hybrid ``zamba2-7b``, moe ``granite-moe-1b-a400m`` and
-``qwen3-moe-235b-a22b``; the vlm and encdec families are not ported
-yet). The int8 KV cache is a field of
+``qwen3-moe-235b-a22b``, vlm ``llava-next-34b`` and encdec
+``whisper-large-v3``: every architecture of the JAX package's registry).
+The vlm and encdec configs take their stub frontends' output per
+predictor: ``ModelPredictor(..., extra_batch={"img_embeds": ...})`` or
+``{"frames": ...}``. The int8 KV cache is a field of
 the config, as in the JAX package: ``get_config("deepseek-7b").with_(
 kv_cache_dtype="int8")``.
 
@@ -26,6 +29,8 @@ ARCH_IDS = [
     "zamba2_7b",
     "granite_moe_1b_a400m",
     "qwen3_moe_235b_a22b",
+    "llava_next_34b",
+    "whisper_large_v3",
 ]
 
 PREDICTORS = {c.name: c for c in (PRED_TINY, PRED_SMALL, PRED_BASE,

@@ -1,7 +1,8 @@
-"""Family dispatch: one forward/init_cache/decode_step API over the model
-families the port has (dense, moe, ssm and hybrid; the JAX package's
-``models/api.py`` also covers encdec and the vlm image prefix), and the
-training loss ``loss_fn`` (the dense family so far)."""
+"""Family dispatch: one forward/init_cache/decode_step API over the six
+model families of the JAX package's ``models/api.py`` (dense, vlm: the
+dense model with an image prefix in ``forward``, moe, ssm, hybrid and
+encdec), and the training loss ``loss_fn`` (the dense and vlm families
+so far)."""
 from __future__ import annotations
 
 import torch
@@ -9,7 +10,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from . import hybrid, mamba2, moe, transformer
+from . import encdec, hybrid, mamba2, moe, transformer
 from .schema import count_params, from_jax, init_params, schema
 
 _FAMS = {
@@ -18,15 +19,36 @@ _FAMS = {
     "moe": moe,
     "ssm": mamba2,
     "hybrid": hybrid,
+    "encdec": encdec,
 }
 
 
 def module_for(cfg: ModelConfig):
     if cfg.family not in _FAMS:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (the port has "
-            f"{', '.join(sorted(_FAMS))})")
+        raise ValueError(f"unknown model family {cfg.family!r} (one of "
+                         f"{', '.join(sorted(_FAMS))})")
     return _FAMS[cfg.family]
+
+
+def stub_inputs(cfg: ModelConfig, batch: int = 1, *, seed: int = 0,
+                device=None) -> dict:
+    """What a family's stub frontend would hand the model, drawn from
+    ``seed`` (standard normal, in the model dtype, on ``device``), at the
+    shapes of the JAX package's ``launch/input_specs.py``: encdec
+    ``frames`` (batch, max_source_len, D), vlm ``img_embeds`` (batch,
+    n_img_tokens, D); ``{}`` for the other families. The same seed and
+    device give the same tensors, so a fresh process can rebuild a
+    predictor's conditioning as it rebuilds its weights."""
+    rows = {"encdec": ("frames", cfg.max_source_len),
+            "vlm": ("img_embeds", cfg.n_img_tokens)}.get(cfg.family)
+    if rows is None:
+        return {}
+    device = torch.device("cpu" if device is None else device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    x = torch.randn((batch, rows[1], cfg.d_model), generator=gen,
+                    device=device, dtype=torch.float32)
+    return {rows[0]: x.to(transformer.torch_dtype(cfg.dtype))}
 
 
 def forward(params, cfg: ModelConfig, batch: dict, **kw):
@@ -35,8 +57,11 @@ def forward(params, cfg: ModelConfig, batch: dict, **kw):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device=None):
-    return module_for(cfg).init_cache(cfg, batch, max_len, dtype, device)
+               device=None, **kw):
+    """A zeroed decode cache; ``kw`` is the family's own (encdec:
+    ``source_len`` and ``lanes`` of its cross-attention K/V)."""
+    return module_for(cfg).init_cache(cfg, batch, max_len, dtype, device,
+                                      **kw)
 
 
 def decode_step(params, cfg: ModelConfig, cache, prev_tokens):
@@ -48,6 +73,14 @@ def rollback_leaves(cfg: ModelConfig) -> tuple[str, ...]:
     """The cache leaves that a speculative rollback restores per lane,
     whole (the rest need no copy: see each family's ``ROLLBACK_LEAVES``)."""
     return module_for(cfg).ROLLBACK_LEAVES
+
+
+def conditioning_leaves(cfg: ModelConfig) -> tuple[str, ...]:
+    """The cache leaves that hold per-job conditioning, written once per
+    cache and left alone by lane resets, snapshots, restores and
+    rollbacks (encdec: the cross-attention K/V ``xk``/``xv``); none in
+    the other families."""
+    return getattr(module_for(cfg), "CONDITIONING_LEAVES", ())
 
 
 def ring_leaves(cfg: ModelConfig) -> tuple[str, ...]:
@@ -81,10 +114,11 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0):
     time."""
     if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
-            f"training runs the dense family so far (got {cfg.family!r}: "
-            f"the other families' training is not ported yet; the moe "
-            f"family's trains with capacity-dropped dispatch, which the "
-            f"port's dropless moe.py does not have)")
+            f"training runs the dense and vlm families so far (got "
+            f"{cfg.family!r}: the other families' training, encdec's "
+            f"among them, is ROADMAP Queue 1 item 6; the moe family's "
+            f"trains with capacity-dropped dispatch, which the port's "
+            f"dropless moe.py does not have)")
     tokens = batch["tokens"]
     targets = F.pad(tokens[:, 1:], (0, 1))
     mask = torch.ones(targets.shape, dtype=torch.float32,
@@ -109,5 +143,6 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0):
 
 
 __all__ = ["forward", "loss_fn", "init_cache", "decode_step",
-           "rollback_leaves", "ring_leaves", "module_for", "init_params",
-           "from_jax", "count_params", "schema"]
+           "rollback_leaves", "ring_leaves", "conditioning_leaves",
+           "module_for", "stub_inputs", "init_params", "from_jax",
+           "count_params", "schema"]

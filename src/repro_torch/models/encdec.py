@@ -1,0 +1,210 @@
+"""Whisper-style encoder-decoder (the JAX package's ``models/encdec.py``)
+in PyTorch.
+
+The audio frontend is a stub, as in the JAX package: the caller hands
+precomputed frame embeddings (B, S_enc, D) over as ``frames``.
+
+* ``encode``: the encoder, bidirectional attention over the frames plus a
+  sinusoidal table, then ``enc_final_norm``. Its attention is the prefill
+  kernel, non-causal (``attn_impl="flash"``: the kernel on the card, its
+  plain version on the CPU).
+* ``forward``: teacher-forced decoding. Each decoder layer runs causal
+  self-attention with RoPE, then cross-attention over the encoder states
+  projected by the layer's ``wxk``/``wxv`` (non-causal, no rotary), then
+  the MLP, each pre-norm (``ln1``, ``ln_x``, ``ln2``).
+* ``init_cache`` / ``precompute_cross_kv`` / ``decode_step``: the decode
+  program. The cache holds the self-attention K/V per lane, written in
+  place at each lane's position as the dense family's are, and the
+  cross-attention K/V ``xk``/``xv`` (L, lanes, S_enc, K, hd): the
+  encoder's output projected once per source (``write_cross_kv``), which
+  every step attends whole (every lane's length is S_enc, as the JAX
+  step's ``pos = S_enc - 1``).
+
+The cross K/V are per-job conditioning, not per-lane context: a lane
+reset, a prefix-cache snapshot or restore and a speculative rollback
+leave them as they are (``CONDITIONING_LEAVES``), as the JAX engine's
+``_reset``/``_snapshot``/``_restore``/``_rollback`` do. Frames of batch 1
+serve every lane: the cache then holds ONE copy (``lanes`` = 1) that the
+step expands over the lanes with stride 0, where the JAX engine
+broadcasts the frames and keeps a copy per lane; the kernel reads the
+same bytes either way. Frames whose batch equals the cache's serve one
+lane each. The cross cache is as long as the frames, not
+``max_source_len``: the JAX ``begin_decode`` replaces its leaves with
+whatever ``precompute_cross_kv`` returns, and a captured step cannot have
+a leaf replaced.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from .layers import rms_norm, swiglu
+from .transformer import (_decode_attn_one, attn_block, embed_tokens,
+                          lm_logits, torch_dtype)
+
+#: the cache leaves a speculative rollback restores per lane, whole: only
+#: ``pos`` (the self-attention K/V past it are hidden and overwritten;
+#: the cross K/V never change while a job runs)
+ROLLBACK_LEAVES = ("pos",)
+#: the per-job conditioning leaves: written once per cache from the
+#: frames, never reset, snapshotted, restored or rolled back
+CONDITIONING_LEAVES = ("xk", "xv")
+
+
+def sinusoidal(S: int, D: int, dtype=torch.float32, device=None):
+    """The encoder's (S, D) position table: sin and cos of pos / 10000 **
+    (2 i / D), computed in float64 by numpy as the JAX package does, then
+    cast once to ``dtype``."""
+    pos = np.arange(S)[:, None]
+    dim = np.arange(D // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / D)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(emb).to(device=device, dtype=dtype)
+
+
+def _layer(stacked: dict, layer: int) -> dict:
+    return {name: w[layer] for name, w in stacked.items()}
+
+
+def source_lanes(frames_batch: int, batch: int) -> int:
+    """The lanes of cross K/V that frames of batch ``frames_batch`` give
+    ``batch`` decoder lanes: 1 (one source serves every lane, as the JAX
+    package broadcasts it) or ``batch`` (one each). Any other batch
+    raises, as ``jnp.broadcast_to`` does."""
+    if frames_batch in (1, batch):
+        return frames_batch
+    raise ValueError(f"frames of batch {frames_batch} cannot serve {batch} "
+                     f"lanes (batch 1 serves every lane, batch {batch} one "
+                     f"each)")
+
+
+def encode(params, cfg: ModelConfig, frames, attn_impl: str = "flash"):
+    """frames (B, S_enc, D) -> encoder states (B, S_enc, D) in the model
+    dtype."""
+    eps = cfg.norm_eps
+    x = frames.to(dtype=torch_dtype(cfg.dtype))
+    x = x + sinusoidal(x.shape[1], x.shape[2], x.dtype, x.device)
+    for layer in range(cfg.n_enc_layers):
+        lp = _layer(params["enc_layers"], layer)
+        x = x + attn_block(cfg, lp, rms_norm(x, lp["ln1"], eps),
+                           positions=None, attn_impl=attn_impl,
+                           causal=False)
+        x = x + swiglu(rms_norm(x, lp["ln2"], eps), lp["wi_gate"],
+                       lp["wi_up"], lp["wo_mlp"])
+    return rms_norm(x, params["enc_final_norm"], eps)
+
+
+def cross_kv(cfg: ModelConfig, lp: dict, enc):
+    """One decoder layer's cross-attention K and V of encoder states enc
+    (B, S_enc, D): each (B, S_enc, K, hd)."""
+    B, Se, _ = enc.shape
+    Kp, hd = cfg.padded_kv_heads, cfg.head_dim
+    return ((enc @ lp["wxk"]).reshape(B, Se, Kp, hd),
+            (enc @ lp["wxv"]).reshape(B, Se, Kp, hd))
+
+
+def forward(params, cfg: ModelConfig, batch: dict, *,
+            attn_impl: str = "flash", return_hidden: bool = False):
+    """batch["frames"] (1 or B, S_enc, D) and batch["tokens"] (B, S) ->
+    logits (B, S, Vp) (``return_hidden``: the final-normed (B, S, D)).
+    The frames are encoded at their own batch; frames of batch 1 serve
+    every row of tokens."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    frames = batch["frames"]
+    source_lanes(frames.shape[0], B)
+    enc = encode(params, cfg, frames, attn_impl)
+    x = embed_tokens(cfg, params, tokens)
+    positions = torch.arange(S, device=x.device)
+    eps = cfg.norm_eps
+    for layer in range(cfg.n_layers):
+        lp = _layer(params["dec_layers"], layer)
+        k, v = cross_kv(cfg, lp, enc)
+        kv = (k.expand(B, -1, -1, -1), v.expand(B, -1, -1, -1))
+        x = x + attn_block(cfg, lp, rms_norm(x, lp["ln1"], eps),
+                           positions=positions, attn_impl=attn_impl)
+        x = x + attn_block(cfg, lp, rms_norm(x, lp["ln_x"], eps),
+                           positions=None, attn_impl=attn_impl, prefix="x",
+                           kv=kv, causal=False)
+        x = x + swiglu(rms_norm(x, lp["ln2"], eps), lp["wi_gate"],
+                       lp["wi_up"], lp["wo_mlp"])
+    x = rms_norm(x, params["final_norm"], eps)
+    return x if return_hidden else lm_logits(cfg, params, x)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device=None, source_len: int | None = None,
+               lanes: int | None = None):
+    """{"k", "v": (L, batch, max_len, K, hd); "xk", "xv": (L, lanes,
+    source_len, K, hd); "pos": (batch,) int32}, zeros, in the model dtype
+    (the JAX package plumbs no int8 cache for this family). ``source_len``
+    defaults to ``max_source_len``, ``lanes`` to ``batch`` (the JAX
+    layout); the engine sizes both from its frames."""
+    dtype = dtype or torch_dtype(cfg.dtype)
+    L, Kp, hd = cfg.n_layers, cfg.padded_kv_heads, cfg.head_dim
+    Se = source_len or cfg.max_source_len
+    lanes = batch if lanes is None else lanes
+    kv = (L, batch, max_len, Kp, hd)
+    xkv = (L, lanes, Se, Kp, hd)
+    return {
+        "k": torch.zeros(kv, dtype=dtype, device=device),
+        "v": torch.zeros(kv, dtype=dtype, device=device),
+        "xk": torch.zeros(xkv, dtype=dtype, device=device),
+        "xv": torch.zeros(xkv, dtype=dtype, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def write_cross_kv(params, cfg: ModelConfig, xk, xv, frames) -> None:
+    """Encode ``frames`` (lanes, S_enc, D) once and write every decoder
+    layer's cross K/V into ``xk``/``xv`` (L, lanes, S_enc, K, hd) in
+    place."""
+    enc = encode(params, cfg, frames)
+    for layer in range(cfg.n_layers):
+        k, v = cross_kv(cfg, _layer(params["dec_layers"], layer), enc)
+        xk[layer].copy_(k)
+        xv[layer].copy_(v)
+
+
+def precompute_cross_kv(params, cfg: ModelConfig, frames):
+    """Run the encoder once and return every decoder layer's cross K/V,
+    each (L, B, S_enc, K, hd), as the JAX package's function does."""
+    shape = (cfg.n_layers,) + tuple(frames.shape[:2]) \
+        + (cfg.padded_kv_heads, cfg.head_dim)
+    xk = torch.empty(shape, dtype=torch_dtype(cfg.dtype),
+                     device=frames.device)
+    xv = torch.empty_like(xk)
+    write_cross_kv(params, cfg, xk, xv, frames)
+    return xk, xv
+
+
+def decode_step(params, cfg: ModelConfig, cache, prev_tokens):
+    """One autoregressive step: (logits (B, Vp), cache). Per layer: self-
+    attention through the decode-attention kernel over the lane's own
+    K/V (written in place at its position), then cross-attention through
+    the same kernel over ``xk``/``xv`` whole, then the MLP. ``pos``
+    advances by one; the cross K/V are only read."""
+    pos = cache["pos"]
+    B = prev_tokens.shape[0]
+    Hp, hd = cfg.padded_heads, cfg.head_dim
+    eps = cfg.norm_eps
+    x = embed_tokens(cfg, params, prev_tokens[:, None])
+    Se = cache["xk"].shape[2]
+    src_len = torch.full((B,), Se, dtype=torch.int32, device=x.device)
+    for layer in range(cfg.n_layers):
+        lp = _layer(params["dec_layers"], layer)
+        x = x + _decode_attn_one(cfg, lp, rms_norm(x, lp["ln1"], eps),
+                                 cache["k"][layer], cache["v"][layer], pos)
+        q = (rms_norm(x, lp["ln_x"], eps) @ lp["wxq"]).reshape(B, Hp, hd)
+        o = ops.decode_attention(q, cache["xk"][layer].expand(B, -1, -1, -1),
+                                 cache["xv"][layer].expand(B, -1, -1, -1),
+                                 src_len)
+        x = x + o.reshape(B, 1, Hp * hd) @ lp["wxo"]
+        x = x + swiglu(rms_norm(x, lp["ln2"], eps), lp["wi_gate"],
+                       lp["wi_up"], lp["wo_mlp"])
+    x = rms_norm(x, params["final_norm"], eps)
+    logits = lm_logits(cfg, params, x)[:, 0]
+    pos.add_(1)             # in place: every cache leaf keeps its storage
+    return logits, cache

@@ -9,9 +9,9 @@ GB; it is never staged on the host). ``from_jax`` turns the JAX package's
 parameter tree, as numpy arrays, into the port's tensors, so that the two
 packages compute the same function in the tests.
 
-The dense, moe (granite-moe, qwen3-moe), ssm (mamba2) and hybrid
-(zamba2) families; the vlm image prefix and the encdec family are not
-ported yet.
+Every family of the JAX package: dense and vlm (the vlm's image
+prefix has no weights of its own), moe (granite-moe, qwen3-moe), ssm
+(mamba2), hybrid (zamba2) and encdec (whisper).
 """
 from __future__ import annotations
 
@@ -33,20 +33,24 @@ class Leaf:
     scale: float = 1.0
 
 
-def _attn_leaves(cfg: ModelConfig, L: Optional[int]) -> dict:
+def _attn_leaves(cfg: ModelConfig, L: Optional[int],
+                 cross: bool = False) -> dict:
+    """Attention leaves; ``cross``: the encdec decoder's cross-attention
+    (``wxq`` .. ``wxo``, never qk-norm)."""
     D, hd = cfg.d_model, cfg.head_dim
     Hp, Kp = cfg.padded_heads, cfg.padded_kv_heads
     pre = (L,) if L else ()
     lax = ("layers",) if L else ()
     s_in = 1.0 / np.sqrt(D)
     s_out = 1.0 / np.sqrt(Hp * hd)
+    p = "x" if cross else ""
     leaves = {
-        "wq": Leaf(pre + (D, Hp * hd), lax + ("embed", "heads"), "normal", s_in),
-        "wk": Leaf(pre + (D, Kp * hd), lax + ("embed", "kv_heads"), "normal", s_in),
-        "wv": Leaf(pre + (D, Kp * hd), lax + ("embed", "kv_heads"), "normal", s_in),
-        "wo": Leaf(pre + (Hp * hd, D), lax + ("heads", "embed"), "normal", s_out),
+        f"w{p}q": Leaf(pre + (D, Hp * hd), lax + ("embed", "heads"), "normal", s_in),
+        f"w{p}k": Leaf(pre + (D, Kp * hd), lax + ("embed", "kv_heads"), "normal", s_in),
+        f"w{p}v": Leaf(pre + (D, Kp * hd), lax + ("embed", "kv_heads"), "normal", s_in),
+        f"w{p}o": Leaf(pre + (Hp * hd, D), lax + ("heads", "embed"), "normal", s_out),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         leaves["q_norm"] = Leaf(pre + (hd,), lax + (None,), "ones")
         leaves["k_norm"] = Leaf(pre + (hd,), lax + (None,), "ones")
     return leaves
@@ -108,15 +112,17 @@ def _norm(L: Optional[int], name: str, D: int) -> dict:
 
 
 def schema(cfg: ModelConfig) -> dict:
-    """Nested dict of Leaf for the given (dense, moe, ssm or hybrid)
-    config. A moe layer has the dense layer's attention and norms, and the
-    router and experts in place of the MLP. The hybrid's ``shared_attn``
-    (one unstacked attention + MLP block) sorts after every other key, so
-    ``init_params`` draws it last."""
-    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the port has the dense, moe, ssm and hybrid families only so "
-            f"far (got {cfg.family!r})")
+    """Nested dict of Leaf for the given config. A moe layer has the
+    dense layer's attention and norms, and the router and experts in place
+    of the MLP. The hybrid's ``shared_attn`` (one unstacked attention +
+    MLP block) sorts after every other key, so ``init_params`` draws it
+    last. encdec: ``enc_layers`` (attention, MLP, ``ln1``, ``ln2``),
+    ``enc_final_norm``, and ``dec_layers`` (self-attention, the cross-
+    attention's ``wxq/wxk/wxv/wxo``, MLP, ``ln1``, ``ln_x``, ``ln2``)
+    in place of ``layers``."""
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid",
+                          "encdec"):
+        raise ValueError(f"unknown model family {cfg.family!r}")
     D, L, Vp = cfg.d_model, cfg.n_layers, cfg.padded_vocab
     tree: dict = {"embed": Leaf((Vp, D), ("vocab_rows", "embed"), "normal", 1.0)}
     if not cfg.tie_embeddings:
@@ -134,6 +140,15 @@ def schema(cfg: ModelConfig) -> dict:
     elif cfg.family == "moe":
         tree["layers"] = {**_attn_leaves(cfg, L), **_moe_leaves(cfg, L),
                           **_norm(L, "ln1", D), **_norm(L, "ln2", D)}
+    elif cfg.family == "encdec":
+        Le = cfg.n_enc_layers
+        tree["enc_layers"] = {**_attn_leaves(cfg, Le), **_mlp_leaves(cfg, Le),
+                              **_norm(Le, "ln1", D), **_norm(Le, "ln2", D)}
+        tree["enc_final_norm"] = Leaf((D,), (None,), "ones")
+        tree["dec_layers"] = {**_attn_leaves(cfg, L),
+                              **_attn_leaves(cfg, L, cross=True),
+                              **_mlp_leaves(cfg, L), **_norm(L, "ln1", D),
+                              **_norm(L, "ln_x", D), **_norm(L, "ln2", D)}
     else:
         tree["layers"] = {**_attn_leaves(cfg, L), **_mlp_leaves(cfg, L),
                           **_norm(L, "ln1", D), **_norm(L, "ln2", D)}
@@ -206,7 +221,8 @@ def from_jax(params_np: dict, device=None) -> dict:
     in_dt, conv_w, A_log, D_skip, dt_bias, out_proj}`` for the ssm
     family; the hybrid family has the ssm ``layers`` and
     ``shared_attn/{wq, wk, wv, wo, wi_gate, wi_up, wo_mlp, ln1, ln2}``,
-    unstacked) as the port's tensors: same names, same layouts, same
+    unstacked; the encdec family ``enc_layers``, ``enc_final_norm`` and
+    ``dec_layers``) as the port's tensors: same names, same layouts, same
     dtypes."""
     device = torch.device("cpu" if device is None else device)
     return {k: from_jax(v, device) if isinstance(v, dict)

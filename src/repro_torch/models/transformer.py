@@ -23,8 +23,14 @@ The decode cache has the JAX package's two variants:
     kernel attends min(pos + 1, S) slots -- the last S positions once the
     ring has wrapped. A speculative rollback must then put back the slots
     that rejected drafts overwrote (``ring_leaves``, ``serve/graphs.py``).
-Not ported yet (it raises ``NotImplementedError``): the ``vlm``
-image-embedding prefix of ``forward``.
+The ``vlm`` family is this model with an image prefix in ``forward``:
+``batch["img_embeds"]`` (B, n_img, D), the stub frontend's patch
+embeddings, go before the token embeddings, positions run over the whole
+sequence, and the image positions are dropped after the final norm (the
+JAX package's ``transformer.py`` forward). Its decode step is the dense
+one and reads no image, as the JAX package's does. ``attn_block`` also
+serves the encdec family (``models/encdec.py``): bidirectional, without
+rotary positions, and as cross-attention over given K/V.
 
 One deliberate difference: JAX is functional and returns a new cache;
 here ``decode_step`` writes the new K/V into the cache tensors in place
@@ -81,27 +87,34 @@ ATTN_IMPLS = ("flash", "masked")
 
 
 def attn_block(cfg: ModelConfig, lp: dict, x, *, positions,
-               attn_impl: str = "flash"):
+               attn_impl: str = "flash", prefix: str = "", kv=None,
+               causal: bool = True):
     """Pre-norm attention of one layer over the whole sequence (residual
     applied by the caller): x (B, S, D) -> (B, S, D). ``attn_impl``
-    "flash" is the kernel, "masked" the differentiable plain version."""
+    "flash" is the kernel, "masked" the differentiable plain version.
+    As the JAX package's ``attn_block``: ``positions`` None applies no
+    rotary embedding; ``kv`` (k, v), each (B, Sk, K, hd), replaces the
+    block's own K/V (cross-attention); ``prefix`` picks the weights
+    ``w{prefix}q`` ...; qk-norm applies to the unprefixed block only."""
     B, S, _ = x.shape
     hd, Hp, Kp = cfg.head_dim, cfg.padded_heads, cfg.padded_kv_heads
-    q = (x @ lp["wq"]).reshape(B, S, Hp, hd)
-    k = (x @ lp["wk"]).reshape(B, S, Kp, hd)
-    v = (x @ lp["wv"]).reshape(B, S, Kp, hd)
-    if cfg.qk_norm:
+    q = (x @ lp[f"w{prefix}q"]).reshape(B, S, Hp, hd)
+    if kv is None:
+        k = (x @ lp[f"w{prefix}k"]).reshape(B, S, Kp, hd)
+        v = (x @ lp[f"w{prefix}v"]).reshape(B, S, Kp, hd)
+    else:
+        k, v = kv
+    if cfg.qk_norm and not prefix:
         q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
         k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    if attn_impl == "masked":
-        o = attention_masked(q, k, v, causal=True,
-                             window=cfg.sliding_window)
-    else:
-        o = prefill_attention(q, k, v, causal=True,
-                              window=cfg.sliding_window)
-    return o.reshape(B, S, Hp * hd) @ lp["wo"]
+    if positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        if kv is None:
+            k = rope(k, positions, cfg.rope_theta)
+    attend = attention_masked if attn_impl == "masked" else \
+        prefill_attention
+    o = attend(q, k, v, causal=causal, window=cfg.sliding_window)
+    return o.reshape(B, S, Hp * hd) @ lp[f"w{prefix}o"]
 
 
 def dense_block(cfg: ModelConfig, lp: dict, x, *, positions,
@@ -118,17 +131,29 @@ def forward(params, cfg: ModelConfig, batch: dict, *,
     logits[:, t] predicts tokens[:, t + 1] (the predictor handles the BOS
     shift). "flash": one prefill-attention launch per layer; "masked":
     the plain attention autograd can differentiate. ``return_hidden``
-    stops before the LM head: the final-normed (B, S, D)."""
+    stops before the LM head: the final-normed (B, S, D).
+
+    vlm: ``batch["img_embeds"]`` (B, n_img, D), cast to the model dtype,
+    is put before the token embeddings and dropped after the final norm,
+    so the logits are the text positions' (B, S, Vp). Its batch must be
+    the tokens' (``ValueError``, where the JAX package's concatenate
+    raises). Other families ignore it, as the JAX package does."""
     _check_family(cfg)
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} (one of {ATTN_IMPLS})")
-    if "img_embeds" in batch:
-        raise NotImplementedError(
-            "the vlm image-embedding prefix of forward is not ported yet")
     tokens = batch["tokens"]
-    S = tokens.shape[1]
     x = embed_tokens(cfg, params, tokens)
-    positions = torch.arange(S, device=x.device)
+    n_img = 0
+    if cfg.family == "vlm" and "img_embeds" in batch:
+        img = batch["img_embeds"]
+        if img.dim() != 3 or img.shape[0] != x.shape[0] \
+                or img.shape[2] != x.shape[2]:
+            raise ValueError(
+                f"img_embeds {tuple(img.shape)} must be (B, n_img, "
+                f"{x.shape[2]}) with the tokens' batch B = {x.shape[0]}")
+        n_img = img.shape[1]
+        x = torch.cat([img.to(device=x.device, dtype=x.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)
     lp = params["layers"]
     remat = cfg.remat and torch.is_grad_enabled()
 
@@ -139,7 +164,7 @@ def forward(params, cfg: ModelConfig, batch: dict, *,
         weights = [w[layer] for w in lp.values()]
         x = checkpoint(block, x, *weights, use_reentrant=False) if remat \
             else block(x, *weights)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)[:, n_img:]
     return x if return_hidden else lm_logits(cfg, params, x)
 
 

@@ -1,9 +1,9 @@
 """Serving engine: lock-step decode over the port's models.
 
 ``ModelPredictor`` implements the compressor's ``PredictorAdapter``
-(core/compressor.py) over the port's models (dense, moe, ssm and hybrid) in
-PyTorch, as the JAX package's ``serve/engine.py`` does over its model
-zoo:
+(core/compressor.py) over the port's models (dense, vlm, moe, ssm, hybrid
+and encdec) in PyTorch, as the JAX package's ``serve/engine.py`` does
+over its model zoo:
 
   * ``score_chunks`` — one teacher-forced ``forward`` over (B, C) chunks,
     fresh or under a scored ``prefix`` (the router probe, ``exact=False``
@@ -37,6 +37,19 @@ buffers and the next call on the same cache overwrites them. Every call
 here writes the cache in place, so its leaves keep their storage, which
 the graphs need. On the CPU the same step runs eagerly.
 
+Per-job conditioning (``extra_batch``, as in the JAX engine): the vlm's
+``img_embeds`` (B, n_img, D) and the encdec family's ``frames`` (1 or B,
+S_enc, D), fixed for the predictor's life. Scoring puts them into every
+``forward`` batch. The vlm decode step is the dense one and reads no
+image (nor does the JAX one), so an exact-mode vlm archive is coded
+without it. The encdec decode cache holds the encoder's cross-attention
+K/V (``xk``/``xv``), which ``begin_decode`` writes in place from the
+frames before any step; lane resets, snapshots, restores and rollbacks
+leave them as they are (``models.api.conditioning_leaves``). Frames of
+batch 1 serve every lane from ONE copy of the cross K/V, which the step
+reads with stride 0 over the lanes; frames of the cache's batch serve one
+lane each; any other batch is refused.
+
 The BOS convention: the model input for chunk tokens x_0..x_{C-1} is
 [BOS, x_0, .., x_{C-2}], so logits[t] parameterizes P(x_t | x_<t) with a
 fresh context per chunk — the paper's chunked setup (§5.4).
@@ -55,6 +68,7 @@ from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import api as model_api
+from repro_torch.models import encdec
 from . import graphs
 
 
@@ -62,7 +76,7 @@ class ModelPredictor:
     """PredictorAdapter over the port's models (one device)."""
 
     def __init__(self, params, cfg: ModelConfig, *, bos_id: int | None = None,
-                 device=None):
+                 extra_batch: dict | None = None, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # full fp32 products and fp32 reductions for bf16 products,
@@ -71,33 +85,75 @@ class ModelPredictor:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
                 = False
-        model_api.module_for(cfg)           # refuses unported families
+        model_api.module_for(cfg)           # refuses unknown families
         self.params = params
         self.cfg = cfg
         self.vocab_size = cfg.vocab_size
         self.bos_id = bos_id if bos_id is not None else cfg.vocab_size - 1
+        self.extra_batch = {
+            k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(
+                np.asarray(v))).to(self.device)
+            for k, v in (extra_batch or {}).items()}
+        if cfg.family == "encdec" and "frames" not in self.extra_batch:
+            raise ValueError(
+                "the encdec family decodes against a source: pass "
+                "extra_batch={'frames': (1 or B, S_enc, d_model)} "
+                "(random_init draws them from its seed)")
+        self._keep = model_api.conditioning_leaves(cfg)
         self._decode_max_len = 1024
         self._programs = None if self.device.type == "cpu" else \
-            graphs.DecodePrograms(self._init_cache, self._step_body,
+            graphs.DecodePrograms(self._alloc_cache, self._step_body,
                                   model_api.rollback_leaves(cfg),
                                   self.device, model_api.ring_leaves(cfg))
 
     @classmethod
     def random_init(cls, cfg: ModelConfig, *, seed: int = 0, device=None,
+                    extra_batch: dict | None = None,
                     **kw) -> "ModelPredictor":
         """A predictor with random weights made from ``seed`` directly on
-        ``device`` (the card unless the caller asks for the CPU)."""
+        ``device`` (the card unless the caller asks for the CPU). An
+        encdec predictor given no ``frames`` takes its stub frontend's
+        frames (1, max_source_len, D) from the same seed
+        (``models.api.stub_inputs``), so a fresh process rebuilds the
+        same predictor from the seed alone."""
         dev = resolve_device(device)
+        extra = dict(extra_batch or {})
+        if cfg.family == "encdec" and "frames" not in extra:
+            extra.update(model_api.stub_inputs(cfg, 1, seed=seed,
+                                               device=dev))
         return cls(model_api.init_params(cfg, seed, dev), cfg, device=dev,
-                   **kw)
+                   extra_batch=extra, **kw)
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(np.asarray(tokens, np.int64),
                                device=self.device)
 
-    def _init_cache(self, batch: int, max_len: int) -> dict:
+    def _alloc_cache(self, batch: int, max_len: int) -> dict:
+        """A zeroed cache of ``batch`` lanes; an encdec cross cache as long
+        as the frames and with their lanes (1 or ``batch``)."""
+        kw = {}
+        if self.cfg.family == "encdec":
+            frames = self.extra_batch["frames"]
+            kw = dict(source_len=frames.shape[1],
+                      lanes=encdec.source_lanes(frames.shape[0], batch))
         return model_api.init_cache(self.cfg, batch, max_len,
-                                    device=self.device)
+                                    device=self.device, **kw)
+
+    @torch.no_grad()
+    def _condition(self, cache) -> None:
+        """Write the per-job conditioning into ``cache`` in place: the
+        encdec cross K/V of the frames, encoded at their own batch."""
+        if self.cfg.family == "encdec":
+            encdec.write_cross_kv(self.params, self.cfg, cache["xk"],
+                                  cache["xv"], self.extra_batch["frames"])
+
+    def _init_cache(self, batch: int, max_len: int) -> dict:
+        """A fresh cache with its conditioning, off the captured programs
+        (the CPU's, and the eager twin the card's checks hold a captured
+        step against)."""
+        cache = self._alloc_cache(batch, max_len)
+        self._condition(cache)
+        return cache
 
     def _step_body(self, cache, prev: torch.Tensor) -> torch.Tensor:
         """The decode step's body: the cache advanced in place, logits
@@ -140,8 +196,9 @@ class ModelPredictor:
                 P = prefix.shape[1]
                 parts.append(prefix)
             inp = np.concatenate(parts + [tokens[:, :-1]], axis=1)
-            logits = model_api.forward(self.params, self.cfg,
-                                       {"tokens": self._tokens(inp)})
+            logits = model_api.forward(
+                self.params, self.cfg,
+                {"tokens": self._tokens(inp), **self.extra_batch})
             return logits[:, P:, :self.cfg.vocab_size]
 
     def begin_decode(self, batch: int, prefix: np.ndarray | None = None):
@@ -151,13 +208,16 @@ class ModelPredictor:
         calls); the caller feeds prefix[:, -1] as the first decode_step
         input. On the card a cache that no caller holds any longer is
         handed out again, zeroed in place, with the graphs captured over
-        it. In a ring cache (a sliding window W) the prefill wraps as the
-        steps would: a prefix longer than the ring's S slots leaves only
-        its last S positions in the cache, which is what the next steps
-        attend."""
-        cache = self._init_cache(batch, self._decode_max_len) \
-            if self._programs is None else \
-            self._programs.fresh_cache(batch, self._decode_max_len)
+        it. An encdec cache's cross K/V are written from the frames, in
+        place, before any step. In a ring cache (a sliding window W) the
+        prefill wraps as the steps would: a prefix longer than the ring's
+        S slots leaves only its last S positions in the cache, which is
+        what the next steps attend."""
+        if self._programs is None:
+            cache = self._init_cache(batch, self._decode_max_len)
+        else:
+            cache = self._programs.fresh_cache(batch, self._decode_max_len)
+            self._condition(cache)
         if prefix is not None:
             prefix = np.asarray(prefix, np.int64)
             if prefix.ndim == 1:
@@ -227,11 +287,14 @@ class ModelPredictor:
         prefix cache stores for a prefilled shared prefix. Leaves are
         (L, B, ...) with the lane on axis 1 (K/V, an int8 cache's
         ``k_scale``/``v_scale``, a ring whole, conv and SSM state); ``pos``
-        is (B,). The live cache is untouched."""
+        is (B,). The conditioning leaves (encdec cross K/V) are per job,
+        not per lane: the snapshot holds none of their bytes. The live
+        cache is untouched."""
         with obs.span("model.snapshot_slot"):
             return {name: (leaf[lane] if name == "pos" else
                            leaf[:, lane]).clone()
-                    for name, leaf in state.items()}
+                    for name, leaf in state.items()
+                    if name not in self._keep}
 
     @torch.no_grad()
     def restore_slot(self, state, snapshot: dict, mask: np.ndarray):
@@ -248,7 +311,7 @@ class ModelPredictor:
                 for name, leaf in state.items():
                     if name == "pos":
                         leaf[lanes] = snapshot[name]
-                    else:
+                    elif name not in self._keep:
                         leaf[:, lanes] = snapshot[name].unsqueeze(1)
             return state
 
@@ -261,7 +324,9 @@ class ModelPredictor:
         on axis 1, is zeroed. For an SSM the conv and recurrent state
         MUST be zeroed (they are the context); for attention, zeroing K/V
         is hygiene (the per-lane length already hides stale entries); the
-        hybrid has both."""
+        hybrid has both. The encdec cross K/V are per-job conditioning
+        and survive (zeroed, a refilled lane would attend zeros), as in
+        the JAX engine's ``_reset``."""
         with obs.span("model.reset_slots"):
             lanes = torch.as_tensor(np.nonzero(np.asarray(mask, bool))[0],
                                     device=self.device)
@@ -269,7 +334,7 @@ class ModelPredictor:
                 for name, leaf in state.items():
                     if name == "pos":
                         leaf[lanes] = 0
-                    else:
+                    elif name not in self._keep:
                         leaf[:, lanes] = 0
             return state
 

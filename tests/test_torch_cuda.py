@@ -60,6 +60,7 @@ from repro_torch.configs import h2o_danube_3_4b as ph2o  # noqa: E402
 from repro_torch.configs import mamba2_130m as pmamba  # noqa: E402
 from repro_torch.configs import qwen3_1_7b as pqwen  # noqa: E402
 from repro_torch.configs import qwen3_moe_235b_a22b as pqmoe  # noqa: E402
+from repro_torch.configs import whisper_large_v3 as pwhisper  # noqa: E402
 from repro_torch.configs import zamba2_7b as pzamba  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
@@ -72,7 +73,10 @@ DECODE_SHAPES = [(2, 4, 2, 64, 16), (3, 4, 4, 128, 32), (2, 2, 1, 96, 16),
                  (16, 8, 4, 128, 32),
                  # G 16: qwen3-moe-235b-a22b's 64 q-heads over 4 kv-heads,
                  # and 16 over 1 at hd 64
-                 (16, 64, 4, 128, 128), (3, 16, 1, 96, 64)]
+                 (16, 64, 4, 128, 128), (3, 16, 1, 96, 64),
+                 # whisper-large-v3's cross-attention: S 1,500, not a
+                 # multiple of the 32-position tile (8 CTAs of 192)
+                 (16, 32, 32, 1500, 64)]
 
 
 @pytest.fixture
@@ -257,6 +261,12 @@ FLASH_CASES = [
     (16, 32, 32, 128, 128, 112, True, None),    # zamba2-7b: MHA, hd 112
     (16, 32, 32, 32, 32, 112, True, None),      # its probe
     (16, 32, 32, 160, 160, 112, True, None),    # under a 32-token prefix
+    # whisper-large-v3: the encoder (bidirectional over 1,500 frames) and
+    # scoring's cross-attention (128 queries over 1,500 keys), G 1, hd 64
+    (1, 32, 32, 1500, 1500, 64, False, None),
+    (16, 32, 32, 128, 1500, 64, False, None),
+    # llava-next-34b with its image: 576 + 128 positions, G 8
+    (2, 64, 8, 704, 704, 128, True, None),
 ]
 
 
@@ -705,7 +715,10 @@ _GRAPH_FAMILIES = (("dense", pqwen.CONFIG, {}), ("ssm", pmamba.CONFIG, {}),
                    ("dense-ring-int8", ph2o.CONFIG,
                     dict(_RING, kv_cache_dtype="int8")),
                    # qk-norm and G = 16, as qwen3-moe-235b-a22b
-                   ("moe", pqmoe.CONFIG, {"n_heads": 16, "n_kv_heads": 1}))
+                   ("moe", pqmoe.CONFIG, {"n_heads": 16, "n_kv_heads": 1}),
+                   # frames (1, 32, d) drawn by random_init: one cross
+                   # cache read by every lane with stride 0
+                   ("encdec", pwhisper.CONFIG, {}))
 GRAPH_CFGS = {f"{fam}-{dt}": pbase.tiny_variant(cfg, **kw).with_(dtype=dt)
               for fam, cfg, kw in _GRAPH_FAMILIES
               for dt in ("float32", "bfloat16")}
@@ -714,7 +727,10 @@ GRAPH_CFGS = {f"{fam}-{dt}": pbase.tiny_variant(cfg, **kw).with_(dtype=dt)
 ATTN_PER_STEP = {"dense-bfloat16": GRAPH_CFGS["dense-bfloat16"].n_layers,
                  "dense-int8-bfloat16": GRAPH_CFGS["dense-bfloat16"].n_layers,
                  "hybrid-bfloat16": 2,
-                 "moe-bfloat16": GRAPH_CFGS["moe-bfloat16"].n_layers}
+                 "moe-bfloat16": GRAPH_CFGS["moe-bfloat16"].n_layers,
+                 # self and cross attention in every decoder layer
+                 "encdec-bfloat16": 2 * GRAPH_CFGS["encdec-bfloat16"]
+                 .n_layers}
 
 
 def _same_cache(a, b):
@@ -824,6 +840,54 @@ def test_moe_lane_is_independent_on_the_card(cuda, dtype):
         other[lane] = toks[lane]
         got = _lockstep(pred, pred.begin_decode(B), other)[0]
         assert torch.equal(got[lane], base[lane])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_over_a_shared_cross_cache(cuda, dtype):
+    """The encdec cross-attention's call: one (S, K, hd) source expanded
+    over 16 lanes with stride 0, every lane's length S = 1,500: against
+    the plain version, and each lane equal to the same query against an
+    unexpanded copy, bit for bit."""
+    rng = np.random.default_rng(15)
+    t = lambda shape: torch.from_numpy(rng.normal(size=shape).astype(  # noqa
+        np.float32)).to(device=cuda, dtype=_DT[dtype])
+    B, H, S, hd = 16, 32, 1500, 64
+    q, kc, vc = t((B, H, hd)), t((1, S, H, hd)), t((1, S, H, hd))
+    lens = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    ke, ve = kc.expand(B, -1, -1, -1), vc.expand(B, -1, -1, -1)
+    out = ops.decode_attention(q, ke, ve, lens)
+    _attention_close(out, ref.decode_attention(*_f32(q, ke, ve), lens),
+                     dtype)
+    own = ops.decode_attention(q, ke.contiguous(), ve.contiguous(), lens)
+    assert torch.equal(out, own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encdec_lane_is_independent_on_the_card(cuda, dtype):
+    """Through the captured encdec step, bit for bit: a sequence's logits
+    are the same on whichever lane it runs, and a lane's are the same
+    whatever the other lanes' tokens are; a lane reset in mid-job then
+    gives a fresh cache's logits (the cross K/V survive the reset)."""
+    cfg = GRAPH_CFGS[f"encdec-{dtype}"]
+    pred = ModelPredictor.random_init(cfg, seed=0, device=cuda)
+    B, n = 16, 8
+    pred.set_decode_len(16)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size - 1, (B, n))
+    base = _lockstep(pred, pred.begin_decode(B), toks)[0]
+    moved = np.roll(np.arange(B), 5)
+    assert torch.equal(_lockstep(pred, pred.begin_decode(B),
+                                 toks[moved])[0], base[moved])
+    other = rng.integers(0, cfg.vocab_size - 1, (B, n))
+    other[3] = toks[3]
+    assert torch.equal(_lockstep(pred, pred.begin_decode(B), other)[0][3],
+                       base[3])
+    state = _lockstep(pred, pred.begin_decode(B), other)[1]
+    pred.reset_slots(state, np.arange(B) == 3)
+    got = _lockstep(pred, state, toks)[0]
+    assert torch.equal(got[3], base[3])
 
 
 def _lockstep(pred, state, toks):

@@ -28,6 +28,7 @@ import jax  # noqa: E402
 
 from helpers import golden_self_tokens  # noqa: E402
 from repro.configs import base as jbase  # noqa: E402
+from repro.configs import llava_next_34b as jllava  # noqa: E402
 from repro.configs import paper_predictors as jpp  # noqa: E402
 from repro.configs import qwen3_1_7b as jqwen  # noqa: E402
 from repro.core import router as jrouter  # noqa: E402
@@ -36,6 +37,7 @@ from repro.models import transformer as jtf  # noqa: E402
 from repro.serve.engine import ModelPredictor as JPredictor  # noqa: E402
 from repro_torch import cli  # noqa: E402
 from repro_torch.configs import base as pbase  # noqa: E402
+from repro_torch.configs import llava_next_34b as pllava  # noqa: E402
 from repro_torch.configs import paper_predictors as ppp  # noqa: E402
 from repro_torch.configs import qwen3_1_7b as pqwen  # noqa: E402
 from repro_torch.core import LLMCompressor, read_header, read_index  # noqa
@@ -78,17 +80,33 @@ def test_forward_matches_jax(window):
 def test_forward_accepts_a_window_that_decode_refuses():
     """forward takes the sliding window. The decode cache, which refused
     it until the ring was ported, is now a ring of min(max_len, W) slots
-    (held against JAX in tests/test_torch_cache_variants.py); the vlm
-    image prefix of forward is still refused."""
+    (held against JAX in tests/test_torch_cache_variants.py). The vlm
+    image prefix of forward, refused until it was ported, matches JAX's
+    (more in tests/test_torch_vlm.py); the dense family ignores
+    ``img_embeds``, as JAX's does."""
     _, pcfg = QWEN[16]
     params = schema.init_params(pcfg, seed=0)
     api.forward(params, pcfg, {"tokens": torch.zeros((1, 4), dtype=int)})
     assert api.init_cache(pcfg, 1, 8)["k"].shape[2] == 8
     assert api.init_cache(pcfg, 1, 40)["k"].shape[2] == 16
     assert api.ring_leaves(pcfg) == ("k", "v")
-    with pytest.raises(NotImplementedError):
-        api.forward(params, pcfg, {"tokens": torch.zeros((1, 4), dtype=int),
-                                   "img_embeds": torch.zeros((1, 2, 64))})
+    toks = torch.zeros((1, 4), dtype=int)
+    img = torch.zeros((1, 2, 64))
+    assert torch.equal(api.forward(params, pcfg, {"tokens": toks}),
+                       api.forward(params, pcfg, {"tokens": toks,
+                                                  "img_embeds": img}))
+    jcfg = jbase.tiny_variant(jllava.CONFIG, sliding_window=16)
+    vcfg = pbase.tiny_variant(pllava.CONFIG, sliding_window=16)
+    pnp, vparams = _pair(jcfg, vcfg, seed=1)
+    rng = np.random.default_rng(2)
+    vt = rng.integers(0, jcfg.vocab_size, (2, 12)).astype(np.int32)
+    vi = rng.normal(size=(2, jcfg.n_img_tokens, 64)).astype(np.float32)
+    want = jax.jit(lambda p, t, i: jtf.forward(
+        p, jcfg, {"tokens": t, "img_embeds": i}))(pnp, vt, vi)
+    got = api.forward(vparams, vcfg, {"tokens": torch.from_numpy(vt).long(),
+                                      "img_embeds": torch.from_numpy(vi)})
+    assert got.shape == (2, 12, vcfg.padded_vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.fixture(scope="module")

@@ -6,8 +6,8 @@ program over K + 1 positions, ``rollback`` of each lane to what it
 accepted) must give exactly the lock-step decoder's output for every
 proposer: the suffix self-draft, one that is always wrong, and an oracle.
 The cases of ``tests/test_speculative.py``, on the port's
-``ModelPredictor`` (tiny dense, moe, ssm and hybrid configs, random weights
-from seed 0) instead of a lookup-table predictor: both coded alphabets,
+``ModelPredictor`` (tiny dense, moe, ssm, hybrid and encdec configs,
+random weights from seed 0) instead of a lookup-table predictor: both coded alphabets,
 an escape-heavy top-k stream, ragged tails, the AC codec (which ignores
 the draft) and empty inputs. On predictable text an oracle draft issues
 at most half the model programs of lock-step decode.
@@ -22,6 +22,7 @@ from repro_torch.configs import base as pbase  # noqa: E402
 from repro_torch.configs import mamba2_130m as pmamba  # noqa: E402
 from repro_torch.configs import qwen3_1_7b as pqwen  # noqa: E402
 from repro_torch.configs import qwen3_moe_235b_a22b as pqmoe  # noqa: E402
+from repro_torch.configs import whisper_large_v3 as pwhisper  # noqa: E402
 from repro_torch.configs import zamba2_7b as pzamba  # noqa: E402
 from repro_torch.core import LLMCompressor  # noqa: E402
 from repro_torch.core.draft import ConstantDraft, OracleDraft  # noqa: E402
@@ -31,7 +32,9 @@ from repro_torch.service import CompressionService  # noqa: E402
 CFGS = {"dense": pbase.tiny_variant(pqwen.CONFIG),
         "ssm": pbase.tiny_variant(pmamba.CONFIG),
         "hybrid": pbase.tiny_variant(pzamba.CONFIG, n_layers=5),
-        "moe": pbase.tiny_variant(pqmoe.CONFIG)}
+        "moe": pbase.tiny_variant(pqmoe.CONFIG),
+        # random_init draws the frames (1, 32, d) from the seed
+        "encdec": pbase.tiny_variant(pwhisper.CONFIG)}
 
 
 class CountingPredictor(ModelPredictor):
