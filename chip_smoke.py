@@ -243,6 +243,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    a lane snapshot holding none of the cross K/V (phase 11 also refuses
    a stored snapshot that holds conditioning leaves). Then one fresh
    process decompresses both configs' containers.
+23. Training of the other families, one config at a time, each freed
+   before the next (``TRAIN_FAMILIES``): ``mamba2-130m`` (8 x 512
+   tokens) and ``granite-moe-1b-a400m`` (4 x 512: capacity C = 640 at
+   factor 1.25) at full depth, ``zamba2-7b`` cut to ``ZAMBA_CUT`` (4 x
+   512; the update's 22 B a parameter: 59 GB at 29 layers) and
+   ``whisper-large-v3`` at full depth (2 x 256 tokens, frames (2, 1,500,
+   1,280) from a seed), all at full width, bf16 with fp32 moments and
+   remat per layer: TRAIN_STEPS AdamW steps through ``make_train_step``
+   on one fixed batch, every leaf's gradient finite and nonzero at step
+   1, the loss falling, ``ops.LAUNCHES`` unchanged by the steps; the
+   step's host and device ms, kernels, tokens/s, peak memory, and for
+   moe the share of (token, slot) pairs dropped at step 1 and trained.
+   Then, on the trained weights with no gradient, the scoring forward
+   (``ssd_intra``, ``flash_attention``; launches counted) against the
+   training forward: whisper to SCORE_TOL; mamba2 and zamba2 through the
+   fp32 twin of the trained weights (SCORE_TOL_FP32, then bf16 to twice
+   its distance from the twin); granite-moe's capacity dispatch without
+   drops (factor E / k) equal to the dropless one bit for bit, then the
+   fp32 twin router decision by router decision, as in phases 19-20.
 12. Last, one JSON line describing every kernel (its ``launches`` from
    the main path that runs it: phase 3 for ``decode_attention`` and
    ``topk_cdf``, 6 for ``cdf_points``, 5 for ``flash_attention``, 9 for
@@ -250,7 +269,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``decode_attention_int8``; phase 7 holds the CLI's own counts;
    ``launches_zamba2`` from phases 15 and 16, ``launches_phase17`` per
    config, ``launches_phase18``, ``launches_moe`` per phase 19-20
-   config and ``launches_phase21_22`` per phase 21-22 config), then the
+   config, ``launches_phase21_22`` per phase 21-22 config and
+   ``launches_phase23``, phase 23's kernel forwards per config), then the
    card's name and power limit again (the tail of a long log keeps
    them) and the result line ``{"ok":
    true, "device": {...}}`` as the last line of stdout. A ``[time]``
@@ -1576,8 +1596,9 @@ def _compare_logits(what: str, scored, decoded, tol=SCORE_TOL,
         rd = (b - fp32_twin.float()).abs()
         r.update(twin_mean_abs_diff=rd.mean().item(),
                  twin_max_abs_diff=rd.max().item())
-        held = (f"max |logit| {scale:.4g}; held to 2 x the bf16-vs-fp32 "
-                f"decode distance, mean {r['twin_mean_abs_diff']:.3g} max "
+        held = (f"max |logit| {scale:.4g}; held to 2 x the second "
+                f"program's distance from its fp32 twin, mean "
+                f"{r['twin_mean_abs_diff']:.3g} max "
                 f"{r['twin_max_abs_diff']:.4g}")
         ok = r["mean_abs_diff"] <= 2 * r["twin_mean_abs_diff"] \
             and r["max_abs_diff"] <= 2 * r["twin_max_abs_diff"]
@@ -1730,17 +1751,69 @@ def _with_routes(fn):
         moe.route = route
 
 
+def _stack_forward_routes(calls, L: int, B: int, N: int):
+    """The router calls of a teacher-forced forward (layer-major, each
+    layer's dispatch groups in order) as (router logits, experts), each
+    (L, B, N, .)."""
+    import torch
+    per = len(calls) // L               # dispatch groups a layer
+
+    def stacked(i):
+        return torch.stack([torch.cat([c[i] for c in calls[l * per:
+                                                           (l + 1) * per]])
+                            for l in range(L)]).view(L, B, N, -1)
+    return stacked(0), stacked(1)
+
+
+def _held_before_router_flips(what: str, a, b, ra, rb, tail: int) -> None:
+    """Logits ``a`` against ``b`` (B, tail, V): the last ``tail`` of N
+    positions of two moe programs whose router decisions ``ra``, ``rb``
+    ((router logits, experts), each (L, B, N, .)) were recorded over the
+    same N inputs. A lane's positions before its first differing expert
+    set (any layer) are held to SCORE_TOL_FP32 of max |b|, and that
+    first difference must be a rounding-size near-tie: the two
+    programs' router logits there within SCORE_TOL_FP32 of ``b``'s
+    program's largest |router logit|. At least MOE_CLEAN_SHARE of the
+    positions held must lie before their lane's first difference."""
+    (la, ea), (lb, eb) = ra, rb
+    flip = (ea.sort(-1).values != eb.sort(-1).values).any(-1)   # (L, B, N)
+    lane_flip = flip.any(0)                                      # (B, N)
+    clean = lane_flip.cumsum(-1) == 0    # before the lane's first flip
+    router_scale = lb.abs().max().item()
+    first = []
+    for lane in range(flip.shape[1]):
+        if bool(lane_flip[lane].any()):
+            t = int(lane_flip[lane].float().argmax().item())
+            layer = int(flip[:, lane, t].float().argmax().item())
+            first.append((la[layer, lane, t] - lb[layer, lane, t]).abs()
+                         .max().item())
+    keep = clean[:, -tail:]
+    diff = (a.float() - b.float()).abs().amax(-1)                # (B, tail)
+    scale = b.abs().max().item()
+    held = diff[keep].max().item() if bool(keep.any()) else 0.0
+    share = keep.float().mean().item()
+    worst = max(first, default=0.0)
+    log(f"[score] {what}: {int(flip.sum())} of {flip.numel()} router "
+        f"decisions differ between the two programs, {len(first)} of "
+        f"{flip.shape[1]} lanes; first differences at router-logit "
+        f"distance <= {worst:.3g} (limit {SCORE_TOL_FP32 * router_scale:.3g}"
+        f"); the {share:.1%} of positions before them: max |dlogit| "
+        f"{held:.4g} (tol {SCORE_TOL_FP32} x max |logit| {scale:.4g}); all "
+        f"positions: max {diff.max().item():.4g}, mean "
+        f"{(a.float() - b.float()).abs().mean().item():.3g}")
+    if held > SCORE_TOL_FP32 * scale or worst > SCORE_TOL_FP32 * \
+            router_scale or share < MOE_CLEAN_SHARE:
+        fail(f"{what}: the two programs disagree beyond router near-ties "
+             f"(clean max {held}, first router distance {worst}, clean "
+             f"share {share})")
+
+
 def _moe_twin_check(twin, chunks, prefix, what: str):
     """fp32 moe scoring against the fp32 decode program, router decision
     by router decision (see SCORE_TOL_FP32): scoring and the eager decode
     program (bit-identical to the captured step, phases 3 and 19-20) run
     with their routes recorded over the same N inputs [BOS, prefix,
-    chunk[:-1]]. A lane's positions before its first differing expert
-    set (any layer) are held to SCORE_TOL_FP32 of max |logit|, and that
-    first difference must be a rounding-size near-tie: the two programs'
-    router logits there within SCORE_TOL_FP32 of the decode program's
-    largest |router logit|. At least MOE_CLEAN_SHARE of the scored
-    positions must lie before their lane's first difference. Returns the
+    chunk[:-1]], held by ``_held_before_router_flips``. Returns the
     decode program's logits of the chunk positions."""
     import numpy as np
     import torch
@@ -1763,49 +1836,15 @@ def _moe_twin_check(twin, chunks, prefix, what: str):
     if len(rs) % L or len(rd) != N * L:
         fail(f"{what}: {len(rs)} and {len(rd)} router calls for {L} "
              f"layers and {N} steps")
-    per = len(rs) // L                  # dispatch groups a layer
-
-    def stacked(calls, i):              # scoring: layer-major, groups
-        return torch.stack([torch.cat([c[i] for c in calls[l * per:
-                                                           (l + 1) * per]])
-                            for l in range(L)]).view(L, B, N, -1)
-    ls, es = stacked(rs, 0), stacked(rs, 1)
     # decode: step-major, a layer a call, (B, .) each
     ld = torch.stack([c[0] for c in rd]).view(N, L, B, -1).permute(1, 2, 0,
                                                                    3)
     ed = torch.stack([c[1] for c in rd]).view(N, L, B, -1).permute(1, 2, 0,
                                                                    3)
-    flip = (es.sort(-1).values != ed.sort(-1).values).any(-1)   # (L, B, N)
-    lane_flip = flip.any(0)                                      # (B, N)
-    clean = lane_flip.cumsum(-1) == 0    # before the lane's first flip
-    router_scale = ld.abs().max().item()
-    first = []
-    for b in range(B):
-        if bool(lane_flip[b].any()):
-            t = int(lane_flip[b].float().argmax().item())
-            layer = int(flip[:, b, t].float().argmax().item())
-            first.append((ls[layer, b, t] - ld[layer, b, t]).abs().max()
-                         .item())
     dec = decoded[:, N - C:]
-    keep = clean[:, N - C:]
-    diff = (scored.float() - dec.float()).abs().amax(-1)         # (B, C)
-    scale = dec.abs().max().item()
-    held = diff[keep].max().item() if bool(keep.any()) else 0.0
-    share = keep.float().mean().item()
-    worst = max(first, default=0.0)
-    log(f"[score] {what}: {int(flip.sum())} of {flip.numel()} router "
-        f"decisions differ between scoring and the decode program, "
-        f"{len(first)} of {B} lanes; first differences at router-logit "
-        f"distance <= {worst:.3g} (limit {SCORE_TOL_FP32 * router_scale:.3g}"
-        f"); the {share:.1%} of positions before them: max |dlogit| "
-        f"{held:.4g} (tol {SCORE_TOL_FP32} x max |logit| {scale:.4g}); all "
-        f"positions: max {diff.max().item():.4g}, mean "
-        f"{(scored.float() - dec.float()).abs().mean().item():.3g}")
-    if held > SCORE_TOL_FP32 * scale or worst > SCORE_TOL_FP32 * \
-            router_scale or share < MOE_CLEAN_SHARE:
-        fail(f"{what}: scoring disagrees with the decode program beyond "
-             f"router near-ties (clean max {held}, first router distance "
-             f"{worst}, clean share {share})")
+    _held_before_router_flips(what, scored, dec,
+                              _stack_forward_routes(rs, L, B, N), (ld, ed),
+                              C)
     return dec
 
 
@@ -3062,6 +3101,231 @@ def phase_conditioned_configs() -> dict:
     return out
 
 
+# ---------------------------------------------------------- phase 23
+#: phase 23's configs, each trained on one fixed (rows, positions) batch:
+#: mamba2-130m and granite-moe-1b-a400m (T = 2,048 tokens: capacity C =
+#: 640 at 1.25) at full depth, whisper-large-v3 at full depth with frames
+#: (2, 1,500, 1,280), and zamba2-7b cut as in phases 15-16 (ZAMBA_CUT:
+#: two applications of the shared block, whose gradient sums over them,
+#: and the 3 trailing SSD layers; 2.70 B parameters). The update holds
+#: 22 B a parameter at its peak (bf16 parameters and gradients, the fp32
+#: m and v, and the new parameters, m and v beside them: 59 GB at 29
+#: layers); the full 81 layers (6.75 B parameters, 148 GB) would not fit
+#: one card.
+TRAIN_FAMILIES = (("mamba2-130m", 8, 512), (ZAMBA_CUT, 4, 512),
+                  ("granite-moe-1b-a400m", 4, 512),
+                  ("whisper-large-v3", 2, 256))
+TRAIN_STEPS = 3
+
+
+def _with_keeps(fn):
+    """``fn()`` with the kept (token, slot)s of every capacity-dropped
+    dispatch recorded: (its result, [(T k,) bool per ``moe._keep``
+    call])."""
+    from repro_torch.models import moe
+    store, keep = [], moe._keep
+
+    def recording(rank, C):
+        store.append(keep(rank, C))
+        return store[-1]
+    moe._keep = recording
+    try:
+        return fn(), store
+    finally:
+        moe._keep = keep
+
+
+def _drop_share(params, cfg, batch) -> float:
+    """The share of (token, slot) pairs the capacity-dropped dispatch of
+    the training forward drops over every layer, on ``batch``."""
+    import torch
+    from repro_torch.models import api as model_api
+    with torch.no_grad():
+        _, keeps = _with_keeps(lambda: model_api.forward(
+            params, cfg, batch, **model_api.TRAIN_FORWARD["moe"]))
+    kept = sum(int(k.sum()) for k in keeps)
+    return 1 - kept / sum(k.numel() for k in keeps)
+
+
+def _kernel_vs_training(params, cfg, batch) -> dict:
+    """On trained weights, with no gradient: the scoring forward (the
+    kernels: ``flash_attention``, ``ssd_intra``) against the training
+    forward (``models.api.TRAIN_FORWARD``), the kernels' launches
+    counted. encdec: held to SCORE_TOL in bf16. ssm and hybrid, whose
+    bf16 programs drift apart in depth (SCORE_TOL_FP32): the fp32 twin of
+    the trained weights held to SCORE_TOL_FP32, and the bf16 programs to
+    twice their distance from the twin's training forward. moe: first
+    the capacity dispatch at a capacity factor of E / k (C = T: no drop,
+    asserted) against the dropless one, bit for bit; then the kernel
+    forward against the training forward at that capacity through the
+    fp32 twin, router decision by router decision, as phases 19-20 hold
+    scoring."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api as model_api
+    from repro_torch.train.optimizer import tree_map
+    train_kw = dict(model_api.TRAIN_FORWARD[cfg.family])
+    out = {}
+
+    def logits(*args, **kw):
+        """A forward's logits of the vocabulary (the padded ids hold
+        -1e30 in every program)."""
+        return model_api.forward(*args, **kw)[..., :cfg.vocab_size]
+    if cfg.family == "moe":
+        cfg = cfg.with_(capacity_factor=cfg.n_experts / cfg.top_k)
+        with torch.no_grad():
+            cap, keeps = _with_keeps(lambda: model_api.forward(
+                params, cfg, batch, **train_kw))
+            free = model_api.forward(params, cfg, batch, attn_impl="masked")
+        dropped = sum(int((~k).sum()) for k in keeps)
+        same = torch.equal(cap, free)
+        d = (cap.float() - free.float()).abs().max().item()
+        log(f"[train] {label(cfg)}: capacity factor {cfg.capacity_factor} "
+            f"(C = T): {dropped} slots dropped; the capacity dispatch "
+            f"{'equals' if same else 'DIFFERS FROM'} the dropless one bit "
+            f"for bit (max |d| {d:.3g})")
+        if dropped or not same or len(keeps) != cfg.n_layers:
+            fail(f"{label(cfg)}: capacity without drops is not the dropless "
+                 f"dispatch ({dropped} dropped, equal {same}, "
+                 f"{len(keeps)} capacity dispatches)")
+        del cap, free
+        out["no_drop_equal"] = True
+    ops.reset_launches()
+    with torch.no_grad():
+        kern = logits(params, cfg, batch)
+        train = logits(params, cfg, batch, **train_kw)
+    forwards = 1
+    if cfg.family == "encdec":
+        out["bf16"] = _compare_logits("trained: kernel forward vs training "
+                                      "forward", kern, train)
+    else:
+        twin = tree_map(lambda w: w.float(), params)
+        cfg32 = cfg.with_(dtype="float32")
+        with torch.no_grad():
+            if cfg.family == "moe":
+                B, S = batch["tokens"].shape
+                k32, rk = _with_routes(lambda: logits(twin, cfg32, batch))
+                t32, rt = _with_routes(
+                    lambda: logits(twin, cfg32, batch, **train_kw))
+                L = cfg.n_layers
+                _held_before_router_flips(
+                    "trained, fp32: kernel forward vs training forward",
+                    k32, t32, _stack_forward_routes(rk, L, B, S),
+                    _stack_forward_routes(rt, L, B, S), S)
+            else:
+                k32 = logits(twin, cfg32, batch)
+                t32 = logits(twin, cfg32, batch, **train_kw)
+                out["fp32"] = _compare_logits(
+                    "trained, fp32: kernel forward vs training forward",
+                    k32, t32, tol=SCORE_TOL_FP32)
+        forwards = 2
+        del twin, k32
+        out["bf16"] = _compare_logits("trained: kernel forward vs training "
+                                      "forward", kern, train, fp32_twin=t32)
+    torch.cuda.synchronize()
+    _check_score_launches(cfg, ops.LAUNCHES, "the kernel forward", forwards)
+    out["launches"] = {k: int(v) for k, v in ops.LAUNCHES.items() if v}
+    return out
+
+
+def train_family(spec: str, B: int, S: int) -> dict:
+    """Phase 23 for one config: TRAIN_STEPS AdamW steps (bf16 parameters,
+    fp32 moments, remat per layer) on one fixed seeded batch through
+    ``make_train_step``; every leaf's gradient finite and nonzero at step
+    1, the loss falling, no kernel launched; the step's host ms, device ms
+    and kernels (``torch.profiler``, one more step), tokens/s and peak
+    memory; for moe the share of (token, slot) pairs dropped; then
+    ``_kernel_vs_training`` on the trained weights."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api as model_api
+    from repro_torch.models.schema import count_params
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import (init_train_state,
+                                              make_train_step,
+                                              value_and_grad)
+    _free_card()
+    cfg = config(spec)
+    name = label(cfg)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (B, S)), device="cuda")}
+    batch.update(model_api.stub_inputs(cfg, B, seed=23, device="cuda"))
+    # lr 1e-3: an update below half a bf16 ulp of its weight (2**-9
+    # relative) would round away
+    opt = AdamWConfig(learning_rate=1e-3, warmup_steps=1,
+                      total_steps=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state = init_train_state(cfg, 0, "cuda", opt)
+    before = dict(ops.LAUNCHES)
+    out = dict(params=count_params(cfg), batch=[B, S])
+    if cfg.family == "moe":
+        from repro_torch.models import moe
+        out["capacity"] = moe.capacity(cfg, B * S)
+        out["drop_share_step1"] = _drop_share(params, cfg, batch)
+    loss1, grads = value_and_grad(params, cfg, batch)
+    check_grads(grads, f"{name} step 1 (loss {float(loss1):.4f})")
+    del grads
+    step = make_train_step(cfg, opt=opt)
+    losses, host = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        host.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    dev, kernels, _ = profile_calls(lambda: step(params, opt_state, batch),
+                                    1)
+    if ops.LAUNCHES != before:
+        fail(f"{name}: training launched kernels: {before} -> "
+             f"{ops.LAUNCHES}")
+    if not losses[-1] < losses[0]:
+        fail(f"{name}: the loss did not fall over {TRAIN_STEPS} steps: "
+             f"{losses}")
+    step_ms = float(np.median(host[1:]))
+    out.update(losses=losses, step_host_ms=host, step_ms=step_ms,
+               device_ms=dev, kernels=kernels,
+               tokens_per_s=B * S / step_ms * 1e3, peak_bytes=peak)
+    drops = ""
+    if cfg.family == "moe":
+        out["drop_share_trained"] = _drop_share(params, cfg, batch)
+        drops = (f"; capacity {out['capacity']} a layer (factor "
+                 f"{cfg.capacity_factor}), (token, slot) pairs dropped "
+                 f"{out['drop_share_step1']:.4%} at step 1, "
+                 f"{out['drop_share_trained']:.4%} trained")
+    frames = f" (+ frames {tuple(batch['frames'].shape)})" \
+        if "frames" in batch else ""
+    log(f"[train] {name} ({out['params'] / 1e9:.3f} B params, bf16, fp32 "
+        f"m/v, remat per layer), {B} x {S} tokens{frames}: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + "; step host ms " + ", ".join(f"{x:.1f}" for x in host)
+        + f" (median of steps 2-{TRAIN_STEPS} {step_ms:.1f} ms, "
+        f"{out['tokens_per_s']:.0f} tokens/s); peak memory "
+        f"{peak / 2**30:.2f} GiB; one more step under the profiler: device "
+        f"{_ms(dev, 1)} (idle {_idle(dev, step_ms)}), {_count(kernels)} "
+        f"kernels{drops}")
+    del opt_state
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    out["check"] = _kernel_vs_training(params, cfg, batch)
+    out["check"]["peak_bytes"] = _peak(f"{name} kernel vs training forward")
+    del params
+    _free_card()
+    return out
+
+
+def phase_train_families() -> dict:
+    """Phase 23: ``train_family`` for each of TRAIN_FAMILIES, each model
+    freed before the next."""
+    out = {}
+    for spec, B, S in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        out[spec] = train_family(spec, B, S)
+        log(f"[time] 23 {spec}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the same synthetic texts in every run and in every child
@@ -3154,6 +3418,8 @@ def main() -> int:
     window = timed("18 past the window", phase_window)
     moe = timed("19+20 moe configs", phase_moe_configs)
     cond = timed("21+22 vlm and encdec configs", phase_conditioned_configs)
+    trained = timed("23 training of the other families",
+                    phase_train_families)
 
     paths = {"cdf_points": full, "flash_attention": routed,
              "ssd_intra": routed_ssm}
@@ -3184,6 +3450,11 @@ def main() -> int:
                # each begin_decode)
                "launches_phase21_22": {a: int(d["launches"][name])
                                        for a, d in cond.items()},
+               # phase 23's kernel forwards on the trained weights (its
+               # training steps launch none)
+               "launches_phase23": {
+                   a: d["check"]["launches"].get(name, 0)
+                   for a, d in trained.items()},
                "max_abs_err": r["max_abs_err"], "tol": r["tol"],
                # attention: error over its row's max |value| (the bf16
                # limit), at every shape, and a planted skipped tile's

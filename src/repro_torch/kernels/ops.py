@@ -65,7 +65,7 @@ def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
         raise RuntimeError(
             f"{name}: an input requires a gradient, and the kernel has no "
             f"backward (call it under torch.no_grad(); the training forward "
-            f"uses attention_masked)")
+            f"runs the plain versions: models.api.TRAIN_FORWARD)")
 
 
 def _raise_on(name: str, rc: int) -> None:

@@ -1,8 +1,7 @@
 """Family dispatch: one forward/init_cache/decode_step API over the six
 model families of the JAX package's ``models/api.py`` (dense, vlm: the
 dense model with an image prefix in ``forward``, moe, ssm, hybrid and
-encdec), and the training loss ``loss_fn`` (the dense and vlm families
-so far)."""
+encdec), and the training loss ``loss_fn`` of every family."""
 from __future__ import annotations
 
 import torch
@@ -20,6 +19,20 @@ _FAMS = {
     "ssm": mamba2,
     "hybrid": hybrid,
     "encdec": encdec,
+}
+
+
+#: the arguments that choose each family's differentiable forward, which
+#: training runs (no kernel has a backward): the plain attention, the
+#: plain chunked SSD, and the capacity-dropped moe dispatch JAX trains
+#: with. The defaults of ``forward`` are the kernels (scoring).
+TRAIN_FORWARD = {
+    "dense": dict(attn_impl="masked"),
+    "vlm": dict(attn_impl="masked"),
+    "moe": dict(attn_impl="masked", dropless=False),
+    "ssm": dict(ssd_impl="plain"),
+    "hybrid": dict(attn_impl="masked", ssd_impl="plain"),
+    "encdec": dict(attn_impl="masked"),
 }
 
 
@@ -105,20 +118,17 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0):
     """Next-token cross entropy (paper Eq. 16), as the JAX package's
     ``loss_fn``: batch["tokens"] (B, S) is the whole input, the target of
     position t is token t + 1, and the last position (no target) is
-    masked, as is any position where batch["mask"] is 0. Attention is the
-    differentiable ``attention_masked``, never a kernel.
+    masked, as is any position where batch["mask"] is 0. The forward is
+    the family's differentiable one (``TRAIN_FORWARD``), never a kernel;
+    the batch's other entries (encdec ``frames``, vlm ``img_embeds``)
+    reach it.
 
     ``loss_block > 0`` evaluates the LM head and the cross entropy per
     block of ``loss_block`` positions, each block under
     ``torch.utils.checkpoint``, so the fp32 logits exist one block at a
     time."""
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(
-            f"training runs the dense and vlm families so far (got "
-            f"{cfg.family!r}: the other families' training, encdec's "
-            f"among them, is ROADMAP Queue 1 item 6; the moe family's "
-            f"trains with capacity-dropped dispatch, which the port's "
-            f"dropless moe.py does not have)")
+    module_for(cfg)                     # an unknown family raises here
+    train_kw = TRAIN_FORWARD[cfg.family]
     tokens = batch["tokens"]
     targets = F.pad(tokens[:, 1:], (0, 1))
     mask = torch.ones(targets.shape, dtype=torch.float32,
@@ -126,8 +136,8 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0):
         else batch["mask"].float().clone()
     mask[:, -1] = 0.0
     if loss_block:
-        hidden = forward(params, cfg, batch, attn_impl="masked",
-                         return_hidden=True)
+        hidden = forward(params, cfg, batch, return_hidden=True,
+                         **train_kw)
         S, sb = hidden.shape[1], loss_block
 
         def blk(h, t):
@@ -137,12 +147,12 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0):
                        use_reentrant=False)
             for s0 in range(0, S, sb)], dim=1)
     else:
-        logits = forward(params, cfg, batch, attn_impl="masked")
+        logits = forward(params, cfg, batch, **train_kw)
         nll = _ce_from_logits(logits, targets)
     return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
-__all__ = ["forward", "loss_fn", "init_cache", "decode_step",
+__all__ = ["forward", "loss_fn", "TRAIN_FORWARD", "init_cache", "decode_step",
            "rollback_leaves", "ring_leaves", "conditioning_leaves",
            "module_for", "stub_inputs", "init_params", "from_jax",
            "count_params", "schema"]

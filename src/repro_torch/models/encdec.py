@@ -11,7 +11,10 @@ precomputed frame embeddings (B, S_enc, D) over as ``frames``.
 * ``forward``: teacher-forced decoding. Each decoder layer runs causal
   self-attention with RoPE, then cross-attention over the encoder states
   projected by the layer's ``wxk``/``wxv`` (non-causal, no rotary), then
-  the MLP, each pre-norm (``ln1``, ``ln_x``, ``ln2``).
+  the MLP, each pre-norm (``ln1``, ``ln_x``, ``ln2``). Training runs it
+  with ``attn_impl="masked"`` (the plain attention, in the encoder too),
+  each encoder and decoder layer under ``torch.utils.checkpoint`` when
+  ``cfg.remat`` is set, and the frames in the batch beside the tokens.
 * ``init_cache`` / ``precompute_cross_kv`` / ``decode_step``: the decode
   program. The cache holds the self-attention K/V per lane, written in
   place at each lane's position as the dense family's are, and the
@@ -41,8 +44,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from .layers import rms_norm, swiglu
-from .transformer import (_decode_attn_one, attn_block, embed_tokens,
-                          lm_logits, torch_dtype)
+from .transformer import (ATTN_IMPLS, _decode_attn_one, attn_block,
+                          check_impl, embed_tokens, lm_logits, remat,
+                          torch_dtype)
 
 #: the cache leaves a speculative rollback restores per lane, whole: only
 #: ``pos`` (the self-attention K/V past it are hidden and overwritten;
@@ -86,13 +90,15 @@ def encode(params, cfg: ModelConfig, frames, attn_impl: str = "flash"):
     eps = cfg.norm_eps
     x = frames.to(dtype=torch_dtype(cfg.dtype))
     x = x + sinusoidal(x.shape[1], x.shape[2], x.dtype, x.device)
-    for layer in range(cfg.n_enc_layers):
-        lp = _layer(params["enc_layers"], layer)
+
+    def block(x, lp):
         x = x + attn_block(cfg, lp, rms_norm(x, lp["ln1"], eps),
                            positions=None, attn_impl=attn_impl,
                            causal=False)
-        x = x + swiglu(rms_norm(x, lp["ln2"], eps), lp["wi_gate"],
-                       lp["wi_up"], lp["wo_mlp"])
+        return x + swiglu(rms_norm(x, lp["ln2"], eps), lp["wi_gate"],
+                          lp["wi_up"], lp["wo_mlp"])
+    for layer in range(cfg.n_enc_layers):
+        x = remat(cfg, block, x, _layer(params["enc_layers"], layer))
     return rms_norm(x, params["enc_final_norm"], eps)
 
 
@@ -110,7 +116,9 @@ def forward(params, cfg: ModelConfig, batch: dict, *,
     """batch["frames"] (1 or B, S_enc, D) and batch["tokens"] (B, S) ->
     logits (B, S, Vp) (``return_hidden``: the final-normed (B, S, D)).
     The frames are encoded at their own batch; frames of batch 1 serve
-    every row of tokens."""
+    every row of tokens. "flash" runs the prefill kernel in every
+    attention; "masked" the differentiable plain attention."""
+    check_impl("attn_impl", attn_impl, ATTN_IMPLS)
     tokens = batch["tokens"]
     B, S = tokens.shape
     frames = batch["frames"]
@@ -119,8 +127,8 @@ def forward(params, cfg: ModelConfig, batch: dict, *,
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(S, device=x.device)
     eps = cfg.norm_eps
-    for layer in range(cfg.n_layers):
-        lp = _layer(params["dec_layers"], layer)
+
+    def block(x, lp):
         k, v = cross_kv(cfg, lp, enc)
         kv = (k.expand(B, -1, -1, -1), v.expand(B, -1, -1, -1))
         x = x + attn_block(cfg, lp, rms_norm(x, lp["ln1"], eps),
@@ -128,8 +136,10 @@ def forward(params, cfg: ModelConfig, batch: dict, *,
         x = x + attn_block(cfg, lp, rms_norm(x, lp["ln_x"], eps),
                            positions=None, attn_impl=attn_impl, prefix="x",
                            kv=kv, causal=False)
-        x = x + swiglu(rms_norm(x, lp["ln2"], eps), lp["wi_gate"],
-                       lp["wi_up"], lp["wo_mlp"])
+        return x + swiglu(rms_norm(x, lp["ln2"], eps), lp["wi_gate"],
+                          lp["wi_up"], lp["wo_mlp"])
+    for layer in range(cfg.n_layers):
+        x = remat(cfg, block, x, _layer(params["dec_layers"], layer))
     x = rms_norm(x, params["final_norm"], eps)
     return x if return_hidden else lm_logits(cfg, params, x)
 

@@ -14,6 +14,11 @@ are a plain loop in model order (``block_order``). Teacher-forced
 scoring launches one ``ssd_intra`` per SSD layer and one
 ``flash_attention`` per application; the decode step runs the O(1) SSD
 recurrence per layer and one ``decode_attention`` per application.
+Training runs ``forward(attn_impl="masked", ssd_impl="plain")``, no
+kernel, with each SSD layer and each application of the shared block
+under ``torch.utils.checkpoint`` when ``cfg.remat`` is set (per block,
+not per group, as the JAX package remats); the shared block's gradient
+sums over its applications.
 
 As in ``mamba2.py`` and ``transformer.py``, ``decode_step`` writes every
 cache leaf in place (the conv and SSM states, the new K/V at each lane's
@@ -22,14 +27,17 @@ and writes fixed addresses.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from .layers import rms_norm
 from . import mamba2
-from .mamba2 import ssm_block, ssm_decode_step
-from .transformer import (decode_block, dense_block, embed_tokens,
-                          layer_weights, lm_logits, torch_dtype)
+from .mamba2 import SSD_IMPLS, ssm_block, ssm_decode_step
+from .transformer import (ATTN_IMPLS, check_impl, decode_block, dense_block,
+                          embed_tokens, layer_weights, lm_logits, remat,
+                          torch_dtype)
 
 
 def n_applications(cfg: ModelConfig) -> int:
@@ -53,19 +61,24 @@ def block_order(cfg: ModelConfig) -> list[tuple[str, int]]:
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *,
+            attn_impl: str = "flash", ssd_impl: str = "kernel",
             return_hidden: bool = False):
     """Teacher-forced scoring: batch["tokens"] (B, S) -> logits (B, S, Vp)
-    (or, with ``return_hidden``, the final-normed (B, S, D)); each
-    application of the shared block runs the prefill-attention kernel."""
+    (or, with ``return_hidden``, the final-normed (B, S, D)). By default
+    each application of the shared block runs the prefill-attention
+    kernel and each SSD layer ``ssd_intra``; ``attn_impl="masked"`` and
+    ``ssd_impl="plain"`` run their differentiable plain versions."""
+    check_impl("attn_impl", attn_impl, ATTN_IMPLS)
+    check_impl("ssd_impl", ssd_impl, SSD_IMPLS)
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
-    shared = params["shared_attn"]
+    attend = partial(dense_block, cfg, params["shared_attn"],
+                     positions=positions, attn_impl=attn_impl)
     for kind, i in block_order(cfg):
-        if kind == "ssm":
-            x = ssm_block(cfg, layer_weights(params, i), x)
-        else:
-            x = dense_block(cfg, shared, x, positions=positions)
+        block = partial(ssm_block, cfg, layer_weights(params, i),
+                        ssd_impl=ssd_impl) if kind == "ssm" else attend
+        x = remat(cfg, block, x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x if return_hidden else lm_logits(cfg, params, x)
 

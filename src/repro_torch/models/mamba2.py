@@ -3,7 +3,10 @@ PyTorch counterpart of the JAX package's ``models/mamba2.py``.
 
 Chunked SSD for teacher-forced scoring, whose intra-chunk part runs in
 the port's ``ssd_intra`` kernel (``kernels/ops.py``; its plain version on
-the CPU), and the O(1) recurrent decode step.
+the CPU), or, for training, in plain differentiable PyTorch (the kernel
+has no backward; ``forward(ssd_impl="plain")``, each layer under
+``torch.utils.checkpoint`` when ``cfg.remat`` is set), and the O(1)
+recurrent decode step.
 
 Per layer:  x -> [z | xc | B | C | dt] projections; causal conv1d over
 (xc, B, C); SSD recurrence with per-head scalar decay A; gated output.
@@ -21,13 +24,21 @@ captured CUDA graph of the step reads and writes fixed addresses.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from .layers import rms_norm
-from .transformer import embed_tokens, layer_weights, lm_logits, torch_dtype
+from .transformer import (check_impl, embed_tokens, layer_weights,
+                          lm_logits, remat, torch_dtype)
+
+#: the chunked scan's intra-chunk part: "kernel" runs it in
+#: ``ops.ssd_intra`` (scoring, under ``no_grad``), "plain" in
+#: differentiable PyTorch (training)
+SSD_IMPLS = ("kernel", "plain")
 
 
 def _conv1d_causal(x, w, state=None):
@@ -44,14 +55,44 @@ def _conv1d_causal(x, w, state=None):
     return F.silu(y), xp[:, -(K - 1):]
 
 
-def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None):
+def _ssd_intra_plain(x, dt, A, Bm, Cm):
+    """The intra-chunk part of the scan in plain, differentiable PyTorch,
+    as the JAX package's ``ssd_chunked`` computes it (its training
+    formulation): x (R, Q, H, P), dt (R, Q, H), A (H,) fp32, Bm/Cm (R,
+    Q, N) -> (y (R, Q, H, P), chunk-end state (R, H, P, N)), both fp32,
+    with a zero entering state. cum = the inclusive cumsum of dt * A
+    (fp32); y_i = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j,
+    C . B in x's dtype. The (R, Q, Q, H) fp32 decays and weights are the
+    memory: a full-width layer holds a few hundred MB of them, so
+    training remats per layer."""
+    Q = x.shape[1]
+    x = x.float()
+    cum = torch.cumsum(dt * A, dim=1)                         # fp32
+    seg = cum[:, :, None, :] - cum[:, None, :, :]             # (R, i, j, H)
+    causal = torch.ones((Q, Q), dtype=torch.bool,
+                        device=x.device).tril()[:, :, None]
+    # mask BEFORE exp: an acausal difference is large and positive, and
+    # its exp (inf) times a mask's 0 is NaN in the backward
+    L = torch.exp(seg.masked_fill(~causal, float("-inf")))
+    G = torch.einsum("rin,rjn->rij", Cm, Bm)                  # x's dtype
+    W = G.float()[..., None] * L * dt.float()[:, None]
+    y = torch.einsum("rijh,rjhp->rihp", W, x)
+    end = torch.exp(cum[:, -1:] - cum) * dt                   # (R, Q, H)
+    state = torch.einsum("rjhp,rjn->rhpn", x * end[..., None], Bm.float())
+    return y, state
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None,
+                impl: str = "kernel"):
     """Chunked SSD scan.
 
     x (B, S, H, P), dt (B, S, H), A (H,) negative fp32, Bm/Cm (B, S, N)
     (one group). Returns y (B, S, H, P) and the final state (B, H, P, N),
     both in x's dtype. The intra-chunk part (B x chunks folded into R) is
-    one ``ops.ssd_intra`` launch; the recurrence across chunks is a loop
-    in fp32."""
+    one ``ops.ssd_intra`` launch ("kernel") or ``_ssd_intra_plain``
+    ("plain", which autograd can differentiate); the recurrence across
+    chunks is a loop in fp32."""
+    check_impl("impl", impl, SSD_IMPLS)
     Bsz, S0, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S0)
@@ -63,7 +104,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None):
         Cm = F.pad(Cm, (0, 0, 0, pad))
     S = x.shape[1]
     nc = S // Q
-    y_intra, s_in = ops.ssd_intra(
+    intra = ops.ssd_intra if impl == "kernel" else _ssd_intra_plain
+    y_intra, s_in = intra(
         x.reshape(Bsz * nc, Q, H, P), dt.reshape(Bsz * nc, Q, H), A,
         Bm.reshape(Bsz * nc, Q, N), Cm.reshape(Bsz * nc, Q, N))
     y_intra = y_intra.reshape(Bsz, nc, Q, H, P)
@@ -75,7 +117,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None):
         y = y_intra.reshape(Bsz, S, H, P)[:, :S0]
         return y.to(x.dtype), s_in[:, 0].to(x.dtype)
 
-    # the kernel keeps the TPU kernel's contract (y, state): what the
+    # the intra part keeps the TPU kernel's contract (y, state): what the
     # inter-chunk part needs of cum is recomputed here
     cum = torch.cumsum(dt.reshape(Bsz, nc, Q, H) * A, dim=2)   # fp32
     chunk_decay = torch.exp(cum[:, :, -1])                     # (B, nc, H)
@@ -101,8 +143,9 @@ def _projections(lp: dict, h):
             h @ lp["in_dt"])
 
 
-def ssm_block(cfg: ModelConfig, lp: dict, x):
-    """Full mamba2 layer (teacher-forced). x (B, S, D) -> (B, S, D)."""
+def ssm_block(cfg: ModelConfig, lp: dict, x, ssd_impl: str = "kernel"):
+    """Full mamba2 layer (teacher-forced). x (B, S, D) -> (B, S, D); the
+    scan's intra-chunk part is ``ssd_impl``'s (``ssd_chunked``)."""
     B, S, _ = x.shape
     di, N = cfg.ssm_d_inner, cfg.ssm_state
     H, P = cfg.ssm_heads, cfg.ssm_headdim
@@ -114,20 +157,26 @@ def ssm_block(cfg: ModelConfig, lp: dict, x):
     dt = F.softplus(dt_raw + lp["dt_bias"])
     A = -torch.exp(lp["A_log"].float())
     xh = xc.reshape(B, S, H, P)
-    y, _ = ssd_chunked(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+    y, _ = ssd_chunked(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk,
+                       impl=ssd_impl)
     y = y + lp["D_skip"][None, None, :, None] * xh
     y = (y.reshape(B, S, di) * F.silu(z)).to(x.dtype)
     return x + y @ lp["out_proj"]
 
 
-def forward(params, cfg: ModelConfig, batch: dict):
-    """Teacher-forced scoring: batch["tokens"] (B, S) -> logits (B, S, Vp).
-    One ``ssd_intra`` launch per layer."""
+def forward(params, cfg: ModelConfig, batch: dict, *,
+            ssd_impl: str = "kernel", return_hidden: bool = False):
+    """Teacher-forced scoring: batch["tokens"] (B, S) -> logits (B, S, Vp)
+    (or, with ``return_hidden``, the final-normed (B, S, D)). "kernel":
+    one ``ssd_intra`` launch per layer; "plain": the same scan with its
+    intra-chunk part in plain PyTorch, which autograd can differentiate."""
+    check_impl("ssd_impl", ssd_impl, SSD_IMPLS)
     x = embed_tokens(cfg, params, batch["tokens"])
     for layer in range(cfg.n_layers):
-        x = ssm_block(cfg, layer_weights(params, layer), x)
+        x = remat(cfg, partial(ssm_block, cfg, layer_weights(params, layer),
+                               ssd_impl=ssd_impl), x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return lm_logits(cfg, params, x)
+    return x if return_hidden else lm_logits(cfg, params, x)
 
 
 # ------------------------------------------------------------------ decode

@@ -54,22 +54,37 @@ Any grouping is exact when dropless (the last group may be shorter,
 which JAX's ``lax.map`` does not allow). The expert products cost E * C
 * D * F * 6 flops per group whatever the routing.
 
-Not ported: the capacity-dropped dispatch that training uses (the port's
-``loss_fn`` refuses the moe family), expert parallelism over several
-cards (JAX's ``shard_map`` paths), and an int8 KV cache: the JAX
-package's moe decode step writes no scales (``moe.py decode_step``
-unpacks three values from ``_decode_attn_one``), so there is no
-reference to hold one against and ``init_cache`` refuses it.
+Training dispatches as JAX trains (``forward(dropless=False)``, which
+``models.api.loss_fn`` passes; JAX ``moe_ffn_local(dropless=False)``):
+capacity C = max(1, ceil(T k / E x ``capacity_factor``)) for the call's
+T = B * S tokens, in one group. A (token, slot) is kept iff its
+``rank_within_expert`` is below C; a dropped one adds nothing. Where
+JAX writes every dropped slot to one overflow row, the port builds the
+(E, C, D) buffer by gathering: row (e, c) reads expert e's arrival of
+rank c, if there is one (``capacity_rows``), so no two writes meet and
+nothing scatters. A microbatch is its own call: its T sets its C, as in
+JAX, where the train step slices the batch before the loss. With a
+capacity factor of E / k (C = T) nothing is dropped and the capacity
+dispatch equals the dropless one bit for bit.
+
+Not ported: expert parallelism over several cards (JAX's ``shard_map``
+paths), and an int8 KV cache: the JAX package's moe decode step writes
+no scales (``moe.py decode_step`` unpacks three values from
+``_decode_attn_one``), so there is no reference to hold one against and
+``init_cache`` refuses it.
 """
 from __future__ import annotations
+
+import math
+from functools import partial
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from . import transformer
 from .layers import rms_norm, swiglu
-from .transformer import (_decode_attn_one, attn_block, embed_tokens,
-                          layer_weights, lm_logits)
+from .transformer import (_decode_attn_one, attn_block, check_impl,
+                          embed_tokens, layer_weights, lm_logits, remat)
 
 #: bytes of a teacher-forced forward's (E, C, D) dispatch buffer at most
 DISPATCH_BYTES = 1 << 30
@@ -102,19 +117,65 @@ def route(x_flat, router_w, top_k: int):
     return torch.softmax(vals, dim=-1), experts
 
 
+def _arrivals(flat_experts, n_experts: int):
+    """(order, sorted expert ids, first): the stable sort of the (T k,)
+    expert ids (token-major arrival order within each expert) and where
+    each expert's run starts in it."""
+    order = torch.argsort(flat_experts, stable=True)
+    se = flat_experts[order]
+    first = torch.searchsorted(
+        se, torch.arange(n_experts, device=flat_experts.device))
+    return order, se, first
+
+
+def _ranks(order, se, first):
+    """Each (token, slot)'s rank from its ``_arrivals``: the sorted ranks
+    written back through the sort's permutation (each position once)."""
+    rank_sorted = torch.arange(order.shape[0], device=order.device) \
+        - first[se]
+    return torch.empty_like(se).scatter_(0, order, rank_sorted)
+
+
 def rank_within_expert(flat_experts, n_experts: int):
     """Position of each (token, slot) in its expert's arrival order
     (token-major): (T k,) expert ids -> (T k,) ranks. Sort-based, as in
-    JAX: a stable sort by expert, each run's start found by
+    JAX: a stable sort by expert, each expert's first position by
     ``searchsorted``, and the sorted ranks written back through the
     sort's permutation (each position once)."""
-    Tk = flat_experts.shape[0]
-    dev = flat_experts.device
-    order = torch.argsort(flat_experts, stable=True)
-    se = flat_experts[order]
-    first = torch.searchsorted(se, torch.arange(n_experts, device=dev))
-    rank_sorted = torch.arange(Tk, device=dev) - first[se]
-    return torch.empty_like(flat_experts).scatter_(0, order, rank_sorted)
+    return _ranks(*_arrivals(flat_experts, n_experts))
+
+
+def capacity(cfg: ModelConfig, T: int) -> int:
+    """The capacity-dropped dispatch's rows per expert for T tokens, as
+    JAX computes it: max(1, ceil(T k / E x capacity_factor))."""
+    return max(1, int(math.ceil(T * cfg.top_k / cfg.n_experts
+                                * cfg.capacity_factor)))
+
+
+def capacity_rows(order, first, C: int):
+    """The (E, C) rows of a capacity buffer from the dispatch's
+    ``_arrivals`` (order, first): (slot, held), where row (e, c) holds
+    flat (token, slot) ``slot[e, c]`` -- expert e's arrival of rank c --
+    iff ``held[e, c]`` (expert e has more than c arrivals). These are
+    exactly the kept slots (rank < C), each in one row."""
+    Tk = order.shape[0]
+    count = torch.diff(first, append=first.new_full((1,), Tk))
+    c = torch.arange(C, device=order.device)
+    held = c < count[:, None]
+    return order[(first[:, None] + c).clamp(max=Tk - 1)], held
+
+
+def _keep(rank, C: int):
+    """The kept (token, slot)s of a capacity dispatch: rank < C. (Tests
+    and ``chip_smoke.py`` wrap it to observe the drops.)"""
+    return rank < C
+
+
+def _combine(out, dest, weights, T: int, k: int, dtype):
+    """Each (token, slot)'s expert output row ``dest`` of ``out`` (E C,
+    D), weighted, and a token's k slots summed in fp32, rounded once."""
+    y = out.index_select(0, dest) * weights.reshape(-1, 1).to(out.dtype)
+    return y.view(T, k, -1).float().sum(dim=1).to(dtype)
 
 
 def moe_ffn(x_flat, lp: dict, cfg: ModelConfig):
@@ -133,17 +194,43 @@ def moe_ffn(x_flat, lp: dict, cfg: ModelConfig):
     # weight, (E, C, D) @ (E, D, F)
     out = swiglu(buf.view(E, C, D), lp["we_gate"], lp["we_up"],
                  lp["we_down"]).reshape(E * C, D)
-    y = out.index_select(0, dest) * weights.reshape(-1, 1).to(out.dtype)
-    return y.view(T, k, D).float().sum(dim=1).to(x_flat.dtype)
+    return _combine(out, dest, weights, T, k, x_flat.dtype)
 
 
-def moe_block(cfg: ModelConfig, lp: dict, x, dispatch_group: int = 0):
+def moe_ffn_capacity(x_flat, lp: dict, cfg: ModelConfig):
+    """Capacity-dropped dispatch and expert compute of T tokens (the
+    training path): x (T, D) -> (T, D), JAX's ``moe_ffn_local`` with
+    ``dropless=False``. Differentiable."""
+    T, D = x_flat.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = capacity(cfg, T)
+    weights, experts = route(x_flat, lp["router"], k)
+    fe = experts.reshape(-1)                                  # (T k,)
+    order, se, first = _arrivals(fe, E)
+    rank = _ranks(order, se, first)
+    keep = _keep(rank, C)
+    slot, held = capacity_rows(order, first, C)
+    buf = x_flat[slot // k].masked_fill(~held[..., None], 0)  # (E, C, D)
+    out = swiglu(buf, lp["we_gate"], lp["we_up"],
+                 lp["we_down"]).reshape(E * C, D)
+    # a dropped slot reads row 0 at weight 0
+    dest = torch.where(keep, fe * C + rank, 0)
+    return _combine(out, dest, weights * keep.view(T, k), T, k,
+                    x_flat.dtype)
+
+
+def moe_block(cfg: ModelConfig, lp: dict, x, dispatch_group: int = 0, *,
+              dropless: bool = True):
     """The moe FFN sub-block (residual applied by the caller): x (B, S, D)
-    -> (B, S, D). ``dispatch_group`` > 0 dispatches the B * S tokens in
-    groups of at most that many (exact: dropless)."""
+    -> (B, S, D). Dropless, ``dispatch_group`` > 0 dispatches the B * S
+    tokens in groups of at most that many (exact); ``dropless=False``
+    dispatches them all at once with capacity drops
+    (``moe_ffn_capacity``)."""
     B, S, D = x.shape
     x_flat = x.reshape(B * S, D)
-    if dispatch_group and x_flat.shape[0] > dispatch_group:
+    if not dropless:
+        y = moe_ffn_capacity(x_flat, lp, cfg)
+    elif dispatch_group and x_flat.shape[0] > dispatch_group:
         y = torch.cat([moe_ffn(g, lp, cfg)
                        for g in x_flat.split(dispatch_group)])
     else:
@@ -152,36 +239,40 @@ def moe_block(cfg: ModelConfig, lp: dict, x, dispatch_group: int = 0):
 
 
 def moe_dense_block(cfg: ModelConfig, lp: dict, x, *, positions,
-                    attn_impl: str = "flash", dispatch_group: int = 0):
+                    attn_impl: str = "flash", dispatch_group: int = 0,
+                    dropless: bool = True):
     """Attention + moe FFN transformer block, each pre-norm with its
     residual."""
     x = x + attn_block(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps),
                        positions=positions, attn_impl=attn_impl)
     return x + moe_block(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
-                         dispatch_group)
+                         dispatch_group, dropless=dropless)
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *,
             attn_impl: str = "flash", dispatch_group: int | None = None,
-            return_hidden: bool = False):
+            dropless: bool = True, return_hidden: bool = False):
     """Teacher-forced scoring: batch["tokens"] (B, S) -> logits (B, S, Vp)
     (or, with ``return_hidden``, the final-normed (B, S, D)); one
     prefill-attention launch per layer, the experts dispatched in groups
     of at most ``dispatch_group`` tokens (None: the config's
-    ``group_size``; 0: all at once)."""
+    ``group_size``; 0: all at once). Training passes
+    ``attn_impl="masked"`` and ``dropless=False``: the capacity-dropped
+    dispatch over all B * S tokens (``dispatch_group`` unused), each
+    layer under ``torch.utils.checkpoint`` when ``cfg.remat`` is set."""
     _check(cfg)
     if dispatch_group is None:
         dispatch_group = group_size(cfg)
-    if attn_impl not in transformer.ATTN_IMPLS:
-        raise ValueError(f"attn_impl {attn_impl!r} (one of "
-                         f"{transformer.ATTN_IMPLS})")
+    check_impl("attn_impl", attn_impl, transformer.ATTN_IMPLS)
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     for layer in range(cfg.n_layers):
-        x = moe_dense_block(cfg, layer_weights(params, layer), x,
-                            positions=positions, attn_impl=attn_impl,
-                            dispatch_group=dispatch_group)
+        x = remat(cfg, partial(moe_dense_block, cfg,
+                               layer_weights(params, layer),
+                               positions=positions, attn_impl=attn_impl,
+                               dispatch_group=dispatch_group,
+                               dropless=dropless), x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x if return_hidden else lm_logits(cfg, params, x)
 

@@ -41,6 +41,8 @@ leaf keeps its storage: a captured CUDA graph of the step
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -84,6 +86,23 @@ def lm_logits(cfg: ModelConfig, params, x):
 
 
 ATTN_IMPLS = ("flash", "masked")
+
+
+def check_impl(what: str, impl: str, allowed: tuple) -> None:
+    """Refuse an implementation name outside ``allowed``."""
+    if impl not in allowed:
+        raise ValueError(f"{what} {impl!r} (one of {allowed})")
+
+
+def remat(cfg: ModelConfig, block, x, *args):
+    """``block(x, *args)``, under ``torch.utils.checkpoint`` when
+    ``cfg.remat`` is set and autograd records (the JAX package's
+    per-layer ``jax.checkpoint``): the backward recomputes the block's
+    activations instead of keeping them. Tensors the block closes over
+    get their gradients too (non-reentrant checkpoint)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(block, x, *args, use_reentrant=False)
+    return block(x, *args)
 
 
 def attn_block(cfg: ModelConfig, lp: dict, x, *, positions,
@@ -139,8 +158,7 @@ def forward(params, cfg: ModelConfig, batch: dict, *,
     the tokens' (``ValueError``, where the JAX package's concatenate
     raises). Other families ignore it, as the JAX package does."""
     _check_family(cfg)
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl {attn_impl!r} (one of {ATTN_IMPLS})")
+    check_impl("attn_impl", attn_impl, ATTN_IMPLS)
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params, tokens)
     n_img = 0
@@ -154,16 +172,9 @@ def forward(params, cfg: ModelConfig, batch: dict, *,
         n_img = img.shape[1]
         x = torch.cat([img.to(device=x.device, dtype=x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
-    lp = params["layers"]
-    remat = cfg.remat and torch.is_grad_enabled()
-
-    def block(x, *weights):
-        return dense_block(cfg, dict(zip(lp, weights)), x,
-                           positions=positions, attn_impl=attn_impl)
     for layer in range(cfg.n_layers):
-        weights = [w[layer] for w in lp.values()]
-        x = checkpoint(block, x, *weights, use_reentrant=False) if remat \
-            else block(x, *weights)
+        x = remat(cfg, partial(dense_block, cfg, layer_weights(params, layer),
+                               positions=positions, attn_impl=attn_impl), x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)[:, n_img:]
     return x if return_hidden else lm_logits(cfg, params, x)
 

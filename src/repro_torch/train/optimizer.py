@@ -81,15 +81,20 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     before clipping."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
-    if cfg.clip_norm:
-        scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-        grads = tree_map(lambda g: g.float() * scale, grads)
-    else:
-        grads = tree_map(lambda g: g.float(), grads)
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0) \
+        if cfg.clip_norm else None
+
+    def clipped(g):
+        # fp32 and clipped one leaf at a time, inside ``upd``: a whole
+        # fp32 copy of the gradients would add 4 B a parameter to the
+        # update's peak memory
+        return g.float() if scale is None else g.float() * scale
     new_err = None
     if cfg.grad_compress:
         from .grad_compress import compress_decompress
-        grads, new_err = compress_decompress(grads, state["err"])
+        grads, new_err = compress_decompress(tree_map(clipped, grads),
+                                             state["err"])
+        scale = None
 
     lr = lr_at(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2
@@ -98,6 +103,7 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     bc2 = 1 - b2 ** stepf
 
     def upd(p, g, m, v):
+        g = clipped(g)
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * g * g
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + \

@@ -2,12 +2,19 @@
 
 ``make_train_step(cfg, ...)`` returns ``(params, opt_state, batch) ->
 (params, opt_state, metrics)``: the loss and every parameter's gradient
-by autograd through ``models.api.loss_fn`` (the differentiable
-``attention_masked``, never a kernel: the kernels have no backward and
-refuse a gradient-carrying input), gradients averaged over
+by autograd through ``models.api.loss_fn``, gradients averaged over
 ``num_microbatches`` slices of the batch's rows, then ``adamw_update``.
-Per-layer remat follows ``cfg.remat``. The metrics stay on the device:
-reading one waits for the step.
+Every family trains, each through its differentiable forward and never
+a kernel (the kernels have no backward and refuse a gradient-carrying
+input; ``models.api.TRAIN_FORWARD``): dense and vlm through
+``attention_masked``, ssm through the chunked SSD with its intra-chunk
+part in plain PyTorch (``mamba2.ssd_chunked(impl="plain")``), hybrid through both, moe through the plain
+attention and the capacity-dropped dispatch JAX trains with (a
+microbatch's own token count sets its capacity, as in JAX), encdec
+through the plain attention with ``frames`` (B, S_enc, D) in the batch
+beside the tokens, sliced with them. Per-layer remat follows
+``cfg.remat``. The metrics stay on the device: reading one waits for the
+step.
 
 No mesh: multi-GPU training is a later slice, and a mesh is refused.
 """
@@ -37,7 +44,8 @@ def _unflatten(like, leaves: list):
 
 def _on(batch: dict, device) -> dict:
     """The batch's arrays (numpy or tensors) as tensors on ``device``,
-    the tokens as int64."""
+    the tokens as int64 (frames and image embeddings keep their float
+    dtype)."""
     out = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
     out["tokens"] = out["tokens"].long()
     return out

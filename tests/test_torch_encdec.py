@@ -26,7 +26,9 @@ across by ``from_jax``; inputs come from numpy seeds. Held:
   holding none of their bytes; a reset lane against a fresh cache; every
   engine call keeping each leaf's storage;
 * frames whose batch is neither 1 nor the lanes' refused, and a
-  predictor without frames refused.
+  predictor without frames refused; training through the scoring
+  forward (the prefill kernel has no backward) refused, where
+  ``loss_fn``'s forward trains (``tests/test_torch_train_families.py``).
 """
 import dataclasses
 
@@ -53,6 +55,7 @@ from repro_torch.data.tokenizer import encode as tok_encode  # noqa: E402
 from repro_torch.models import api, encdec, schema  # noqa: E402
 from repro_torch.serve.engine import ModelPredictor  # noqa: E402
 from repro_torch.service import CompressionService  # noqa: E402
+from repro_torch.train.optimizer import tree_map  # noqa: E402
 
 JCFG = tiny("encdec", vocab_size=258, max_source_len=32)
 PCFG = ModelConfig(**dataclasses.asdict(JCFG))
@@ -348,11 +351,26 @@ def test_random_init_draws_frames_from_the_seed():
                        b.score_chunks(np.ones((2, 8), np.int64)))
 
 
+def _grad_weights(weights):
+    return tree_map(lambda w: w.detach().requires_grad_(True), weights[1])
+
+
+def _frames_batch():
+    return {"tokens": torch.zeros((1, 8), dtype=torch.int64),
+            "frames": T(_frames(1))}
+
+
 def test_training_is_refused_with_its_roadmap_item(weights):
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int64),
-             "frames": T(_frames(1))}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        api.loss_fn(weights[1], PCFG, batch)
+    """Training through the scoring forward (the prefill kernel, which has
+    no backward) is refused, and the refusal names the forward that
+    trains (``models.api.TRAIN_FORWARD``)."""
+    with pytest.raises(RuntimeError, match="no backward.*TRAIN_FORWARD"):
+        api.forward(_grad_weights(weights), PCFG, _frames_batch())
+
+
+def test_loss_fn_trains_through_the_training_forward(weights):
+    loss = api.loss_fn(_grad_weights(weights), PCFG, _frames_batch())
+    assert loss.requires_grad
 
 
 def test_cli_round_trip(tmp_path, monkeypatch, pred):

@@ -25,7 +25,10 @@ across by ``from_jax``; inputs come from numpy seeds. Held:
   lanes; ``score_chunks`` against the port's own decode program within
   1e-4 (the two differ in the order of sums only);
 * ``llmc-torch`` compress / decompress with ``_predictor`` patched to the
-  tiny moe; an int8 KV cache refused, and training refused.
+  tiny moe; an int8 KV cache refused, and training through the scoring
+  forward (the prefill kernel has no backward) refused, where
+  ``loss_fn``'s forward trains (held against JAX in
+  ``tests/test_torch_train_families.py``).
 
 Verify/rollback, prefill, snapshot/restore, the shared-prefix service
 and speculative decode run the moe family as a fourth family in
@@ -58,6 +61,7 @@ from repro_torch.data.tokenizer import encode  # noqa: E402
 from repro_torch.models import api, moe, schema  # noqa: E402
 from repro_torch.serve.engine import ModelPredictor  # noqa: E402
 from repro_torch.service import CompressionService  # noqa: E402
+from repro_torch.train.optimizer import tree_map  # noqa: E402
 
 JCFGS = {"tiny": tiny("moe"),
          "qwen3-moe": jbase.tiny_variant(jqmoe.CONFIG, n_experts=8, top_k=4,
@@ -354,13 +358,26 @@ def test_cli_round_trip(tmp_path, monkeypatch, pred):
     assert back.read_bytes() == src.read_bytes()
 
 
+def _grad_params(pcfg):
+    return tree_map(lambda w: w.requires_grad_(True),
+                    schema.init_params(pcfg, seed=0))
+
+
+_BATCH = {"tokens": torch.zeros((1, 8), dtype=torch.long)}
+
+
 def test_int8_cache_and_training_are_refused():
     pcfg = _pcfg("tiny")
     with pytest.raises(NotImplementedError, match="no scales"):
         api.init_cache(pcfg.with_(kv_cache_dtype="int8"), 2, 8)
-    params = schema.init_params(pcfg, seed=0)
-    with pytest.raises(NotImplementedError, match="capacity-dropped"):
-        api.loss_fn(params, pcfg, {"tokens": torch.zeros((1, 8),
-                                                         dtype=torch.long)})
+    # training through the scoring forward: the prefill kernel has no
+    # backward
+    with pytest.raises(RuntimeError, match="no backward.*TRAIN_FORWARD"):
+        api.forward(_grad_params(pcfg), pcfg, _BATCH)
     assert api.rollback_leaves(pcfg) == ("pos",)
     assert api.ring_leaves(pcfg) == ()
+
+
+def test_loss_fn_trains_through_the_training_forward():
+    pcfg = _pcfg("tiny")
+    assert api.loss_fn(_grad_params(pcfg), pcfg, _BATCH).requires_grad
