@@ -34,6 +34,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    with stride 0, every length 1,500); the int8 variant held
    also bit for bit against the bf16 kernel on the dequantized cache,
    whose time is printed beside it (no one-call library equivalent).
+   The partial form ``decode_attention_partial`` (o, lse; both builds)
+   at pred-base's shard at TP 8 over the CLI's chunk of 128 (16
+   positions a slice: the rows of the kernels line), at phase 24c's
+   cache (2 a slice) and at qwen3-moe-235b-a22b's (16, 64/4,
+   hd 128) over S 128 and 4,096, each cache cut into 8 slices as the
+   ranks cut it: every slice against its plain twin (o to the attention
+   tolerance, lse to LSE_TOL, a lane with no live position o = 0 and lse
+   = -inf exactly), the slices combined by their LSE against the
+   whole-cache kernel, and one slice timed beside
+   ``_scaled_dot_product_efficient_attention(compute_log_sumexp=True)``.
    ``flash_attention`` at full
    width (S = 128), at the router probe's shape (S = 32), with a 32-token
    prefix (S = 160), under a sliding window, at ``pred-base`` width
@@ -262,6 +272,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    its distance from the twin); granite-moe's capacity dispatch without
    drops (factor E / k) equal to the dropless one bit for bit, then the
    fp32 twin router decision by router decision, as in phases 19-20.
+24. Serving on a mesh (``launch.mesh.run_ranks``: one process a rank,
+   all on the one card over gloo, the only backend that lets ranks share
+   a device; ``MESH_CONFIGS``, ``MESH_SEQ``): ``qwen3-14b`` cut to
+   ``DENSE_CUT`` layers (24 of 48 padded heads, 4 of 8 KV heads, 76,032
+   of 152,064 vocabulary columns a rank) and ``granite-moe-1b-a400m`` at
+   full width and depth (16 of 32 experts a rank) at TP 2, through the
+   service (16 slots, chunk 128, top 48; jobs shorter than a chunk: a
+   sharded step is eager and host-bound here); ``pred-base`` at TP 8,
+   whose 4 KV heads take the sequence-sharded decode through the partial
+   kernel, refused by the service (lock-step) and round-tripped by the
+   grouped decoder, with the model dtype's cache and again with the
+   int8 cache. Each round trip byte-exact on every rank, every rank's
+   archives equal to rank 0's (``Mesh.agree``), each rank's launches
+   printed and the path's kernels required, the host ms a model step
+   takes; scoring (the score step's forward, one ``flash_attention`` a
+   layer) against the decode steps; on rank 0 the
+   sharded decode against the unsharded one on the same weights
+   (SCORE_TOL; granite through its fp32 twin; pred-base SCORE_TOL_FP32)
+   with the share of equal top-48 ids printed. None of these times is a
+   measure of tensor parallelism over NCCL on separate cards
+   (``python -m repro_torch.launch.mesh_probe`` profiles such steps and
+   the collectives, outside this script's time limit).
 12. Last, one JSON line describing every kernel (its ``launches`` from
    the main path that runs it: phase 3 for ``decode_attention`` and
    ``topk_cdf``, 6 for ``cdf_points``, 5 for ``flash_attention``, 9 for
@@ -270,7 +302,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``launches_zamba2`` from phases 15 and 16, ``launches_phase17`` per
    config, ``launches_phase18``, ``launches_moe`` per phase 19-20
    config, ``launches_phase21_22`` per phase 21-22 config and
-   ``launches_phase23``, phase 23's kernel forwards per config), then the
+   ``launches_phase23``, phase 23's kernel forwards per config;
+   ``launches_phase24`` per phase 24 config, rank 0's; the partial form's
+   ``launches`` from 24c), then the
    card's name and power limit again (the tail of a long log keeps
    them) and the result line ``{"ok":
    true, "device": {...}}`` as the last line of stdout. A ``[time]``
@@ -307,6 +341,14 @@ SOURCES = {
     # the same source built with -DREPRO_KV_INT8: the int8 cache's variant
     # of the same TPU kernel (the JAX model dequantizes before calling it)
     "decode_attention_int8": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:67"),
+    # decode_attention.cu's partial form (o, lse), both builds: the
+    # sequence-sharded decode's per-rank attention (phase 24c)
+    "decode_attention_partial": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:67"),
+    "decode_attention_partial_int8": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:67"),
     "topk_cdf": ("src/repro_torch/kernels/csrc/topk_cdf.cu",
@@ -590,6 +632,129 @@ def check_attention_int8(shape, dtype, gen):
                 bf16_kernel_ms=bf_ms, bf16_kernel_device_ms=bf_dev_ms)
 
 
+#: |lse - its plain twin's| at most (fp32: both sum the same exp terms)
+LSE_TOL = 1e-4
+
+
+def check_partial(shape, dtype, gen, split: int = 1, int8: bool = False):
+    """The partial decode attention (o, lse) over a cache of (B, H, K, hd,
+    S) cut into ``split`` slices of the sequence, as the sequence-sharded
+    decode cuts it over the ranks (``int8``: the int8 build over a cache
+    quantized as the model quantizes it). Lane 0 is one position long
+    and lane 1 fills the cache, so slices past the first hold no live
+    position of lane 0: there o must be 0 and lse -inf, exactly. Each
+    slice's o is held against its plain twin on the same inputs computed
+    in fp32 (the attention tolerance of the dtype) and lse to LSE_TOL;
+    the slices, combined by their LSE as the ranks combine them and
+    rounded to the dtype, are held against the whole-cache kernel
+    (``decode_attention`` / ``_int8``) to the same tolerance. Timed on
+    the first slice (the most live positions): the kernel, its plain
+    twin, and one PyTorch call that returns (o, lse),
+    ``_scaled_dot_product_efficient_attention(compute_log_sumexp=True)``
+    over the KV heads expanded to H (the expansion not timed)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.transformer import _quant_kv
+    B, H, K, hd, S = shape
+    n = S // split
+    dev = "cuda"
+    q = torch.randn((B, H, hd), generator=gen, device=dev).to(dtype)
+    k32 = torch.randn((B, S, K, hd), generator=gen, device=dev)
+    v32 = torch.randn((B, S, K, hd), generator=gen, device=dev)
+    if int8:
+        kc, ks = _quant_kv(k32)
+        vc, vs = _quant_kv(v32)
+        sc = (ks, vs)
+        kd, vd = ref.dequant_kv(kc, ks, dtype), ref.dequant_kv(vc, vs, dtype)
+        part = lambda r, ln: ops.decode_attention_partial_int8(  # noqa: E731
+            q, kc[:, r * n:(r + 1) * n], vc[:, r * n:(r + 1) * n],
+            ks[:, r * n:(r + 1) * n], vs[:, r * n:(r + 1) * n], ln)
+        whole = lambda ln: ops.decode_attention_int8(  # noqa: E731
+            q, kc, vc, *sc, ln)
+    else:
+        kc, vc = k32.to(dtype), v32.to(dtype)
+        kd, vd = kc, vc
+        part = lambda r, ln: ops.decode_attention_partial(  # noqa: E731
+            q, kc[:, r * n:(r + 1) * n], vc[:, r * n:(r + 1) * n], ln)
+        whole = lambda ln: ops.decode_attention(  # noqa: E731
+            q, kc, vc, ln)
+    lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    lengths[0], lengths[1] = 1, S
+    what = (f"decode_attention_partial{'_int8' if int8 else ''} {shape} "
+            f"{dtype} in {split}")
+    q32, kd32, vd32 = q.float(), kd.float(), vd.float()
+    outs, worst, lse_err = [], None, 0.0
+    for r in range(split):
+        ln = (lengths - r * n).clamp(0, n).to(torch.int32)
+        o, lse = part(r, ln)
+        o32, lse32 = ref.decode_attention_partial(
+            q32, kd32[:, r * n:(r + 1) * n], vd32[:, r * n:(r + 1) * n], ln)
+        h = _attn_held(o, o32, dtype)
+        empty = ln == 0
+        if not h["ok"] or not torch.equal(torch.isneginf(lse),
+                                          torch.isneginf(lse32)):
+            fail(f"{what}: slice {r}: {h}, or -inf lse at other lanes")
+        if empty.any() and not (torch.equal(o[empty], torch.zeros_like(
+                o[empty])) and torch.isneginf(lse[empty]).all()):
+            fail(f"{what}: slice {r}: a lane of length 0 gives o != 0 or "
+                 f"lse != -inf")
+        live = ~empty
+        lse_err = max(lse_err, (lse[live] - lse32[live]).abs().max().item())
+        worst = h if worst is None or h["max_abs_err"] > worst[
+            "max_abs_err"] else worst
+        outs.append((o, lse))
+    if lse_err > LSE_TOL:
+        fail(f"{what}: |lse - plain| {lse_err} > {LSE_TOL}")
+    lse = torch.stack([p[1] for p in outs])
+    w = torch.exp(lse - lse.amax(0))
+    comb = (sum(p[0] * w[r][..., None] for r, p in enumerate(outs))
+            / w.sum(0)[..., None]).to(dtype)
+    ref_whole = whole(lengths)
+    held = _attn_held(comb, ref_whole.float(), dtype)
+    torch.cuda.synchronize()
+    if not held["ok"]:
+        fail(f"{what}: the {split} slices combined vs the whole-cache "
+             f"kernel: {held}")
+    ln0 = lengths.clamp(max=n).to(torch.int32)
+    run = lambda: part(0, ln0)  # noqa: E731
+    ms = time_ms(run)
+    dev_ms = device_ms(run, "decode_attention_kernel")
+    plain = (lambda: ref.decode_attention_partial_int8(
+        q, kc[:, :n], vc[:, :n], ks[:, :n], vs[:, :n], ln0)) if int8 else \
+        (lambda: ref.decode_attention_partial(q, kc[:, :n], vc[:, :n], ln0))
+    plain_ms = time_ms(plain)
+    G = H // K
+    q4 = q[:, :, None, :]
+    k4 = kd[:, :n].repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    v4 = vd[:, :n].repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    # the library takes a bias whose rows start on 16 elements: a padded
+    # allocation, viewed at n
+    bias = torch.zeros((B, H, 1, -(-n // 16) * 16), dtype=dtype,
+                       device=dev)[..., :n]
+    bias.masked_fill_((torch.arange(n, device=dev)[None, :]
+                       >= ln0[:, None].long())[:, None, None, :],
+                      float("-inf"))
+    lib = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(  # noqa: E731,E501
+        q4, k4, v4, bias, True)
+    try:
+        lib_ms, lib_dev_ms = time_ms(lib), library_device_ms(lib)
+    except RuntimeError as e:
+        log(f"[kernel] {what}: the library call refused this shape "
+            f"({str(e).splitlines()[0][:160]}): library_ms null")
+        lib_ms = lib_dev_ms = None
+    el = q.element_size()
+    live = int(ln0.sum().item())
+    row = hd + 2 if int8 else hd * el
+    nbytes = B * H * hd * el + 2 * live * K * row + B * H * (hd + 1) * 4 \
+        + B * 4
+    b_ms, b_by = bound(nbytes, 4.0 * live * H * hd, dtype)
+    return dict(worst, combined_max_abs_err=held["max_abs_err"],
+                lse_max_abs_err=lse_err, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, library_device_ms=lib_dev_ms)
+
+
 def _flash_planted(q32, k32, v32, window, want32, dtype, what,
                    causal=True):
     """Flash attention's plain version for lane 0's last 64 queries with
@@ -860,6 +1025,35 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
         # past S), one source read by every lane with stride 0
         ("decode_attention@whisper-cross", check_attention,
          ((16,) + whisper + (Se,), bf, gen, True)),
+        # the partial form at pred-base's shard at TP 8 (all 8 heads over
+        # its 4 KV heads, fp32) with the CLI's chunk of 128 in 8 slices
+        # of 16 positions (the rows of the kernels line), and at phase
+        # 24c's cache (16 slots, 2 a rank), both builds; and at
+        # qwen3-moe-235b-a22b's (16, 64/4, hd 128) split 8 ways over S
+        # 128 and S 4,096. Lane 0 of each is one position long: every
+        # slice past the first holds an empty lane
+        ("decode_attention_partial", check_partial,
+         ((16, PRED_BASE.n_heads, PRED_BASE.padded_kv_heads,
+           PRED_BASE.head_dim, 128), torch.float32, gen, 8)),
+        ("decode_attention_partial_int8", check_partial,
+         ((16, PRED_BASE.n_heads, PRED_BASE.padded_kv_heads,
+           PRED_BASE.head_dim, 128), torch.float32, gen, 8, True)),
+        ("decode_attention_partial@24c", check_partial,
+         ((16, PRED_BASE.n_heads, PRED_BASE.padded_kv_heads,
+           PRED_BASE.head_dim, mesh_cache_len(MESH_SEQ)), torch.float32,
+          gen, 8)),
+        ("decode_attention_partial_int8@24c", check_partial,
+         ((16, PRED_BASE.n_heads, PRED_BASE.padded_kv_heads,
+           PRED_BASE.head_dim, mesh_cache_len(MESH_SEQ_INT8)),
+          torch.float32, gen, 8, True)),
+        ("decode_attention_partial@qwen3-moe-S128", check_partial,
+         ((16,) + qmoe + (S,), bf, gen, 8)),
+        ("decode_attention_partial@qwen3-moe-S4096", check_partial,
+         ((16,) + qmoe + (4096,), bf, gen, 8)),
+        ("decode_attention_partial_int8@qwen3-moe-S128", check_partial,
+         ((16,) + qmoe + (S,), bf, gen, 8, True)),
+        ("decode_attention_partial_int8@qwen3-moe-S4096", check_partial,
+         ((16,) + qmoe + (4096,), bf, gen, 8, True)),
         ("topk_cdf", check_topk,
          (16, QWEN.vocab_size, torch.bfloat16, gen, 48, 16,
           QWEN.padded_vocab)),
@@ -3326,6 +3520,267 @@ def phase_train_families() -> dict:
     return out
 
 
+# ---------------------------------------------------------- phase 24
+#: serving on a mesh, ranks sharing the one card over gloo: a collective
+#: costs ~2-3.5 ms at 2 ranks and 12-28 ms at 8, and a step ~50-190 ms at
+#: TP 2 and ~0.6-0.9 s at TP 8, host-bound (PERF.md §5), so each
+#: config's work is cut to what the time limit allows (the script's
+#: [done] within 1,150 s on the slowest host seen): (phase, config spec,
+#: TP, the jobs' texts, chunk, positions of the comparisons). A job's
+#: model steps are its longest chunk's tokens, so the texts are
+#: SHORT_JOBS cut below one chunk. 24a-b: heads, KV heads (and the
+#: vocabulary, and the experts) cut over 'model', through the service
+#: at 16 slots and chunk 128; 24c: pred-base's 4 KV heads do not divide
+#: 8, so its decode is sequence-sharded through the partial kernel, and
+#: it takes the grouped decoder (16 chunks of 16, one lock-step group:
+#: the cache's 16 slots 2 a rank, every rank live; its int8-cache twin
+#: one chunk of 16, the round trip alone: no comparisons, 0 positions)
+MESH_CONFIGS = (
+    ("24a", f"qwen3-14b@{DENSE_CUT}", 2,
+     (("wiki", 16, 1), ("code", 12, 2), ("web", 14, 3)), 128, 8),
+    ("24b", "granite-moe-1b-a400m", 2,
+     (("wiki", 8, 1), ("code", 6, 2), ("web", 7, 3), ("math", 5, 4)),
+     128, 8))
+MESH_SEQ = ("24c", "pred-base", 8, (("wiki", 256, 5),), 16, 16)
+MESH_SEQ_INT8 = ("24c-int8", "pred-base+int8", 8, (("code", 16, 6),), 16,
+                 0)
+
+
+def mesh_cache_len(config) -> int:
+    """Slots of a sequence-sharded config's decode cache: its chunk
+    rounded up to a multiple of TP (``ModelPredictor._alloc_cache``)."""
+    tp, chunk = config[2], config[4]
+    return -(-chunk // tp) * tp
+
+
+def _mesh_logits(pred, chunks):
+    """The decode steps' logits (B, C, V) for ``chunks``, gathered whole
+    on a mesh (``LogitShards``), copied out of a captured step's buffer
+    on one card."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cdf import full_logits
+    B, C = chunks.shape
+    pred.set_decode_len(C)
+    state = pred.begin_decode(B)
+    prev = np.full(B, pred.bos_id)
+    out = []
+    for t in range(C):
+        lg, state = pred.decode_step(state, prev)
+        out.append(full_logits(lg).clone())
+        prev = chunks[:, t]
+    return torch.stack(out, dim=1)
+
+
+def _layout(pred) -> str:
+    """This rank's blocks: q heads, KV heads, vocabulary columns and
+    experts."""
+    from repro_torch.serve.steps import vocab_sharded
+    cfg, p = pred.cfg, pred.params
+    lay = p["layers"]
+    vocab = p["lm_head"].shape[-1] if "lm_head" in p else \
+        p["embed"].shape[0]
+    if vocab_sharded(cfg, pred.mesh) and cfg.tie_embeddings:
+        vocab //= pred.mesh.shape["model"]
+    out = (f"{lay['wq'].shape[-1] // cfg.head_dim} of {cfg.padded_heads} "
+           f"q heads, {lay['wk'].shape[-1] // cfg.head_dim} of "
+           f"{cfg.padded_kv_heads} KV heads, {vocab} of {cfg.padded_vocab} "
+           f"vocabulary columns")
+    if cfg.family == "moe":
+        out += f", {lay['we_gate'].shape[1]} of {cfg.n_experts} experts"
+    return out
+
+
+def mesh_rank(mesh, spec: str, texts: list, chunk: int,
+              check_len: int) -> dict:
+    """Phase 24 on one rank of ``mesh`` for config ``spec`` (random
+    weights from seed 0, this rank's blocks drawn leaf by leaf). The main
+    path, launch counts reset just before and read just after: a
+    ``CompressionService`` round trip (16 slots, ``chunk``, top 48,
+    decompressed in another order) where the decode is per-lane; else
+    the service's lock-step refusal and ``LLMCompressor``'s grouped
+    decoder (decode_batch 16) both ways. Byte identity on every rank, and
+    every rank's archives rank 0's. Then, outside the counted window:
+    teacher-forced scoring (the score step's forward) against the decode steps
+    on 16 x ``check_len`` positions (not for an int8 cache, whose scoring
+    forward is the model dtype's); and on rank 0, the sharded decode
+    against the unsharded one on the same weights (the whole model drawn
+    from the seed), through an unsharded fp32 twin for moe (router
+    near-ties, as in phases 19-20); no comparisons at ``check_len`` 0.
+    Returns rank 0's numbers; each rank logs its own launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import LLMCompressor
+    from repro_torch.core.cdf import full_logits
+    from repro_torch.data.tokenizer import encode
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ModelPredictor
+    from repro_torch.serve.steps import vocab_sharded
+    from repro_torch.service import CompressionService
+    cfg = config(spec)
+    tp = mesh.shape["model"]
+    cut = vocab_sharded(cfg, mesh)
+    me = f"[mesh] {spec} TP {tp} rank {mesh.rank}"
+    t0 = time.perf_counter()
+    pred = ModelPredictor.random_init(cfg, seed=0, mesh=mesh)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    if mesh.rank == 0:
+        how = "sequence-sharded (lock-step)" if pred.lockstep else \
+            "head-sharded"
+        log(f"{me}: {_layout(pred)}; drawn in {t_init:.1f} s; {how} "
+            f"decode, {'sharded' if cut else 'whole'} top-K")
+    toks = [encode(t) for t in texts]
+    n_tok = sum(len(t) for t in toks)
+    out = dict(layout=_layout(pred), lockstep=pred.lockstep, n_tok=n_tok)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if not pred.lockstep:
+        svc = CompressionService(pred, slots=16, chunk_size=chunk, topk=48)
+        blobs = [h.result()[0] for h in [svc.submit_compress(t)
+                                         for t in toks]]
+        t_c = time.perf_counter() - t0
+        steps = svc.stats.model_steps
+        order = list(range(len(toks)))[::-1]
+        svc = CompressionService(pred, slots=16, chunk_size=chunk, topk=48)
+        hs = {i: svc.submit_decompress(blobs[i]) for i in order}
+        outs = {i: hs[i].result() for i in order}
+        steps += svc.stats.model_steps
+    else:
+        try:
+            CompressionService(pred, slots=16, chunk_size=chunk, topk=48)
+            fail(f"{me}: the service took a lock-step (sequence-sharded) "
+                 f"predictor")
+        except ValueError as e:
+            if "lock-step" not in str(e):
+                raise
+            out["refused"] = str(e)
+        comp = LLMCompressor(pred, chunk_size=chunk, topk=48,
+                             decode_batch=16)
+        blobs = [comp.compress(t)[0] for t in toks]
+        t_c = time.perf_counter() - t0
+        outs = {i: comp.decompress(b) for i, b in enumerate(blobs)}
+        # a group of up to 16 chunks takes ``chunk`` lock-step steps
+        steps = 2 * sum(chunk * -(-(-(-len(t) // chunk)) // 16)
+                        for t in toks)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    log(f"{me}: launches on the main path {launches}")
+    for i, t in enumerate(toks):
+        if not np.array_equal(outs[i], t):
+            fail(f"{me}: job {i} differs after the round trip")
+    attn = ("decode_attention_partial" + ("_int8" if cfg.kv_cache_dtype
+                                          == "int8" else "")) \
+        if pred.lockstep else attn_kernel(cfg)
+    for k in [attn] + ([] if cut else ["topk_cdf"]):
+        if launches.get(k, 0) <= 0:
+            fail(f"{me}: the main path launched {k} no time")
+    if not mesh.agree(b"".join(blobs)):
+        fail(f"{me}: this rank's archives differ from another rank's")
+    nbytes = sum(len(b) for b in blobs)
+    out.update(launches=dict(ops.LAUNCHES), round_trip_s=t_all,
+               compress_s=t_c, model_steps=steps,
+               step_ms=t_all / max(1, steps) * 1e3, bytes=nbytes)
+    if mesh.rank == 0:
+        log(f"{me}: round trip of {len(toks)} jobs ({n_tok} tokens -> "
+            f"{nbytes} B) byte-exact on every rank, every rank's archives "
+            f"rank 0's; {t_all:.1f} s for {steps} model steps "
+            f"({out['step_ms']:.1f} ms a step with the coder, eager, "
+            f"gloo)")
+    marks = {"init": t_init, "round trip": t_all}
+    out["seconds"] = marks
+    if not check_len:
+        return out
+    t0 = time.perf_counter()
+    B, C = 16, check_len
+    chunks = np.concatenate(toks)
+    chunks = np.resize(chunks, B * C).reshape(B, C).astype(np.int64)
+    decoded = _mesh_logits(pred, chunks)
+    int8 = cfg.kv_cache_dtype == "int8"
+    if not int8:
+        ops.reset_launches()
+        scored = full_logits(pred.score_chunks(chunks)).clone()
+        n_flash = ops.LAUNCHES["flash_attention"]
+        if n_flash != attention_blocks(cfg):
+            fail(f"{me}: scoring launched flash_attention {n_flash} times, "
+                 f"not once a layer")
+    del pred
+    _free_card()
+    marks["scoring and decode checks"] = time.perf_counter() - t0
+    if mesh.rank != 0:
+        return out
+    t0 = time.perf_counter()
+    twin = None
+    if cfg.family == "moe" and cfg.dtype != "float32":
+        tw = ModelPredictor.random_init(cfg.with_(dtype="float32"), seed=0)
+        twin = _mesh_logits(tw, chunks)
+        del tw
+        _free_card()
+    tol = SCORE_TOL_FP32 if cfg.dtype == "float32" else SCORE_TOL
+    if not int8:
+        out["score"] = _compare_logits(
+            f"24 {spec} TP {tp}: scoring vs decode", scored, decoded,
+            tol=tol, fp32_twin=twin)
+    full = ModelPredictor.random_init(cfg, seed=0)
+    whole = _mesh_logits(full, chunks)
+    del full
+    _free_card()
+    out["vs_unsharded"] = _compare_logits(
+        f"24 {spec}: TP {tp} decode vs the unsharded decode", decoded,
+        whole, tol=tol, fp32_twin=twin)
+    ids_eq = (decoded.topk(48, dim=-1).indices
+              == whole.topk(48, dim=-1).indices).float().mean().item()
+    out["ids_equal_share"] = ids_eq
+    log(f"{me}: top-48 ids equal to the unsharded decode's, position for "
+        f"position: {ids_eq:.4f} of them")
+    marks["unsharded twins (rank 0)"] = time.perf_counter() - t0
+    log(f"{me}: seconds by part {_round(marks)}")
+    return out
+
+
+def _round(d: dict) -> dict:
+    return {k: round(v, 1) for k, v in d.items()}
+
+
+def mesh_world(mesh, configs) -> dict:
+    """Every config of ``configs`` ((phase, spec, TP, jobs, chunk, check
+    positions)) on this world's ranks in turn. The texts are made here,
+    the same on every rank (the ranks run with PYTHONHASHSEED 0)."""
+    from repro_torch.data.synthetic import human_like
+    out = {}
+    for phase, spec, _, jobs, chunk, check in configs:
+        t0 = time.perf_counter()
+        texts = [human_like(d, n, seed=s) for d, n, s in jobs]
+        out[phase] = mesh_rank(mesh, spec, texts, chunk, check)
+        if mesh.rank == 0:
+            log(f"[time] {phase} {spec}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_mesh() -> dict:
+    """Phase 24: serving on a mesh (``launch.mesh.run_ranks``: one process
+    a rank, all on the one card over gloo, the only backend that lets
+    ranks share a device). 24a and 24b in one world of 2 ranks, 24c (and
+    its int8-cache twin) in one of 8. Returns {phase: rank 0's
+    results}."""
+    from repro_torch.launch.mesh import run_ranks
+    out = {}
+    _free_card()
+    t0 = time.perf_counter()
+    out.update(run_ranks(mesh_world, (1, 2), backend="gloo", device="cuda",
+                         args=(MESH_CONFIGS,), timeout=900))
+    log(f"[time] 24a-b TP 2 world: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out.update(run_ranks(mesh_world, (1, MESH_SEQ[2]), backend="gloo",
+                         device="cuda", args=((MESH_SEQ, MESH_SEQ_INT8),),
+                         timeout=900))
+    log(f"[time] 24c TP {MESH_SEQ[2]} world: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the same synthetic texts in every run and in every child
@@ -3420,6 +3875,7 @@ def main() -> int:
     cond = timed("21+22 vlm and encdec configs", phase_conditioned_configs)
     trained = timed("23 training of the other families",
                     phase_train_families)
+    mesh = timed("24 serving on a mesh", phase_mesh)
 
     paths = {"cdf_points": full, "flash_attention": routed,
              "ssd_intra": routed_ssm}
@@ -3429,6 +3885,10 @@ def main() -> int:
     # the int8 variant's main path: deepseek-7b's service with the int8
     # cache (phase 17)
     paths["decode_attention_int8"] = dense[f"deepseek-7b+int8@{DENSE_CUT}"]
+    # the partial form's main path: phase 24c's grouped round trips (rank
+    # 0's counts)
+    paths["decode_attention_partial"] = mesh[MESH_SEQ[0]]
+    paths["decode_attention_partial_int8"] = mesh[MESH_SEQ_INT8[0]]
     rows = []
     for name, (src, replaces) in SOURCES.items():
         r = kern[name]
@@ -3455,6 +3915,9 @@ def main() -> int:
                "launches_phase23": {
                    a: d["check"]["launches"].get(name, 0)
                    for a, d in trained.items()},
+               # phase 24's round trips on a mesh, rank 0's counts
+               "launches_phase24": {a: int(d["launches"].get(name, 0))
+                                    for a, d in mesh.items()},
                "max_abs_err": r["max_abs_err"], "tol": r["tol"],
                # attention: error over its row's max |value| (the bf16
                # limit), at every shape, and a planted skipped tile's

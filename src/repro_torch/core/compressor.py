@@ -122,8 +122,9 @@ import torch
 
 from repro_torch import obs
 from . import ac, rans
-from .cdf import (DEFAULT_PRECISION, as_tensor, full_cdf, full_cdf_lookup,
-                  logits_to_cdf, to_numpy, topk_cdf, topk_cdf_lookup)
+from .cdf import (DEFAULT_PRECISION, LogitShards, as_tensor, full_cdf,
+                  full_cdf_lookup, full_logits, logits_to_cdf, to_numpy,
+                  topk_cdf, topk_cdf_lookup)
 from .checksum import xxh64
 from .draft import SuffixDraft
 from .router import (ROUTE_AUTO, ROUTE_LLM, CodecRouter, RouterConfig,
@@ -206,6 +207,13 @@ class _BadEscape(Exception):
     def __init__(self, lane: int, token_id: int):
         super().__init__(lane, token_id)
         self.lane, self.token_id = lane, token_id
+
+
+def _device_logits(x):
+    """A predictor's logits where it made them: a mesh step's
+    ``LogitShards`` as they are (the coder names what it reads of them:
+    ``core.cdf``), anything else as a tensor."""
+    return x if isinstance(x, LogitShards) else as_tensor(x)
 
 
 class PredictorAdapter(Protocol):
@@ -1185,7 +1193,7 @@ class LLMCompressor:
                         with obs.span("compress.score", self._registry):
                             logits = self._score_incremental(batch)
                     else:
-                        logits = as_tensor(
+                        logits = _device_logits(
                             self.predictor.score_chunks(batch))
                     enc = self._encode_batch(batch[:nb], logits[:nb],
                                              valid_all[sel], sel, stats)
@@ -1371,7 +1379,23 @@ class LLMCompressor:
         state, prev, consumed = self._begin_group(B, C, ctx, ctx_len, live,
                                                   budget)
         # (B, C, V) logits stay where the predictor made them (a device
-        # tensor for the port's models): only CDF tables cross to the host
+        # tensor for the port's models): only CDF tables cross to the host.
+        # A mesh step's LogitShards are stacked as this rank's blocks and
+        # handed on in their layout, so the coder reads them as the
+        # decoder reads each step's
+        shards = None
+
+        def local(lg):
+            nonlocal shards
+            lg = _device_logits(lg)
+            if isinstance(lg, LogitShards):
+                shards = lg
+                return lg.local
+            return lg
+
+        def done(logits):
+            return logits if shards is None else shards.with_local(logits)
+
         if ctx is None or consumed.any():
             # fresh context, or the prefix was prefilled device-side —
             # every lane codes position t at step t. Each step's logits
@@ -1380,18 +1404,18 @@ class LLMCompressor:
             logits = None
             for t in range(C):
                 lg, state = self.predictor.decode_step(state, prev)
-                lg = as_tensor(lg)
+                lg = local(lg)
                 if logits is None:
                     logits = lg.new_empty((B, C, lg.shape[-1]))
                 logits[:, t] = lg
                 prev = batch[:, t]
-            return logits
+            return done(logits)
         cl = np.asarray(ctx_len, np.int64)
         lanes = np.arange(B)
         logits = None
         for s in range(int(cl.max(initial=0)) + C):
             lg, state = self.predictor.decode_step(state, prev)
-            lg = as_tensor(lg)
+            lg = local(lg)
             if logits is None:
                 logits = lg.new_zeros((B, C, lg.shape[-1]))
             t = s - cl                       # per-lane chunk position
@@ -1404,7 +1428,7 @@ class LLMCompressor:
             if pf.any():
                 nxt[pf] = ctx[pf, s]
             prev = nxt.astype(np.int32)
-        return logits
+        return done(logits)
 
     # -------------------------------------------------------------- encode
     def _encode_batch(self, batch, logits, valid, chunk_indices, stats):
@@ -1441,7 +1465,7 @@ class LLMCompressor:
     def _accumulate_ideal_bits(self, batch, logits, valid, stats):
         """Accumulate the un-quantized model cross-entropy into ``stats``;
         returns the per-chunk row sums (bits) for diagnostics."""
-        lp = as_tensor(logits).double()
+        lp = full_logits(logits).double()
         lp = lp - lp.max(dim=-1, keepdim=True).values
         lse = torch.log(torch.exp(lp).sum(dim=-1))
         tok = torch.as_tensor(batch, device=lp.device).long()

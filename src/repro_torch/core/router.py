@@ -45,7 +45,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from .baselines import available_byte_codecs, compress_bytes, decompress_bytes
-from .cdf import to_numpy
+from .cdf import full_logits, to_numpy
 
 #: routes that run the LLM entropy path for every chunk
 ROUTE_LLM = "llm"
@@ -273,7 +273,9 @@ def route_chunks(router: CodecRouter, predictor, chunks: np.ndarray,
     with _trace.span("router.probe"):
         P = min(router.config.probe_tokens, chunks.shape[1])
         # the port's predictor returns device logits: one host copy here
-        logits = to_numpy(predictor.score_chunks(chunks[:, :P]))
+        # (a mesh predictor's gathered: the estimate reads every id)
+        logits = to_numpy(full_logits(
+            predictor.score_chunks(chunks[:, :P])))
         est = estimate_chunk_bits(logits, chunks, valid, P)
     return [RouteDecision(name if router.skip_llm(float(est[i]), s)
                           else llm_codec, len(s), float(est[i]))

@@ -60,7 +60,10 @@ _vp, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # (-fmad=false), as the plain PyTorch versions compute them. The int8
 # decode-attention kernel is decode_attention.cu built with
 # -DREPRO_KV_INT8: a library of its own, compiled beside the bf16 / fp32
-# one, each holding only its own instantiations.
+# one, each holding only its own instantiations. The partial form (o,
+# lse) of both is the same source again with -DREPRO_DECODE_PARTIAL:
+# two more libraries, built beside the others, so that the four decode
+# builds each compile only their own instances.
 KERNELS = {
     "decode_attention": (
         "decode_attention.cu", [], "repro_decode_attention",
@@ -71,6 +74,16 @@ KERNELS = {
         "repro_decode_attention_int8",
         [_vp, _ll, _ll, _vp, _vp, _ll, _ll, _ll, _vp, _vp, _ll, _ll, _ll,
          _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _i, _i, _i, _vp]),
+    "decode_attention_partial": (
+        "decode_attention.cu", ["-DREPRO_DECODE_PARTIAL"],
+        "repro_decode_attention_partial",
+        [_vp, _ll, _ll, _vp, _vp, _ll, _ll, _ll, _vp, _vp, _vp,
+         _i, _i, _i, _i, _i, _i, _f, _i, _i, _i, _vp]),
+    "decode_attention_partial_int8": (
+        "decode_attention.cu", ["-DREPRO_KV_INT8", "-DREPRO_DECODE_PARTIAL"],
+        "repro_decode_attention_partial_int8",
+        [_vp, _ll, _ll, _vp, _vp, _ll, _ll, _ll, _vp, _vp, _ll, _ll, _ll,
+         _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _i, _i, _i, _vp]),
     "topk_cdf": (
         "topk_cdf.cu", ["-fmad=false"], "repro_topk_cdf",
         [_vp, _ll] + [_i] * 8 + [_vp, _vp, _vp]),

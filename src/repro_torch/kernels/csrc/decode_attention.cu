@@ -73,6 +73,18 @@
 // (the values must pass through registers to be scaled), so unlike the
 // cp.async path they do not overlap the previous tile's compute.
 //
+// The partial form (kernels/ops.py `decode_attention_partial` and
+// `_int8`), for the sequence-sharded decode's combine across ranks: this
+// file built with -DREPRO_DECODE_PARTIAL (beside -DREPRO_KV_INT8 or not),
+// libraries of their own that hold only the kPartial instances. The same
+// kernel with kPartial set writes the normalized output in fp32 (no
+// rounding to the model dtype) and, per (lane, head), lse = m + log(l) of
+// the merged state instead of dividing it away. A lane of length 0 (a
+// rank whose slice of the cache holds no live position) takes the solo
+// path with m = -inf and l = 0: o = 0 and lse = -inf, which weighs it 0
+// in the combine. The other builds' instances are the kernel above,
+// unchanged: the partial writes are `if constexpr` branches beside them.
+//
 // Plain C interface, bound from Python with ctypes (kernels/ops.py).
 #include <cooperative_groups.h>
 #include <cuda_fp16.h>
@@ -102,6 +114,11 @@ constexpr int kWideRowBytes = 512;
 constexpr bool kInt8Cache = true;   // this library's caches are int8
 #else
 constexpr bool kInt8Cache = false;
+#endif
+#ifdef REPRO_DECODE_PARTIAL
+constexpr bool kPartialBuild = true;  // this library writes (o, lse)
+#else
+constexpr bool kPartialBuild = false;
 #endif
 
 // Head rows a CTA reserves (q rows, score rows, softmax states) for kG
@@ -266,8 +283,11 @@ __device__ __forceinline__ void fill_tile(
 // otherwise kVPL 16-byte vectors of a key row per lane. kVec: 16-byte
 // copies (rows start on 16 bytes) or scalar ones. kI8: the caches are
 // int8 (kc / vc int8, ksc / vsc their fp16 scales with strides sc_*);
-// otherwise T, and the scales are unused.
-template <typename T, int kG, bool kMma, int kVPL, bool kVec, bool kI8>
+// otherwise T, and the scales are unused. kPartial: the output goes to
+// out_f (fp32) with each (lane, head)'s log-sum-exp to lse; otherwise to
+// out, and out_f / lse are unused.
+template <typename T, int kG, bool kMma, int kVPL, bool kVec, bool kI8,
+          bool kPartial>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, long long q_sb,
                         long long q_sh, const void* __restrict__ kc,
@@ -277,6 +297,7 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
                         const __half* __restrict__ vsc, long long sc_sb,
                         long long sc_ss, long long sc_sk,
                         const int* __restrict__ lengths, T* __restrict__ out,
+                        float* __restrict__ out_f, float* __restrict__ lse,
                         int H, int K, int S, int hd, int per, int rowb,
                         int nbuf, float scale) {
   using CT = std::conditional_t<kI8, int8_t, T>;    // a cache element
@@ -523,12 +544,16 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
   // it by exp(0) == 1 and add only zeros, so this is the same output bit
   // for bit
   float* pl_own = reinterpret_cast<float*>(smem + L.pl);
+  float* pm_own = reinterpret_cast<float*>(smem + L.pm);
   if (solo) {
     if (lane == 0) {
 #pragma unroll
       for (int i = 0; i < kR / kWarps; ++i) {
         const int g = warp + i * kWarps;
-        if (g < G) pl_own[g] = l_run[i];
+        if (g < G) {
+          pl_own[g] = l_run[i];
+          if constexpr (kPartial) pm_own[g] = m_run[i];
+        }
       }
     }
     __syncthreads();
@@ -538,9 +563,20 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
       if (d >= hd) break;
 #pragma unroll
       for (int g = 0; g < kG; ++g)
-        if (g < G)
-          out[((long long)b * H + kh * G + g) * hd + d] =
-              repro::from_float<T>(acc[g][c] / fmaxf(pl_own[g], 1e-30f));
+        if (g < G) {
+          const long long o = ((long long)b * H + kh * G + g) * hd + d;
+          if constexpr (kPartial)
+            out_f[o] = acc[g][c] / fmaxf(pl_own[g], 1e-30f);
+          else
+            out[o] = repro::from_float<T>(acc[g][c] / fmaxf(pl_own[g], 1e-30f));
+        }
+    }
+    if constexpr (kPartial) {
+      // m = -inf (no live position): l = 0, and lse is -inf
+      if (tid < G)
+        lse[(long long)b * H + kh * G + tid] =
+            pm_own[tid] == -INFINITY ? -INFINITY
+                                     : pm_own[tid] + logf(pl_own[tid]);
     }
     return;
   }
@@ -601,8 +637,20 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
       Ls += sl_[r * kR + g] * a;
       O += sa[(r * G + g) * hd + d] * a;
     }
-    out[((long long)b * H + kh * G + g) * hd + d] =
-        repro::from_float<T>(O / fmaxf(Ls, 1e-30f));
+    const long long o = ((long long)b * H + kh * G + g) * hd + d;
+    if constexpr (kPartial) {
+      out_f[o] = O / fmaxf(Ls, 1e-30f);
+      if (d == 0) {
+        // rank 0's slice is live here, so the max M is finite
+        float M = -INFINITY;
+#pragma unroll
+        for (int r = 0; r < kMaxClusters; ++r)
+          if (r < C) M = fmaxf(M, sm[r * kR + g]);
+        lse[(long long)b * H + kh * G + g] = M + logf(Ls);
+      }
+    } else {
+      out[o] = repro::from_float<T>(O / fmaxf(Ls, 1e-30f));
+    }
   }
 }
 
@@ -613,14 +661,15 @@ struct Scales {
   long long sb, ss, sk;
 };
 
-template <typename T, int kG, bool kMma, int kVPL, bool kVec>
+template <typename T, bool kPartial, int kG, bool kMma, int kVPL, bool kVec>
 cudaError_t launch(const void* q, long long q_sb, long long q_sh,
                    const void* k, const void* v, long long kv_sb,
                    long long kv_ss, long long kv_sk, const Scales& sc,
-                   const int* lengths, void* out, int B, int H, int K, int S,
-                   int hd, int C, int per, int rowb, float scale,
-                   cudaStream_t st) {
-  auto kern = decode_attention_kernel<T, kG, kMma, kVPL, kVec, kInt8Cache>;
+                   const int* lengths, void* out, float* lse, int B, int H,
+                   int K, int S, int hd, int C, int per, int rowb,
+                   float scale, cudaStream_t st) {
+  auto kern = decode_attention_kernel<T, kG, kMma, kVPL, kVec, kInt8Cache,
+                                      kPartial>;
   const int nbuf = per > kTile ? 2 : 1;
   const size_t smem =
       (size_t)Layout(rowb + kRowPad, head_rows(kG), H / K, nbuf, C, hd).total;
@@ -648,8 +697,9 @@ cudaError_t launch(const void* q, long long q_sb, long long q_sh,
   cfg.numAttrs = C > 1 ? 1 : 0;          // a lone CTA needs no cluster
   cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q), q_sb, q_sh, k, v,
                      kv_sb, kv_ss, kv_sk, sc.k, sc.v, sc.sb, sc.ss, sc.sk,
-                     lengths, static_cast<T*>(out), H, K, S, hd, per, rowb,
-                     nbuf, scale);
+                     lengths, kPartial ? nullptr : static_cast<T*>(out),
+                     kPartial ? static_cast<float*>(out) : nullptr, lse, H,
+                     K, S, hd, per, rowb, nbuf, scale);
   return cudaGetLastError();            // also clears a refused launch's
 }
 
@@ -659,21 +709,22 @@ cudaError_t launch(const void* q, long long q_sb, long long q_sh,
 // 120), with the heads rounded up to 1, 2, 4, 8 or 16. Rows that do not
 // start on 16 bytes take scalar copies. Every G <= 8 takes the instance it
 // took before groups of 16 were added, so its output is unchanged.
-template <typename T>
+// kPartial: the partial form's instances (out is fp32, lse written).
+template <typename T, bool kPartial>
 cudaError_t dispatch(int vec, const void* q, long long q_sb, long long q_sh,
                      const void* k, const void* v, long long kv_sb,
                      long long kv_ss, long long kv_sk, const Scales& sc,
-                     const int* lengths, void* out, int B, int H, int K,
-                     int S, int hd, int C, int per, float scale,
+                     const int* lengths, void* out, float* lse, int B, int H,
+                     int K, int S, int hd, int C, int per, float scale,
                      cudaStream_t st) {
   const int rowb = (hd * (int)sizeof(T) + 15) / 16 * 16;
   const int G = H / K;
   const bool two = rowb / 16 > 8;
   constexpr bool kBf16 = sizeof(T) == 2;
-#define REPRO_LAUNCH(kG, kMma, kVPL, kVec)                                  \
-  launch<T, kG, kMma, kVPL, kVec>(q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sk, \
-                                  sc, lengths, out, B, H, K, S, hd, C, per, \
-                                  rowb, scale, st)
+#define REPRO_LAUNCH(kG, kMma, kVPL, kVec)                                 \
+  launch<T, kPartial, kG, kMma, kVPL, kVec>(                               \
+      q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sk, sc, lengths, out, lse, B, H, \
+      K, S, hd, C, per, rowb, scale, st)
   const bool wide = G > 8;
   if (!vec || (hd * (int)sizeof(T)) % 16 != 0) {
     if (wide)
@@ -710,36 +761,39 @@ cudaError_t dispatch(int vec, const void* q, long long q_sb, long long q_sh,
 #undef REPRO_LAUNCH
 }
 
-// The checks and the dtype switch of both entry points.
+// The checks and the dtype switch of the entry points; lse is the partial
+// build's (and must be given there), nullptr otherwise.
 int run(const void* q, long long q_sb, long long q_sh, const void* k,
         const void* v, long long kv_sb, long long kv_ss, long long kv_sk,
-        const Scales& sc, const void* lengths, void* out, int B, int H,
-        int K, int S, int hd, int dtype, float scale, int clusters, int per,
-        int vec, void* stream) {
+        const Scales& sc, const void* lengths, void* out, void* lse, int B,
+        int H, int K, int S, int hd, int dtype, float scale, int clusters,
+        int per, int vec, void* stream) {
   if (K <= 0 || H % K != 0 || H / K > kMaxG || hd <= 0 || hd > kMaxHd ||
       (H / K > 8 && hd * (dtype == repro::kFloat32 ? 4 : 2) > kWideRowBytes) ||
       S < 1 || B < 1 || B > 65535 || clusters < 1 ||
       clusters > kMaxClusters || per < 1 || per % kTile != 0 ||
       (long long)clusters * per < S || (long long)(clusters - 1) * per >= S ||
       (long long)clusters * K > 0x7fffffffLL ||
-      (kInt8Cache && (hd % 4 != 0 || sc.k == nullptr || sc.v == nullptr)))
+      (kInt8Cache && (hd % 4 != 0 || sc.k == nullptr || sc.v == nullptr)) ||
+      (kPartialBuild != (lse != nullptr)))
     return (int)cudaErrorInvalidValue;
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lf = static_cast<float*>(lse);
   if (dtype == repro::kFloat32)
-    return (int)dispatch<float>(vec, q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sk,
-                                sc, len, out, B, H, K, S, hd, clusters, per,
-                                scale, st);
+    return (int)dispatch<float, kPartialBuild>(
+        vec, q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sk, sc, len, out, lf, B,
+        H, K, S, hd, clusters, per, scale, st);
   if (dtype == repro::kBFloat16)
-    return (int)dispatch<__nv_bfloat16>(vec, q, q_sb, q_sh, k, v, kv_sb,
-                                        kv_ss, kv_sk, sc, len, out, B, H, K,
-                                        S, hd, clusters, per, scale, st);
+    return (int)dispatch<__nv_bfloat16, kPartialBuild>(
+        vec, q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sk, sc, len, out, lf, B,
+        H, K, S, hd, clusters, per, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-#ifndef REPRO_KV_INT8
+#if !defined(REPRO_KV_INT8) && !defined(REPRO_DECODE_PARTIAL)
 // q (B, H, hd) with strides (q_sb, q_sh, 1); k/v cache of one layer
 // (B, S, K, hd) with strides (kv_sb, kv_ss, kv_sk, 1); lengths (B,) int32;
 // out (B, H, hd) contiguous. Strides are in elements. `clusters` CTAs per
@@ -757,10 +811,10 @@ extern "C" int repro_decode_attention(const void* q, long long q_sb,
                                       float scale, int clusters, int per,
                                       int vec, void* stream) {
   return run(q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sk,
-             Scales{nullptr, nullptr, 0, 0, 0}, lengths, out, B, H, K, S, hd,
-             dtype, scale, clusters, per, vec, stream);
+             Scales{nullptr, nullptr, 0, 0, 0}, lengths, out, nullptr, B, H,
+             K, S, hd, dtype, scale, clusters, per, vec, stream);
 }
-#else
+#elif !defined(REPRO_DECODE_PARTIAL)
 // As repro_decode_attention, over an int8 cache: k/v (B, S, K, hd) int8
 // with strides (kv_sb, kv_ss, kv_sk, 1) in bytes, whose rows start on 4
 // bytes, hd % 4 == 0; k_scale / v_scale (B, S, K) fp16 with strides
@@ -777,7 +831,38 @@ extern "C" int repro_decode_attention_int8(
   return run(q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sk,
              Scales{static_cast<const __half*>(k_scale),
                     static_cast<const __half*>(v_scale), sc_sb, sc_ss, sc_sk},
-             lengths, out, B, H, K, S, hd, dtype, scale, clusters, per, vec,
-             stream);
+             lengths, out, nullptr, B, H, K, S, hd, dtype, scale, clusters,
+             per, vec, stream);
+}
+#elif !defined(REPRO_KV_INT8)
+// The partial form: as repro_decode_attention, with out (B, H, hd) fp32
+// contiguous, normalized, and lse (B, H) fp32 contiguous, the log-sum-exp
+// of each (lane, head)'s scores (-inf, with out 0, for a lane of length
+// 0).
+extern "C" int repro_decode_attention_partial(
+    const void* q, long long q_sb, long long q_sh, const void* k,
+    const void* v, long long kv_sb, long long kv_ss, long long kv_sk,
+    const void* lengths, void* out, void* lse, int B, int H, int K, int S,
+    int hd, int dtype, float scale, int clusters, int per, int vec,
+    void* stream) {
+  return run(q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sk,
+             Scales{nullptr, nullptr, 0, 0, 0}, lengths, out, lse, B, H, K,
+             S, hd, dtype, scale, clusters, per, vec, stream);
+}
+#else
+// The partial form over an int8 cache (see repro_decode_attention_partial
+// and repro_decode_attention_int8).
+extern "C" int repro_decode_attention_partial_int8(
+    const void* q, long long q_sb, long long q_sh, const void* k,
+    const void* v, long long kv_sb, long long kv_ss, long long kv_sk,
+    const void* k_scale, const void* v_scale, long long sc_sb,
+    long long sc_ss, long long sc_sk, const void* lengths, void* out,
+    void* lse, int B, int H, int K, int S, int hd, int dtype, float scale,
+    int clusters, int per, int vec, void* stream) {
+  return run(q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sk,
+             Scales{static_cast<const __half*>(k_scale),
+                    static_cast<const __half*>(v_scale), sc_sb, sc_ss, sc_sk},
+             lengths, out, lse, B, H, K, S, hd, dtype, scale, clusters, per,
+             vec, stream);
 }
 #endif

@@ -21,6 +21,7 @@ went through the kernels.
 |--------------------|-----------------------------|--------------------------------------------|
 | decode_attention   | csrc/decode_attention.cu    | kernels/decode_attention.py decode_attention |
 | decode_attention_int8 | the same, -DREPRO_KV_INT8 | the same, over an int8 cache |
+| decode_attention_partial(_int8) | the same, -DREPRO_DECODE_PARTIAL | the same: (o, lse) for the sequence-sharded combine |
 | topk_cdf           | csrc/topk_cdf.cu            | kernels/ac_cdf.py topk_cdf_points          |
 | cdf_points         | csrc/cdf_points.cu          | kernels/ac_cdf.py cdf_points               |
 | flash_attention    | csrc/flash_attention.cu     | kernels/flash_attention.py flash_attention |
@@ -186,6 +187,29 @@ def decode_attention_int8(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return ref.decode_attention_int8(q, k_cache, v_cache, k_scale,
                                          v_scale, lengths)
+    _check_int8(name, q, k_cache, v_cache, k_scale, v_scale, lengths)
+    B, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    if B == 0 or S == 0:
+        return out.zero_()
+    clusters, per = decode_geometry(S, H // K, hd, q.dtype)
+    rc = build.entry(name)(
+        q.data_ptr(), q.stride(0), q.stride(1),
+        k_cache.data_ptr(), v_cache.data_ptr(),
+        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+        k_scale.data_ptr(), v_scale.data_ptr(), *k_scale.stride(),
+        lengths.data_ptr(), out.data_ptr(), B, H, K, S, hd,
+        _DTYPES[q.dtype], 1.0 / math.sqrt(hd), clusters, per,
+        int(_rows_aligned(q)), _stream(q))
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _check_int8(name: str, q, k_cache, v_cache, k_scale, v_scale,
+                lengths) -> None:
+    """The checks of both int8 decode wrappers."""
     _check_cuda(name, q, k_cache, v_cache, k_scale, v_scale, lengths)
     _check_decode(name, q, k_cache, v_cache, lengths)
     B, H, hd = q.shape
@@ -207,21 +231,83 @@ def decode_attention_int8(q: torch.Tensor, k_cache: torch.Tensor,
                      for t in (k_cache, v_cache)):
         raise ValueError(f"{name}: hd={hd} must be a multiple of 4 and the "
                          f"int8 rows must start on 4 bytes")
-    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+
+
+def _partial_out(q):
+    B, H, hd = q.shape
+    return (torch.empty((B, H, hd), dtype=torch.float32, device=q.device),
+            torch.empty((B, H), dtype=torch.float32, device=q.device))
+
+
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, lengths: torch.Tensor):
+    """``decode_attention``'s partial form, for the sequence-sharded
+    decode's combine across ranks: (o (B, H, hd) float32, normalized over
+    the lane's first ``lengths[b]`` positions, lse (B, H) float32, the
+    log-sum-exp of its scores). A lane of length 0 gives o = 0 and lse =
+    -inf. The same kernel and geometry as ``decode_attention`` (the
+    merged (m, l) of its cluster kept as max + log(l) instead of divided
+    away), so o is decode_attention's output before its rounding to q's
+    dtype."""
+    name = "decode_attention_partial"
+    _refuse_grad(name, q, k_cache, v_cache)
+    if q.device.type == "cpu":
+        return ref.decode_attention_partial(q, k_cache, v_cache, lengths)
+    _check_cuda(name, q, k_cache, v_cache, lengths)
+    _check_decode(name, q, k_cache, v_cache, lengths)
+    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise ValueError(f"{name}: dtypes {q.dtype}, {k_cache.dtype}, "
+                         f"{v_cache.dtype} (float32 or bfloat16, all equal)")
+    B, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    out, lse = _partial_out(q)
     if B == 0 or S == 0:
-        return out.zero_()
+        return out.zero_(), lse.fill_(float("-inf"))
+    clusters, per = decode_geometry(S, H // K, hd, q.dtype)
+    vec = all(_rows_aligned(t) for t in (q, k_cache, v_cache))
+    rc = build.entry(name)(
+        q.data_ptr(), q.stride(0), q.stride(1),
+        k_cache.data_ptr(), v_cache.data_ptr(),
+        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+        lengths.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, K, S, hd,
+        _DTYPES[q.dtype], 1.0 / math.sqrt(hd), clusters, per, int(vec),
+        _stream(q))
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
+    return out, lse
+
+
+def decode_attention_partial_int8(q: torch.Tensor, k_cache: torch.Tensor,
+                                  v_cache: torch.Tensor,
+                                  k_scale: torch.Tensor,
+                                  v_scale: torch.Tensor,
+                                  lengths: torch.Tensor):
+    """``decode_attention_partial`` over an int8 cache, with the checks
+    and layout of ``decode_attention_int8``."""
+    name = "decode_attention_partial_int8"
+    _refuse_grad(name, q, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return ref.decode_attention_partial_int8(q, k_cache, v_cache,
+                                                 k_scale, v_scale, lengths)
+    _check_int8(name, q, k_cache, v_cache, k_scale, v_scale, lengths)
+    B, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    out, lse = _partial_out(q)
+    if B == 0 or S == 0:
+        return out.zero_(), lse.fill_(float("-inf"))
     clusters, per = decode_geometry(S, H // K, hd, q.dtype)
     rc = build.entry(name)(
         q.data_ptr(), q.stride(0), q.stride(1),
         k_cache.data_ptr(), v_cache.data_ptr(),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         k_scale.data_ptr(), v_scale.data_ptr(), *k_scale.stride(),
-        lengths.data_ptr(), out.data_ptr(), B, H, K, S, hd,
+        lengths.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, K, S, hd,
         _DTYPES[q.dtype], 1.0 / math.sqrt(hd), clusters, per,
         int(_rows_aligned(q)), _stream(q))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
-    return out
+    return out, lse
 
 
 def _check_logits(name: str, logits: torch.Tensor) -> None:

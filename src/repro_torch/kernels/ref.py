@@ -36,6 +36,34 @@ def decode_attention(q, k_cache, v_cache, lengths):
     return o.reshape(B, H, hd).to(q.dtype)
 
 
+def decode_attention_partial(q, k_cache, v_cache, lengths):
+    """``decode_attention``'s partial form, for a combine across slices
+    of the cache: (o (B, H, hd) float32, normalized over the lane's
+    first ``lengths[b]`` positions, lse (B, H) float32, the log of the
+    scores' sum of exp: max + log(sum exp(s - max))). A lane of length 0
+    gives o = 0 and lse = -inf, which weighs it 0 in the combine (where
+    ``decode_attention`` would softmax its all-masked row to a uniform
+    one)."""
+    B, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, hd).float()
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache.float()) \
+        * (1.0 / math.sqrt(hd))
+    valid = torch.arange(S, device=q.device)[None, :] \
+        < lengths.to(q.device).long()[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True) if S else torch.full(
+        s.shape[:-1] + (1,), float("-inf"), device=q.device)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float()) \
+        / torch.clamp(l, min=1e-30)
+    lse = (m + torch.log(l))[..., 0]
+    return o.reshape(B, H, hd), lse.reshape(B, H)
+
+
 def dequant_kv(q, scale, dtype):
     """An int8 cache row back in the model dtype, as the JAX package's
     ``_dequant_kv(q, scale).astype(dtype)``: q (..., hd) int8 and scale
@@ -50,6 +78,15 @@ def decode_attention_int8(q, k_cache, v_cache, k_scale, v_scale, lengths):
     then attended exactly as a cache of that dtype."""
     return decode_attention(q, dequant_kv(k_cache, k_scale, q.dtype),
                             dequant_kv(v_cache, v_scale, q.dtype), lengths)
+
+
+def decode_attention_partial_int8(q, k_cache, v_cache, k_scale, v_scale,
+                                  lengths):
+    """``decode_attention_partial`` over an int8 cache, dequantized to q's
+    dtype as ``decode_attention_int8`` does."""
+    return decode_attention_partial(
+        q, dequant_kv(k_cache, k_scale, q.dtype),
+        dequant_kv(v_cache, v_scale, q.dtype), lengths)
 
 
 def attention_mask(Sq: int, Sk: int, causal: bool, window, device):

@@ -9,7 +9,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import specs
 from . import encdec, hybrid, mamba2, moe, transformer
+from .layers import mesh_context
 from .schema import count_params, from_jax, init_params, schema
 
 _FAMS = {
@@ -64,22 +66,66 @@ def stub_inputs(cfg: ModelConfig, batch: int = 1, *, seed: int = 0,
     return {rows[0]: x.to(transformer.torch_dtype(cfg.dtype))}
 
 
-def forward(params, cfg: ModelConfig, batch: dict, **kw):
-    """Teacher-forced logits (B, S, padded_vocab) for batch["tokens"]."""
-    return module_for(cfg).forward(params, cfg, batch, **kw)
+#: the families the port runs on a mesh (tensor and expert parallelism)
+MESH_FAMILIES = ("dense", "moe")
+
+
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """Refuse a mesh for a family the port does not shard yet."""
+    module_for(cfg)
+    if mesh is not None and cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family} family on a mesh: the port serves "
+            f"{' and '.join(MESH_FAMILIES)} on a mesh; ssm, hybrid, encdec "
+            f"and vlm on a mesh are ROADMAP Queue 1 item 3")
+
+
+def forward(params, cfg: ModelConfig, batch: dict, *, mesh=None,
+            batch_sharded: bool = False, **kw):
+    """Teacher-forced logits (B, S, padded_vocab) for batch["tokens"]. On
+    a ``mesh`` (the serve layout): ``params`` are this rank's blocks
+    (``sharding.specs.shard_params``), the tokens this rank's lanes
+    (``batch_sharded``: the batch is cut over the batch axes) and the
+    logits this rank's block of the vocabulary where 'model' cuts it."""
+    check_mesh(cfg, mesh)
+    with mesh_context(mesh, cfg, batch_sharded=batch_sharded):
+        return module_for(cfg).forward(params, cfg, batch, **kw)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device=None, **kw):
+               device=None, mesh=None, **kw):
     """A zeroed decode cache; ``kw`` is the family's own (encdec:
-    ``source_len`` and ``lanes`` of its cross-attention K/V)."""
-    return module_for(cfg).init_cache(cfg, batch, max_len, dtype, device,
-                                      **kw)
+    ``source_len`` and ``lanes`` of its cross-attention K/V). On a
+    ``mesh``: this rank's block of the cache of ``batch`` lanes
+    (``sharding.specs.cache_pspecs``), allocated at its own shapes; a
+    sequence cut over the batch axes (a batch that does not divide
+    them) is refused."""
+    mod = module_for(cfg)
+    if mesh is None:
+        return mod.init_cache(cfg, batch, max_len, dtype, device, **kw)
+    check_mesh(cfg, mesh)
+    seq = specs.cache_pspecs(cfg, mesh, batch=batch)["k"][2]
+    if seq not in (None, "model"):
+        raise NotImplementedError(
+            f"a cache of {batch} lanes on {mesh.shape}: the batch does not "
+            f"divide the batch axes, and a cache cut along the sequence "
+            f"over them is not ported (ROADMAP Queue 1 item 3)")
+    whole = mod.init_cache(cfg, batch, max_len, dtype, "meta", **kw)
+    shapes = specs.cache_local_shapes(
+        cfg, mesh, {k: tuple(v.shape) for k, v in whole.items()},
+        batch=batch)
+    return {k: torch.zeros(shapes[k], dtype=v.dtype, device=device)
+            for k, v in whole.items()}
 
 
-def decode_step(params, cfg: ModelConfig, cache, prev_tokens):
-    """(logits (B, padded_vocab), cache) — the cache is updated in place."""
-    return module_for(cfg).decode_step(params, cfg, cache, prev_tokens)
+def decode_step(params, cfg: ModelConfig, cache, prev_tokens, *, mesh=None,
+                batch_sharded: bool = False):
+    """(logits (B, padded_vocab), cache) — the cache is updated in place.
+    On a ``mesh``, as ``forward``: this rank's lanes and cache, and its
+    block of the vocabulary."""
+    check_mesh(cfg, mesh)
+    with mesh_context(mesh, cfg, batch_sharded=batch_sharded):
+        return module_for(cfg).decode_step(params, cfg, cache, prev_tokens)
 
 
 def rollback_leaves(cfg: ModelConfig) -> tuple[str, ...]:
@@ -152,7 +198,7 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0):
     return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
-__all__ = ["forward", "loss_fn", "TRAIN_FORWARD", "init_cache", "decode_step",
+__all__ = ["forward", "loss_fn", "MESH_FAMILIES", "check_mesh", "TRAIN_FORWARD", "init_cache", "decode_step",
            "rollback_leaves", "ring_leaves", "conditioning_leaves",
            "module_for", "stub_inputs", "init_params", "from_jax",
            "count_params", "schema"]

@@ -8,20 +8,99 @@ run in the port's CUDA kernels (``kernels/ops.py``) on the card and in
 their plain versions on the CPU; the kernels have no backward, so the
 training forward takes ``attention_masked``, plain PyTorch on either
 device, as the JAX training path takes its XLA ``attention_masked``.
-The JAX module's sharding hints, explicit-TP down projection, residual
-barrier and environment switches belong to the multi-GPU slice and are
-not ported yet.
+
+On a mesh (``launch/mesh.py``) a model runs as one rank's program, as a
+JAX ``shard_map`` body does: ``mesh_context`` names the mesh and the
+layout for the calls inside it, each weight is this rank's block
+(``sharding/specs.py``), and the row-parallel products end in an
+explicit ``all_reduce`` over 'model' (``tp_down_proj``). The port has no
+switch for implicit collectives (the JAX module's ``REPRO_EXPLICIT_TP``
+and ``REPRO_BF16_WIRE``, and its residual barrier): its collectives are
+always explicit, their payload in the model dtype, and that is the
+serve layout.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
+from repro_torch.sharding import specs
 
 NEG_INF = -1e30
+
+
+@dataclass(frozen=True)
+class MeshContext:
+    """The mesh a model call runs on: ``mesh`` (a ``launch.mesh.Mesh``),
+    ``layout`` ("serve": weights resident; the port runs no other on a
+    mesh yet), the sharding ``rules`` of the call's config on it
+    (``sharding.specs.rules``: logical axis -> mesh axis or None) and
+    whether the call's batch is cut over the batch axes
+    (``batch_sharded``: each rank holds its block of the lanes)."""
+    mesh: object
+    layout: str
+    rules: dict
+    batch_sharded: bool = False
+
+    @property
+    def tp(self) -> int:
+        return self.mesh.axis_size("model")
+
+    def cut(self, logical: str) -> bool:
+        """Whether ``logical`` is cut over 'model' into more than one
+        block."""
+        return self.rules[logical] == "model" and self.tp > 1
+
+
+_MESH = contextvars.ContextVar("repro_torch_mesh", default=None)
+
+
+@contextlib.contextmanager
+def mesh_context(mesh, cfg=None, layout: str = "serve", *,
+                 batch_sharded: bool = False):
+    """Run the model calls inside on ``mesh`` (None: one device) with
+    ``cfg``'s sharding rules. The port's model paths run the serve layout
+    only: training on a mesh (the JAX train layout, FSDP) is ROADMAP
+    Queue 1 item 3."""
+    ctx = None
+    if mesh is not None:
+        if layout != "serve":
+            raise NotImplementedError(
+                f"layout {layout!r} on a mesh: the port's models run the "
+                f"serve layout (training on a mesh is ROADMAP Queue 1 "
+                f"item 3)")
+        ctx = MeshContext(mesh, layout, specs.rules(cfg, mesh, layout),
+                          bool(batch_sharded))
+    tok = _MESH.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _MESH.reset(tok)
+
+
+def mesh_ctx():
+    """The active ``MeshContext``, or None on one device."""
+    return _MESH.get()
+
+
+def tp_down_proj(h, w, logical: str):
+    """A product whose contracted dim is cut over 'model' when the rows
+    of ``w`` are (``logical``: "heads" or "mlp"): this rank's partial
+    product, summed over 'model' with an ``all_reduce`` whose payload is
+    in the model dtype (the JAX package's explicit path:
+    ``psum(out.astype(h.dtype))``). On one device, or when the rows are
+    whole, a plain product."""
+    out = h @ w
+    ctx = mesh_ctx()
+    if ctx is not None and ctx.cut(logical):
+        out = ctx.mesh.psum(out.to(h.dtype), "model")
+    return out
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
@@ -45,9 +124,13 @@ def rope(x, positions, theta: float = 1e6):
     return out.to(x.dtype)
 
 
-def swiglu(x, w_gate, w_up, w_down):
+def swiglu(x, w_gate, w_up, w_down, reduce: str | None = None):
+    """SwiGLU. On a mesh, gate and up are column-parallel (this rank's
+    columns of the hidden) and ``reduce`` ("mlp") names the rows of
+    ``w_down`` that ``tp_down_proj`` sums over 'model'; None: a plain
+    product (the moe experts, each whole on its rank)."""
     h = F.silu(x @ w_gate) * (x @ w_up)
-    return h @ w_down
+    return h @ w_down if reduce is None else tp_down_proj(h, w_down, reduce)
 
 
 def decode_attention(q, k_cache, v_cache, pos, scales=None):

@@ -16,10 +16,12 @@ and capacity C = T, the call's token count (dropless):
      the softmax over those k;
   2. ``rank_within_expert``: each (token, slot)'s place in its expert's
      arrival order, sort-based as in JAX (no (T k, E) one-hot);
-  3. the tokens copied into an (E * C, D) buffer at row expert * C +
-     rank, every expert's SwiGLU as one batched product over the (E, C,
-     D) buffer, each (token, slot)'s row gathered back
-     and weighted, and a token's k slots summed in fp32, rounded once.
+  3. the (E, C, D) buffer gathered row by row: row (e, c) reads the
+     token of expert e's arrival of rank c, if there is one, else zeros
+     (``capacity_rows``, which the capacity dispatch shares), every
+     expert's SwiGLU as one batched product over it, each (token,
+     slot)'s row gathered back at expert * C + rank and weighted, and a
+     token's k slots summed in fp32, rounded once.
 
 What the coder needs of it, and how it holds:
 
@@ -29,8 +31,8 @@ What the coder needs of it, and how it holds:
   * The combine gathers; nothing scatters with accumulation
     (``index_add_``, ``scatter_add_`` and ``index_put_(accumulate=True)``
     add in an order that changes from run to run on the card, and the
-    coder needs the same CDF on both sides). The copies into the buffer
-    and the rank's scatter write each row once.
+    coder needs the same CDF on both sides). The buffer is gathered, and
+    the rank's scatter writes each position once.
   * Nothing reads the routing on the host: no ``.item()``, ``nonzero``,
     boolean mask or data-dependent shape. The buffer is (E, T, D)
     whatever the routing and the live lengths, so the decode step is
@@ -67,8 +69,26 @@ JAX, where the train step slices the batch before the loss. With a
 capacity factor of E / k (C = T) nothing is dropped and the capacity
 dispatch equals the dropless one bit for bit.
 
-Not ported: expert parallelism over several cards (JAX's ``shard_map``
-paths), and an int8 KV cache: the JAX package's moe decode step writes
+Expert parallelism (JAX's ``moe_block(mesh=...)``): on a mesh whose
+'model' axis cuts the experts, a rank holds E / tp of them (``lo`` ..
+``lo + E_loc``) and ``moe_ffn`` dispatches, dropless, every one of its
+tokens' (token, slot)s that one of them takes; the ranks' partial
+outputs, kept in fp32, are summed over 'model' and rounded once. Its
+(E_loc, C, D) buffer holds experts lo .. lo + E_loc - 1's rows, so a
+token's output still depends on its own input
+alone (the one-device dispatch is the same function with lo = 0 and
+E_loc = E). Two layouts, as in JAX:
+
+  * the serve layout with a 'data' axis that cuts D (``mapped_serve``):
+    the expert weights are this rank's D-block of its experts, the
+    tokens are gathered whole over the batch axes, the gate and up
+    D-partials are summed over 'data', the down product gives this
+    rank's D-block of the output, which is gathered over 'data'; the
+    rank keeps its own tokens' rows;
+  * otherwise (``mapped``): the tokens are this rank's, the expert
+    weights whole.
+
+Not ported: an int8 KV cache: the JAX package's moe decode step writes
 no scales (``moe.py decode_step`` unpacks three values from
 ``_decode_attn_one``), so there is no reference to hold one against and
 ``init_cache`` refuses it.
@@ -81,8 +101,9 @@ from functools import partial
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import batch_axes
 from . import transformer
-from .layers import rms_norm, swiglu
+from .layers import mesh_ctx, rms_norm, swiglu
 from .transformer import (_decode_attn_one, attn_block, check_impl,
                           embed_tokens, layer_weights, lm_logits, remat)
 
@@ -178,25 +199,6 @@ def _combine(out, dest, weights, T: int, k: int, dtype):
     return y.view(T, k, -1).float().sum(dim=1).to(dtype)
 
 
-def moe_ffn(x_flat, lp: dict, cfg: ModelConfig):
-    """Dropless dispatch and expert compute of T tokens on one device:
-    x (T, D) -> (T, D), JAX's ``moe_ffn_local`` with one shard and C =
-    T."""
-    T, D = x_flat.shape
-    E, k = cfg.n_experts, cfg.top_k
-    C = T
-    weights, experts = route(x_flat, lp["router"], k)
-    fe = experts.reshape(-1)                                  # (T k,)
-    dest = fe * C + rank_within_expert(fe, E)
-    tok = torch.arange(T * k, device=x_flat.device) // k
-    buf = x_flat.new_zeros((E * C, D)).index_copy_(0, dest, x_flat[tok])
-    # each expert's SwiGLU (JAX ``_expert_ffn``): one batched product per
-    # weight, (E, C, D) @ (E, D, F)
-    out = swiglu(buf.view(E, C, D), lp["we_gate"], lp["we_up"],
-                 lp["we_down"]).reshape(E * C, D)
-    return _combine(out, dest, weights, T, k, x_flat.dtype)
-
-
 def moe_ffn_capacity(x_flat, lp: dict, cfg: ModelConfig):
     """Capacity-dropped dispatch and expert compute of T tokens (the
     training path): x (T, D) -> (T, D), JAX's ``moe_ffn_local`` with
@@ -219,15 +221,101 @@ def moe_ffn_capacity(x_flat, lp: dict, cfg: ModelConfig):
                     x_flat.dtype)
 
 
+def moe_ffn(x_flat, lp: dict, cfg: ModelConfig, *, lo: int = 0,
+            E_loc: int | None = None, d_block=None, mesh=None):
+    """Dropless dispatch and expert compute of T tokens, JAX's
+    ``moe_ffn_local`` with C = T: x (T, D) -> (T, D) in x's dtype on one
+    device. On a mesh, the experts lo .. lo + E_loc - 1 are this rank's
+    (``lp``'s expert weights are theirs) and the result is their fp32
+    partial output (T, D_loc); ``d_block`` (start, length): the expert
+    weights hold that block of D (the serve layout over 'data'): the
+    tokens' block enters the gate and up products, whose partials are
+    summed over 'data' on ``mesh``, and the down product gives the
+    output's block."""
+    T, D = x_flat.shape
+    E, k = cfg.n_experts, cfg.top_k
+    whole = E_loc is None
+    E_loc = E if whole else E_loc
+    C = T
+    weights, experts = route(x_flat, lp["router"], k)
+    fe = experts.reshape(-1)                                  # (T k,)
+    order, se, first = _arrivals(fe, E)
+    rank = _ranks(order, se, first)
+    # expert lo + e's arrival of rank c, if any: row (e, c) of the buffer
+    slot, held = capacity_rows(order, first, C)
+    slot, held = slot[lo:lo + E_loc], held[lo:lo + E_loc]
+    xs = x_flat if d_block is None else x_flat.narrow(1, *d_block)
+    buf = xs[slot // k].masked_fill(~held[..., None], 0)     # (E_loc, C, Dl)
+    hg = buf @ lp["we_gate"]
+    hu = buf @ lp["we_up"]
+    if d_block is not None:
+        hg = mesh.psum(hg, "data")
+        hu = mesh.psum(hu, "data")
+    # each expert's SwiGLU (JAX ``_expert_ffn``): one batched product per
+    # weight, (E, C, D) @ (E, D, F)
+    out = (torch.nn.functional.silu(hg) * hu) @ lp["we_down"]
+    out = out.reshape(E_loc * C, -1)
+    if whole:
+        return _combine(out, fe * C + rank, weights, T, k, x_flat.dtype)
+    local = (fe >= lo) & (fe < lo + E_loc)
+    # a slot another rank's expert takes reads row 0 at weight 0
+    dest = torch.where(local, (fe - lo) * C + rank, 0)
+    y = out.index_select(0, dest) * (weights.reshape(-1) * local).reshape(
+        -1, 1).to(out.dtype)
+    return y.view(T, k, -1).float().sum(dim=1)
+
+
+def _moe_block_mesh(cfg: ModelConfig, lp: dict, x_flat, ctx,
+                    dispatch_group: int):
+    """The moe FFN of this rank's tokens x (T, D) on the mesh ``ctx``
+    (expert parallelism; see the module's docstring) -> (T, D)."""
+    mesh = ctx.mesh
+    tp = ctx.tp if ctx.rules["expert"] == "model" else 1
+    if tp == 1 and ctx.tp > 1:
+        raise NotImplementedError(
+            f"{cfg.n_experts} experts do not divide the model axis "
+            f"({ctx.tp}): experts whole on every rank of a mesh are not "
+            f"ported (ROADMAP Queue 1 item 3)")
+    E_loc = cfg.n_experts // tp
+    lo = mesh.axis_index("model") * E_loc if tp > 1 else 0
+    d_block = None
+    T = x_flat.shape[0]
+    if ctx.rules["expert_embed"] == "data":
+        dp = mesh.axis_size("data")
+        n = cfg.d_model // dp
+        d_block = (mesh.axis_index("data") * n, n)
+        if ctx.batch_sharded:           # the tokens, whole over the batch
+            x_flat = mesh.all_gather(x_flat, batch_axes(mesh), dim=0)
+    groups = x_flat.split(dispatch_group) if dispatch_group else (x_flat,)
+    y = torch.cat([moe_ffn(g, lp, cfg, lo=lo, E_loc=E_loc,
+                           d_block=d_block, mesh=mesh) for g in groups])
+    if d_block is not None:
+        y = mesh.all_gather(y, "data", dim=1)
+        if ctx.batch_sharded:           # this rank's tokens' rows
+            y = y.narrow(0, mesh.axis_index(batch_axes(mesh)) * T, T)
+    if tp > 1:
+        y = mesh.psum(y, "model")
+    return y.to(x_flat.dtype)
+
+
 def moe_block(cfg: ModelConfig, lp: dict, x, dispatch_group: int = 0, *,
               dropless: bool = True):
     """The moe FFN sub-block (residual applied by the caller): x (B, S, D)
     -> (B, S, D). Dropless, ``dispatch_group`` > 0 dispatches the B * S
     tokens in groups of at most that many (exact); ``dropless=False``
     dispatches them all at once with capacity drops
-    (``moe_ffn_capacity``)."""
+    (``moe_ffn_capacity``). On a mesh, expert parallelism
+    (``_moe_block_mesh``), dropless."""
     B, S, D = x.shape
     x_flat = x.reshape(B * S, D)
+    ctx = mesh_ctx()
+    if ctx is not None:
+        if not dropless:
+            raise NotImplementedError(
+                "the capacity-dropped dispatch (training) on a mesh: "
+                "ROADMAP Queue 1 item 3")
+        return _moe_block_mesh(cfg, lp, x_flat, ctx,
+                               dispatch_group).reshape(B, S, D)
     if not dropless:
         y = moe_ffn_capacity(x_flat, lp, cfg)
     elif dispatch_group and x_flat.shape[0] > dispatch_group:

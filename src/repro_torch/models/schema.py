@@ -171,12 +171,15 @@ def _set(tree: dict, path: tuple, value) -> None:
     tree[path[-1]] = value
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                keep=None) -> dict:
     """Random parameters from ``seed``: each leaf drawn in turn (sorted
     key order) from one ``torch.Generator`` on ``device``, in float32,
     scaled, then cast to the config dtype. The same seed, device and
     torch build give the same weights, which is what lets compress and
-    decompress run in separate processes."""
+    decompress run in separate processes. ``keep(path, leaf)``, if
+    given, replaces each leaf as soon as it is drawn (a rank's block of
+    it: ``sharding.specs.init_params_sharded``)."""
     device = torch.device("cpu" if device is None else device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
@@ -200,6 +203,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
             arr = torch.randn(leaf.shape, generator=gen, device=device,
                               dtype=torch.float32)
             arr = arr.mul_(leaf.scale).to(dtype)
+        if keep is not None:
+            arr = keep(path, arr)
         _set(params, path, arr)
     return params
 

@@ -32,6 +32,16 @@ one and reads no image, as the JAX package's does. ``attn_block`` also
 serves the encdec family (``models/encdec.py``): bidirectional, without
 rotary positions, and as cross-attention over given K/V.
 
+On a mesh (``models/layers.py mesh_context``, the serve layout) each
+call runs this rank's blocks: its q and KV heads (both cut over 'model'
+where the KV heads divide tp), its hidden columns of the MLP and, where
+'model' cuts the vocabulary, its block of the logits' columns
+(``lm_logits``); ``tp_down_proj`` sums the row-parallel products over
+'model'. KV heads that do not divide tp leave the K/V projections whole
+on every rank: q is gathered over 'model', scoring attends all heads,
+and decode runs the sequence-sharded attention
+(``decode_requires_lockstep``, ``_seq_sharded_decode_attn``).
+
 One deliberate difference: JAX is functional and returns a new cache;
 here ``decode_step`` writes the new K/V into the cache tensors in place
 (a full-width cache is hundreds of MB, and a copy per step would double
@@ -47,8 +57,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from .layers import (NEG_INF, attention_masked, decode_attention,
-                     prefill_attention, rms_norm, rope, swiglu)
+from repro_torch.kernels import ops
+from .layers import (NEG_INF, attention_masked, decode_attention, mesh_ctx,
+                     prefill_attention, rms_norm, rope, swiglu,
+                     tp_down_proj)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -74,10 +86,23 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
 
 
 def lm_logits(cfg: ModelConfig, params, x):
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    """Logits (..., Vp) of the final-normed ``x``; on a mesh whose 'model'
+    axis cuts the vocabulary, this rank's block of Vp / tp columns (ids
+    from rank * Vp / tp on: ``lm_head`` is that block, a tied ``embed``
+    gives its rows), the padding ids among them masked."""
+    ctx = mesh_ctx()
+    lo = 0
+    if ctx is not None and ctx.cut("vocab"):
+        n = cfg.padded_vocab // ctx.tp
+        lo = ctx.mesh.axis_index("model") * n
+        head = params["embed"][lo:lo + n].T if cfg.tie_embeddings \
+            else params["lm_head"]
+    else:
+        head = params["embed"].T if cfg.tie_embeddings \
+            else params["lm_head"]
     logits = x @ head
     if cfg.padded_vocab != cfg.vocab_size:  # mask padding ids
-        pad = torch.arange(cfg.padded_vocab, device=x.device) \
+        pad = torch.arange(lo, lo + logits.shape[-1], device=x.device) \
             >= cfg.vocab_size
         # a Python scalar, not a tensor made on the host: the decode step
         # runs under CUDA-graph capture, where a host copy is refused
@@ -116,11 +141,16 @@ def attn_block(cfg: ModelConfig, lp: dict, x, *, positions,
     block's own K/V (cross-attention); ``prefix`` picks the weights
     ``w{prefix}q`` ...; qk-norm applies to the unprefixed block only."""
     B, S, _ = x.shape
-    hd, Hp, Kp = cfg.head_dim, cfg.padded_heads, cfg.padded_kv_heads
-    q = (x @ lp[f"w{prefix}q"]).reshape(B, S, Hp, hd)
+    hd = cfg.head_dim
+    ctx = mesh_ctx()
+    gather = _gathers_q(cfg, ctx)
+    q = x @ lp[f"w{prefix}q"]
+    if gather:
+        q = ctx.mesh.all_gather(q, "model", dim=-1)
+    q = q.reshape(B, S, -1, hd)
     if kv is None:
-        k = (x @ lp[f"w{prefix}k"]).reshape(B, S, Kp, hd)
-        v = (x @ lp[f"w{prefix}v"]).reshape(B, S, Kp, hd)
+        k = (x @ lp[f"w{prefix}k"]).reshape(B, S, -1, hd)
+        v = (x @ lp[f"w{prefix}v"]).reshape(B, S, -1, hd)
     else:
         k, v = kv
     if cfg.qk_norm and not prefix:
@@ -133,7 +163,26 @@ def attn_block(cfg: ModelConfig, lp: dict, x, *, positions,
     attend = attention_masked if attn_impl == "masked" else \
         prefill_attention
     o = attend(q, k, v, causal=causal, window=cfg.sliding_window)
-    return o.reshape(B, S, Hp * hd) @ lp[f"w{prefix}o"]
+    o = o.reshape(B, S, -1)
+    if gather:
+        o = _own_columns(o, ctx)
+    return tp_down_proj(o, lp[f"w{prefix}o"], "heads")
+
+
+def _gathers_q(cfg: ModelConfig, ctx) -> bool:
+    """Whether attention on the mesh ``ctx`` gathers q over 'model': the
+    q heads are cut but the KV heads are whole (they do not divide tp).
+    Then every rank attends all heads and keeps its own block of the
+    output's columns for its rows of ``wo``. Otherwise a rank attends
+    its own heads over its own KV heads (both cut: H / tp over K / tp,
+    whole GQA groups) or, with neither cut, all of them."""
+    return ctx is not None and ctx.cut("heads") and not ctx.cut("kv_heads")
+
+
+def _own_columns(o, ctx):
+    """This rank's block of the last dim of ``o`` (its rows of ``wo``)."""
+    n = o.shape[-1] // ctx.tp
+    return o.narrow(-1, ctx.mesh.axis_index("model") * n, n)
 
 
 def dense_block(cfg: ModelConfig, lp: dict, x, *, positions,
@@ -141,7 +190,7 @@ def dense_block(cfg: ModelConfig, lp: dict, x, *, positions,
     x = x + attn_block(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps),
                        positions=positions, attn_impl=attn_impl)
     return x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["wi_gate"],
-                      lp["wi_up"], lp["wo_mlp"])
+                      lp["wi_up"], lp["wo_mlp"], reduce="mlp")
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *,
@@ -260,38 +309,139 @@ def layer_weights(params, layer: int) -> dict:
     return {name: w[layer] for name, w in params["layers"].items()}
 
 
+def decode_requires_lockstep(cfg: ModelConfig, mesh=None) -> bool:
+    """True when the decode step of ``cfg`` on ``mesh`` (None: the active
+    mesh context's) takes the sequence-sharded attention: the 'model'
+    axis has more than one rank, the padded KV heads do not divide it,
+    and there is no sliding window. That path collapses the lanes'
+    positions to their max (``_seq_sharded_decode_attn``), so it is
+    lock-step only: no per-slot refill. One predicate for the refusal
+    (the service scheduler's) and the dispatch, so they cannot drift.
+    The JAX predicate also asks for its explicit-TP switch or the serve
+    layout; the port's collectives are always explicit and its models
+    run only the serve layout on a mesh, so it has no such term."""
+    if mesh is None:
+        ctx = mesh_ctx()
+        mesh = None if ctx is None else ctx.mesh
+    if mesh is None or "model" not in mesh.axis_names:
+        return False
+    tp = mesh.shape["model"]
+    return tp > 1 and cfg.padded_kv_heads % tp != 0 \
+        and not cfg.sliding_window
+
+
+def _write_slot(c, slot, new, mine):
+    """c[:, slot] = new where ``mine`` (a 0-d bool tensor), in place and
+    without a host sync."""
+    c[:, slot] = torch.where(mine, new.to(c.dtype), c[:, slot])
+
+
+def _seq_sharded_decode_attn(cfg: ModelConfig, mesh, q, k_new, v_new, kc,
+                             vc, pos, scales=None):
+    """Decode attention over a SEQUENCE-sharded cache (the KV heads do not
+    divide tp): this rank's ``kc``/``vc`` (B, S / tp, K, hd) hold
+    positions [rank * S / tp, (rank + 1) * S / tp) of every KV head. As
+    the JAX package's ``_seq_sharded_decode_attn``: the lanes' positions
+    collapse to their max (lock-step), the rank whose slice holds it
+    writes the new K/V (int8: quantized, with their scales), and every
+    rank attends all heads q (B, 1, H, hd) over its live positions with
+    the partial decode-attention kernel, which returns the normalized
+    output and its log-sum-exp (a rank with none live: 0 and -inf). The
+    ranks combine by the max M of the LSE and fp32 sums: o = sum_r o_r
+    exp(lse_r - M) / sum_r exp(lse_r - M). JAX takes M with a ``pmax``
+    and the sums with two ``psum``s; here one ``all_gather`` brings every
+    rank's (o, lse) and each rank combines them in rank order, the same
+    bits on every rank: one collective a layer where a collective (a
+    host round trip over gloo) costs more than the combine. Returns (B,
+    1, H, hd) in q's dtype."""
+    B, _, H, hd = q.shape
+    S_loc = kc.shape[1]
+    r = mesh.axis_index("model")
+    p = pos.max()                       # uniform across lanes by contract
+    lo = r * S_loc
+    mine = (p >= lo) & (p < lo + S_loc)
+    slot = (p - lo).clamp(0, S_loc - 1).long()
+    if scales is None:
+        _write_slot(kc, slot, k_new[:, 0], mine)
+        _write_slot(vc, slot, v_new[:, 0], mine)
+    else:
+        ks, vs = scales
+        kq, k_sc = _quant_kv(k_new[:, 0])
+        vq, v_sc = _quant_kv(v_new[:, 0])
+        _write_slot(kc, slot, kq, mine)
+        _write_slot(vc, slot, vq, mine)
+        _write_slot(ks, slot, k_sc, mine)
+        _write_slot(vs, slot, v_sc, mine)
+    lengths = (p + 1 - lo).clamp(0, S_loc).to(torch.int32).expand(B) \
+        .contiguous()
+    if scales is None:
+        o, lse = ops.decode_attention_partial(q[:, 0], kc, vc, lengths)
+    else:
+        o, lse = ops.decode_attention_partial_int8(q[:, 0], kc, vc,
+                                                   *scales, lengths)
+    parts = mesh.all_gather(torch.cat([o, lse[..., None]], dim=-1)[None],
+                            "model", dim=0)             # (tp, B, H, hd + 1)
+    o_r, lse_r = parts[..., :hd], parts[..., hd]
+    w = torch.exp(lse_r - lse_r.amax(dim=0))            # (tp, B, H)
+    num = (o_r * w[..., None]).sum(dim=0)
+    return (num / w.sum(dim=0)[..., None]).to(q.dtype).reshape(B, 1, H, hd)
+
+
 def _decode_attn_one(cfg, lp: dict, x, kc, vc, pos, scales=None):
     """One-token attention of one block, whose weights ``lp`` (a layer's
     slices, or the hybrid's shared block) are given, vs. its (B, S, K,
     hd) cache slices ``kc``/``vc``, which receive the new K/V in place at
     each lane's slot (``_cache_slot``). ``scales`` (k_scale, v_scale),
     each (B, S, K): an int8 cache, written quantized, with the row's
-    scale, in place."""
+    scale, in place. On a mesh: this rank's heads over its KV heads
+    (both cut over 'model'), or the sequence-sharded path
+    (``decode_requires_lockstep``), which gathers q's heads first when
+    they are cut."""
     B, _, D = x.shape
-    hd, Hp, Kp = cfg.head_dim, cfg.padded_heads, cfg.padded_kv_heads
-    q = (x @ lp["wq"]).reshape(B, 1, Hp, hd)
-    k = (x @ lp["wk"]).reshape(B, 1, Kp, hd)
-    v = (x @ lp["wv"]).reshape(B, 1, Kp, hd)
+    hd = cfg.head_dim
+    ctx = mesh_ctx()
+    seq = ctx is not None and decode_requires_lockstep(cfg, ctx.mesh)
+    if ctx is not None and not seq and ctx.tp > 1 \
+            and not ctx.cut("kv_heads"):
+        raise NotImplementedError(
+            f"decode of {cfg.name} on {ctx.mesh.shape}: a sliding window "
+            f"whose {cfg.padded_kv_heads} KV heads do not divide the "
+            f"model axis (its cache would be cut along the sequence, "
+            f"which the ring does not take; ROADMAP Queue 1 item 3)")
+    gather = seq and ctx.cut("heads")
+    q = x @ lp["wq"]
+    if gather:
+        q = ctx.mesh.all_gather(q, "model", dim=-1)
+    q = q.reshape(B, 1, -1, hd)
+    k = (x @ lp["wk"]).reshape(B, 1, -1, hd)
+    v = (x @ lp["wv"]).reshape(B, 1, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
         k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
     q = rope(q, pos[:, None], cfg.rope_theta)
     k = rope(k, pos[:, None], cfg.rope_theta)
-    slot = _cache_slot(cfg, pos, kc.shape[1])
-    lanes = torch.arange(B, device=x.device)
-    if scales is None:
-        kc[lanes, slot] = k[:, 0].to(kc.dtype)
-        vc[lanes, slot] = v[:, 0].to(vc.dtype)
+    if seq:
+        o = _seq_sharded_decode_attn(cfg, ctx.mesh, q, k, v, kc, vc, pos,
+                                     scales)
     else:
-        ks, vs = scales
-        kq, k_sc = _quant_kv(k[:, 0])
-        vq, v_sc = _quant_kv(v[:, 0])
-        kc[lanes, slot] = kq
-        vc[lanes, slot] = vq
-        ks[lanes, slot] = k_sc
-        vs[lanes, slot] = v_sc
-    o = decode_attention(q, kc, vc, pos, scales)
-    return o.reshape(B, 1, Hp * hd) @ lp["wo"]
+        slot = _cache_slot(cfg, pos, kc.shape[1])
+        lanes = torch.arange(B, device=x.device)
+        if scales is None:
+            kc[lanes, slot] = k[:, 0].to(kc.dtype)
+            vc[lanes, slot] = v[:, 0].to(vc.dtype)
+        else:
+            ks, vs = scales
+            kq, k_sc = _quant_kv(k[:, 0])
+            vq, v_sc = _quant_kv(v[:, 0])
+            kc[lanes, slot] = kq
+            vc[lanes, slot] = vq
+            ks[lanes, slot] = k_sc
+            vs[lanes, slot] = v_sc
+        o = decode_attention(q, kc, vc, pos, scales)
+    o = o.reshape(B, 1, -1)
+    if gather:
+        o = _own_columns(o, ctx)
+    return tp_down_proj(o, lp["wo"], "heads")
 
 
 def decode_block(cfg: ModelConfig, lp: dict, x, kc, vc, pos, scales=None):
@@ -301,7 +451,7 @@ def decode_block(cfg: ModelConfig, lp: dict, x, kc, vc, pos, scales=None):
     x = x + _decode_attn_one(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps),
                              kc, vc, pos, scales)
     return x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["wi_gate"],
-                      lp["wi_up"], lp["wo_mlp"])
+                      lp["wi_up"], lp["wo_mlp"], reduce="mlp")
 
 
 def decode_step(params, cfg: ModelConfig, cache, prev_tokens):

@@ -54,6 +54,32 @@ The BOS convention: the model input for chunk tokens x_0..x_{C-1} is
 [BOS, x_0, .., x_{C-2}], so logits[t] parameterizes P(x_t | x_<t) with a
 fresh context per chunk — the paper's chunked setup (§5.4).
 
+On a mesh (``mesh=``, a ``launch.mesh.Mesh`` of one rank's process;
+the dense and moe families, every lane on every rank: a mesh whose
+batch axes have more than one rank is refused), ``params`` are this
+rank's blocks (``random_init(mesh=...)`` draws each leaf from the seed
+and keeps its block: ``sharding.specs.init_params_sharded``) and the
+cache is this rank's block of it. Decode, verify and scoring run the
+serve steps' model calls (``serve/steps.py``) eagerly: a gloo
+collective cannot be captured in a CUDA graph, so there are no
+``graphs.DecodePrograms`` on a mesh. Decode and verify call
+``steps.decode_logits``, scoring ``steps.score_hidden`` and
+``steps.head_logits``: the functions the serve and score steps are made
+of. Their logits come back as ``core.cdf.LogitShards``, and the coder,
+which names K, takes the serve step's top-K of them
+(``LogitShards.topk_quantized``: the sharded top-K where 'model' cuts
+the vocabulary) or asks for the whole vocabulary
+(``core.cdf.full_logits``). Every rank runs the same host loop on the same
+replicated integers; the caller writes rank 0's archive (every rank's
+is the same, which ``Mesh.agree`` checks). The mesh shape is coding
+geometry, as the lane count is: an archive decodes at the TP it was
+written at; at another it round-trips or raises ``ContainerError``.
+On a mesh whose KV heads do not divide 'model', decode takes the
+sequence-sharded attention (``transformer.decode_requires_lockstep``):
+lock-step only, so the continuous-batching scheduler refuses the
+predictor and speculative verify is refused; ``LLMCompressor``'s
+grouped decoder serves it.
+
 Determinism: TF32 matrix products are switched off explicitly
 (``torch.backends.cuda.matmul.allow_tf32 = False``), and bf16 products
 keep fp32 reductions, so a lane's logits depend on its own cache and
@@ -66,17 +92,32 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.cdf import full_logits
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import api as model_api
 from repro_torch.models import encdec
-from . import graphs
+from repro_torch.models.transformer import decode_requires_lockstep
+from repro_torch.sharding import specs
+from . import graphs, steps
 
 
 class ModelPredictor:
-    """PredictorAdapter over the port's models (one device)."""
+    """PredictorAdapter over the port's models (one device, or one rank
+    of a mesh)."""
 
     def __init__(self, params, cfg: ModelConfig, *, bos_id: int | None = None,
-                 extra_batch: dict | None = None, device=None):
+                 extra_batch: dict | None = None, device=None, mesh=None):
+        if mesh is not None:
+            model_api.check_mesh(cfg, mesh)
+            if mesh.degree(batch_axes(mesh)) > 1:
+                raise NotImplementedError(
+                    f"a predictor on {mesh.shape}: the engine keeps every "
+                    f"lane on every rank, so its mesh has one rank on the "
+                    f"batch axes (lanes cut over 'data' are ROADMAP Queue "
+                    f"1 item 3; serve/steps.py cuts them)")
+            device = mesh.device if device is None else device
+        self.mesh = mesh
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # full fp32 products and fp32 reductions for bf16 products,
@@ -101,21 +142,30 @@ class ModelPredictor:
                 "(random_init draws them from its seed)")
         self._keep = model_api.conditioning_leaves(cfg)
         self._decode_max_len = 1024
-        self._programs = None if self.device.type == "cpu" else \
+        self.lockstep = decode_requires_lockstep(cfg, mesh)
+        self._programs = None if self.device.type == "cpu" \
+            or mesh is not None else \
             graphs.DecodePrograms(self._alloc_cache, self._step_body,
                                   model_api.rollback_leaves(cfg),
                                   self.device, model_api.ring_leaves(cfg))
 
     @classmethod
     def random_init(cls, cfg: ModelConfig, *, seed: int = 0, device=None,
-                    extra_batch: dict | None = None,
+                    extra_batch: dict | None = None, mesh=None,
                     **kw) -> "ModelPredictor":
         """A predictor with random weights made from ``seed`` directly on
         ``device`` (the card unless the caller asks for the CPU). An
         encdec predictor given no ``frames`` takes its stub frontend's
         frames (1, max_source_len, D) from the same seed
         (``models.api.stub_inputs``), so a fresh process rebuilds the
-        same predictor from the seed alone."""
+        same predictor from the seed alone. On a ``mesh`` (device: the
+        mesh's), this rank's blocks of the same weights, drawn leaf by
+        leaf (``sharding.specs.init_params_sharded``)."""
+        if mesh is not None:
+            model_api.check_mesh(cfg, mesh)
+            dev = resolve_device(mesh.device if device is None else device)
+            return cls(specs.init_params_sharded(cfg, mesh, seed, dev), cfg,
+                       device=dev, extra_batch=extra_batch, mesh=mesh, **kw)
         dev = resolve_device(device)
         extra = dict(extra_batch or {})
         if cfg.family == "encdec" and "frames" not in extra:
@@ -131,6 +181,12 @@ class ModelPredictor:
     def _alloc_cache(self, batch: int, max_len: int) -> dict:
         """A zeroed cache of ``batch`` lanes; an encdec cross cache as long
         as the frames and with their lanes (1 or ``batch``)."""
+        if self.mesh is not None:
+            if self.lockstep:       # the sequence cut into tp equal blocks
+                tp = self.mesh.shape["model"]
+                max_len = -(-max_len // tp) * tp
+            return model_api.init_cache(self.cfg, batch, max_len,
+                                        device=self.device, mesh=self.mesh)
         kw = {}
         if self.cfg.family == "encdec":
             frames = self.extra_batch["frames"]
@@ -155,9 +211,14 @@ class ModelPredictor:
         self._condition(cache)
         return cache
 
-    def _step_body(self, cache, prev: torch.Tensor) -> torch.Tensor:
+    def _step_body(self, cache, prev: torch.Tensor):
         """The decode step's body: the cache advanced in place, logits
-        (B, V) returned. What the card captures, and what the CPU runs."""
+        (B, V) returned. What the card captures, and what the CPU runs.
+        On a mesh, the serve step's model call (``steps.decode_logits``):
+        this rank's logits as ``LogitShards``."""
+        if self.mesh is not None:
+            return steps.decode_logits(self.params, self.cfg, cache, prev,
+                                       self.mesh)
         logits, _ = model_api.decode_step(self.params, self.cfg, cache, prev)
         return logits[..., :self.cfg.vocab_size]
 
@@ -196,6 +257,11 @@ class ModelPredictor:
                 P = prefix.shape[1]
                 parts.append(prefix)
             inp = np.concatenate(parts + [tokens[:, :-1]], axis=1)
+            if self.mesh is not None:       # the score step's model calls
+                hidden = steps.score_hidden(self.params, self.cfg,
+                                            self._tokens(inp), self.mesh)
+                return steps.head_logits(self.params, self.cfg,
+                                         hidden[:, P:], self.mesh)
             logits = model_api.forward(
                 self.params, self.cfg,
                 {"tokens": self._tokens(inp), **self.extra_batch})
@@ -261,10 +327,19 @@ class ModelPredictor:
             seq = np.asarray(seq, np.int64)
             if self._programs is not None:
                 return self._programs.verify(state, seq)
+            if self.lockstep:
+                raise ValueError(
+                    "speculative verify rewinds lanes to different "
+                    "positions; the sequence-sharded decode on this mesh "
+                    "is lock-step only (decode without drafts)")
+            body = self._step_body if self.mesh is None else (
+                lambda c, p: self._step_body(c, p).local)
             logits, snaps, rows = graphs.verify_body(
-                self._step_body, state, self._tokens(seq.T),
+                body, state, self._tokens(seq.T),
                 model_api.rollback_leaves(self.cfg),
                 model_api.ring_leaves(self.cfg))
+            if self.mesh is not None:
+                logits = steps.step_logits(logits, self.cfg, self.mesh)
             return logits, graphs.Snapshots(state, snaps, rows)
 
     @torch.no_grad()
@@ -374,7 +449,7 @@ class ModelPredictor:
         for t in range(n_tokens):
             logits, _ = self.decode_step(cache, prev)
             with torch.no_grad():
-                lg = logits.float() / max(temperature, 1e-4)
+                lg = full_logits(logits).float() / max(temperature, 1e-4)
                 if vocab_limit:
                     lg[:, vocab_limit:] = -1e30
                 idx = None

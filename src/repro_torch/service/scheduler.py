@@ -48,6 +48,7 @@ from repro_torch.core import rans
 from repro_torch.core.cdf import (DEFAULT_PRECISION, full_cdf, to_numpy,
                                   topk_cdf)
 from repro_torch.core.compressor import ContainerError, escape_error
+from repro_torch.models.transformer import decode_requires_lockstep
 from repro_torch.obs import ChunkDiagnostics, MetricsRegistry
 from .session import COMPRESS, ChunkTask
 
@@ -159,9 +160,19 @@ class SlotScheduler:
         if not 0 < precision <= rans.MAX_PRECISION:
             raise ValueError(f"precision {precision} outside rANS range "
                              f"(1..{rans.MAX_PRECISION})")
-        # (The JAX scheduler also refuses predictors on its seq-sharded TP
-        # decode path, which is lock-step only; the port has no such path
-        # until its multi-GPU slice.)
+        # The seq-sharded TP decode path collapses per-lane cache positions
+        # to their max: lock-step only, and under slot refill it would
+        # corrupt streams silently. Refuse up front (the predicate the
+        # model's decode dispatch uses, so the two cannot drift); such
+        # predictors take LLMCompressor's grouped decoder.
+        cfg = getattr(predictor, "cfg", None)
+        if cfg is not None and decode_requires_lockstep(
+                cfg, getattr(predictor, "mesh", None)):
+            raise ValueError(
+                "continuous batching needs per-lane cache positions; the "
+                "seq-sharded TP decode path (padded_kv_heads not divisible "
+                "by TP) is lock-step only — use a replicated-cache "
+                "predictor or LLMCompressor's grouped decoder")
         self.predictor = predictor
         self.B = int(n_slots)
         self.C = int(chunk_size)

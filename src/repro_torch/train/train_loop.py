@@ -69,8 +69,9 @@ def make_train_step(cfg: ModelConfig, mesh=None, *,
                     num_microbatches: int = 1, loss_block: int = 0):
     if mesh is not None:
         raise NotImplementedError(
-            "the port trains on one device; multi-GPU training (a mesh) "
-            "is not ported yet")
+            "the port trains on one device: training on a mesh (FSDP and "
+            "TP, the JAX train layout) is ROADMAP Queue 1 item 3; the "
+            "port serves the dense and moe families on a mesh")
     opt = opt or AdamWConfig()
     kw = dict(loss_block=loss_block)
 

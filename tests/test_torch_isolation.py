@@ -152,3 +152,20 @@ def test_no_source_imports_outside_stdlib_torch_numpy(path):
     for top in _required_imports(ROOT / path):
         assert top in sys.stdlib_module_names or top in _ALLOWED \
             or top == "__future__", f"{path}: imports {top}"
+
+
+def test_the_mesh_modules_are_among_those_checked():
+    """The mesh slice's modules (the mesh and its ranks, the sharding
+    policy, the serve steps) are walked by the import probe above and
+    have their own source checks."""
+    import pkgutil
+    import repro_torch
+    mods = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                  "repro_torch.")}
+    for name in ("repro_torch.launch.mesh", "repro_torch.launch.rank_main",
+                 "repro_torch.sharding.specs", "repro_torch.serve.steps"):
+        assert name in mods, name
+        path = ROOT / "src" / (name.replace(".", "/") + ".py")
+        assert path.is_file()
+        for mod in _imports(path):
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod

@@ -1,0 +1,199 @@
+"""The service and the engine on a mesh, on the CPU (gloo).
+
+One world of 2 ranks (mesh (1, 2)) and one of 4 ((1, 4)), each started
+once for the module; ``pred-tiny``'s shape (4 heads over 2 KV heads,
+vocabulary 258) with random weights from a seed, every rank drawing its
+blocks (``ModelPredictor.random_init(mesh=...)``).
+
+  * (1, 2): heads, KV heads and vocabulary cut. A ``CompressionService``
+    round trip is byte-exact (decompressed in another order, so chunks
+    land on other lanes); ``LLMCompressor``'s grouped coder and the
+    service decode each other's archives (both build the sharded top-K);
+    a second service compresses the same texts to the same archives;
+    every rank's archive is rank 0's (``Mesh.agree``).
+    The archives decoded at TP 1 (one process, the same seed) round-trip
+    or raise ``ContainerError``: the mesh shape is coding geometry, and
+    never gives other bytes.
+  * (1, 4): 2 KV heads do not divide 4, so decode is sequence-sharded
+    and lock-step: the service refuses the predictor with the lock-step
+    message, speculative verify is refused, and ``LLMCompressor``'s
+    grouped decoder round-trips byte for byte on every rank.
+  * A mesh is refused for the ssm, hybrid, encdec and vlm families and
+    for training, each naming the ROADMAP item (a layout-only mesh: the
+    refusal comes before any collective).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (caps torch's threads)
+
+from helpers import tiny  # noqa: E402
+from repro_torch.configs import paper_predictors as ppp  # noqa: E402
+from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.core import LLMCompressor  # noqa: E402
+from repro_torch.core.compressor import ContainerError  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.data.tokenizer import encode  # noqa: E402
+from repro_torch.launch.mesh import Mesh, run_ranks  # noqa: E402
+from repro_torch.serve import steps  # noqa: E402
+from repro_torch.serve.engine import ModelPredictor  # noqa: E402
+from repro_torch.service import CompressionService  # noqa: E402
+from repro_torch.train.train_loop import make_train_step  # noqa: E402
+
+CFG = ppp.PRED_TINY
+SEED = 3
+
+
+def _texts():
+    """The texts, the same in every process: ``human_like`` seeds with
+    ``hash(domain)``, which is pinned here to 5 (with these texts, the
+    grouped coder built the first group's CDFs through the gathered
+    logits, unlike the decoder's sharded top-K, when ``LogitShards``
+    gathered under indexing; they now refuse it)."""
+    synthetic.hash = lambda s: 5
+    try:
+        return [encode(synthetic.human_like("wiki", 150, seed=3)),
+                encode(synthetic.human_like("code", 90, seed=4)),
+                encode(synthetic.human_like("math", 40, seed=5))]
+    finally:
+        del synthetic.hash
+
+
+def _service(pred):
+    return CompressionService(pred, slots=4, chunk_size=16, topk=8,
+                              device="cpu")
+
+
+def tp2(mesh, texts) -> dict:
+    torch.set_num_threads(1)
+    pred = ModelPredictor.random_init(CFG, seed=SEED, device="cpu",
+                                      mesh=mesh)
+    svc = _service(pred)
+    blobs = [h.result()[0] for h in [svc.submit_compress(t) for t in texts]]
+    handles = {i: svc.submit_decompress(blobs[i]) for i in (2, 0, 1)}
+    round_trip = all(np.array_equal(handles[i].result(), t)
+                     for i, t in enumerate(texts))
+    again = _service(ModelPredictor.random_init(CFG, seed=SEED,
+                                                device="cpu", mesh=mesh))
+    blobs2 = [h.result()[0] for h in [again.submit_compress(t)
+                                      for t in texts]]
+    # the grouped coder builds the same sharded top-K CDFs as the
+    # service: each decodes the other's archives
+    comp = LLMCompressor(pred, chunk_size=16, topk=8, decode_batch=4)
+    grouped = comp.compress(texts[0])[0]
+    cross = (np.array_equal(comp.decompress(blobs[1]), texts[1])
+             and np.array_equal(svc.submit_decompress(grouped).result(),
+                                texts[0]))
+    wq = pred.params["layers"]["wq"]
+    return dict(blobs=blobs, texts=texts, round_trip=round_trip, cross=cross,
+                reproducible=blobs == blobs2,
+                agree=mesh.agree(b"".join(blobs)),
+                wq_cols=wq.shape[-1],
+                vocab_cut=steps.vocab_sharded(pred.cfg, mesh),
+                lockstep=pred.lockstep)
+
+
+def tp4(mesh, texts) -> dict:
+    torch.set_num_threads(1)
+    pred = ModelPredictor.random_init(CFG, seed=SEED, device="cpu",
+                                      mesh=mesh)
+    out = dict(lockstep=pred.lockstep,
+               vocab_cut=steps.vocab_sharded(pred.cfg, mesh))
+    try:
+        _service(pred)
+        out["refused"] = None
+    except ValueError as e:
+        out["refused"] = str(e)
+    try:
+        pred.verify_steps(pred.begin_decode(2), np.zeros((2, 3), np.int64))
+        out["verify"] = None
+    except ValueError as e:
+        out["verify"] = str(e)
+    comp = LLMCompressor(pred, chunk_size=16, topk=8, decode_batch=4)
+    blobs = [comp.compress(t)[0] for t in texts]
+    out["round_trip"] = all(np.array_equal(comp.decompress(b), t)
+                            for b, t in zip(blobs, texts))
+    out["agree"] = mesh.agree(b"".join(blobs))
+    pred.set_decode_len(18)
+    out["cache_seq"] = tuple(pred.begin_decode(4)["k"].shape)
+    return out
+
+
+@pytest.fixture(scope="module")
+def tp2_run(tmp_path_factory):
+    d = tmp_path_factory.mktemp("tp2")
+    return run_ranks(tp2, (1, 2), backend="gloo", device="cpu",
+                     args=(_texts(),), store_dir=d, timeout=900)
+
+
+@pytest.fixture(scope="module")
+def tp4_run(tmp_path_factory):
+    d = tmp_path_factory.mktemp("tp4")
+    return run_ranks(tp4, (1, 4), backend="gloo", device="cpu",
+                     args=(_texts(),), store_dir=d, timeout=900)
+
+
+def test_service_round_trip_at_tp2_is_byte_exact(tp2_run):
+    r = tp2_run
+    assert not r["lockstep"] and r["vocab_cut"]
+    assert r["wq_cols"] == CFG.padded_heads * CFG.head_dim // 2
+    assert r["round_trip"]
+
+
+def test_grouped_and_service_decode_each_other_at_tp2(tp2_run):
+    assert tp2_run["cross"]
+
+
+def test_tp2_archives_repeat_across_runs_and_ranks(tp2_run):
+    assert tp2_run["reproducible"], "two runs wrote different archives"
+    assert tp2_run["agree"], "a rank's archive differs from rank 0's"
+
+
+def test_a_tp2_archive_at_tp1_round_trips_or_raises(tp2_run):
+    pred = ModelPredictor.random_init(CFG, seed=SEED, device="cpu")
+    svc = _service(pred)
+    for blob, text in zip(tp2_run["blobs"], tp2_run["texts"]):
+        try:
+            out = svc.submit_decompress(blob).result()
+        except ContainerError:
+            continue
+        assert np.array_equal(out, text), "other bytes, and no error"
+
+
+def test_seq_sharded_mesh_is_refused_by_the_scheduler(tp4_run):
+    r = tp4_run
+    assert r["lockstep"] and not r["vocab_cut"]     # 258 % 4 != 0
+    assert r["refused"] is not None and "lock-step" in r["refused"] \
+        and "grouped decoder" in r["refused"]
+    assert r["verify"] is not None and "lock-step" in r["verify"]
+    # the cache is cut along the sequence (18 positions, rounded up to a
+    # multiple of 4: 5 a rank), every KV head on every rank
+    assert r["cache_seq"][2:4] == (5, CFG.padded_kv_heads)
+
+
+def test_grouped_decoder_round_trips_at_tp4(tp4_run):
+    assert tp4_run["round_trip"]
+    assert tp4_run["agree"]
+
+
+@pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec", "vlm"])
+def test_a_mesh_is_refused_for_other_families(family):
+    cfg = ModelConfig(**dataclasses.asdict(tiny(family)))
+    mesh = Mesh((1, 2), ("data", "model"), rank=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+        ModelPredictor.random_init(cfg, seed=0, device="cpu", mesh=mesh)
+
+
+def test_a_mesh_is_refused_for_training():
+    mesh = Mesh((1, 2), ("data", "model"), rank=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+        make_train_step(CFG, mesh)
+
+
+def test_a_mesh_with_lanes_over_data_is_refused_by_the_engine():
+    mesh = Mesh((2, 1), ("data", "model"), rank=0)
+    with pytest.raises(NotImplementedError, match="batch axes"):
+        ModelPredictor.random_init(CFG, seed=0, device="cpu", mesh=mesh)

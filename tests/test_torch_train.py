@@ -347,6 +347,13 @@ def _kernel_calls():
             lambda q, ks, vs: ops.decode_attention_int8(q, k8, k8, ks, vs,
                                                         lens),
             (r(2, 4, 8), r(2, 5, 2).abs().half(), r(2, 5, 2).abs().half())),
+        "decode_attention_partial": (
+            lambda q, k, v: ops.decode_attention_partial(q, k, v, lens),
+            (r(2, 4, 8), r(2, 5, 2, 8), r(2, 5, 2, 8))),
+        "decode_attention_partial_int8": (
+            lambda q, ks, vs: ops.decode_attention_partial_int8(
+                q, k8, k8, ks, vs, lens),
+            (r(2, 4, 8), r(2, 5, 2).abs().half(), r(2, 5, 2).abs().half())),
         "topk_cdf": (lambda x: ops.topk_cdf(x, 4, 16), (r(2, 40),)),
         "cdf_points": (lambda x: ops.cdf_points(x, 16), (r(2, 40),)),
         "flash_attention": (lambda q, k, v: ops.flash_attention(q, k, v),
