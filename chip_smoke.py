@@ -229,7 +229,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    peak memory of each.
 20. The same for ``qwen3-moe-235b-a22b`` at full width (d=4096, 64/4
    heads: G = 16, qk-norm, 128 experts of d_ff 1536, top 8, V =
-   151,936), cut to 4 of its 94 layers (11.2 B of its 235 B parameters;
+   151,936), cut to 2 of its 94 layers (6.2 B of its 235 B parameters;
    the whole model needs expert parallelism over several cards); then
    one fresh process decompresses both moe configs' containers.
 21. ``llava-next-34b`` (the vlm family) at full width (d=7168, 56 heads
@@ -294,6 +294,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    measure of tensor parallelism over NCCL on separate cards
    (``python -m repro_torch.launch.mesh_probe`` profiles such steps and
    the collectives, outside this script's time limit).
+25. Training on a mesh (4 ranks sharing the card over gloo, FSDP 2 over
+   'data' x TP / EP 2 over 'model'; ``TRAIN_MESH``): 25a the training
+   driver ``python -m repro_torch.launch.train`` as a user runs it,
+   ``qwen3-1.7b`` at full width cut to 2 layers, a checkpoint after each
+   step, a crash injected (``--crash-at``) and the watchdog's restart
+   resuming from the checkpoint to ``train.done``; its log read back
+   (step host ms, collectives a step, checkpoint and resume seconds,
+   peak memory, no kernel launched); 25b ``granite-moe-1b-a400m`` cut
+   to 8 layers at EP 2 x FSDP 2 with capacity drops: every gradient
+   block finite and nonzero on every rank, the share of
+   dropped slots per rank, 3 steps with the loss falling, one more under
+   the profiler (idle share); 25c the driver's last checkpoint restored
+   onto one device (every parameter equal to the file's), into the serve
+   layout at TP 2 and unsharded, a service round trip byte-exact at
+   each, the TP 2 decode within SCORE_TOL of the unsharded one. 25a
+   starts after phase 3 and runs beside phases 4-13 (host-bound, and it
+   holds little of the card); it has ended before phase 14 (which takes
+   47 GiB). Phase 24, then 25b and 25c, run on a thread beside phases
+   15-18 and have ended before phase 19.
 12. Last, one JSON line describing every kernel (its ``launches`` from
    the main path that runs it: phase 3 for ``decode_attention`` and
    ``topk_cdf``, 6 for ``cdf_points``, 5 for ``flash_attention``, 9 for
@@ -303,12 +322,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    config, ``launches_phase18``, ``launches_moe`` per phase 19-20
    config, ``launches_phase21_22`` per phase 21-22 config and
    ``launches_phase23``, phase 23's kernel forwards per config;
-   ``launches_phase24`` per phase 24 config, rank 0's; the partial form's
-   ``launches`` from 24c), then the
+   ``launches_phase24`` per phase 24 config, rank 0's;
+   ``launches_phase25``, 25c's round trips at TP 2 (rank 0) and
+   unsharded; the partial form's ``launches`` from 24c), then the
    card's name and power limit again (the tail of a long log keeps
    them) and the result line ``{"ok":
    true, "device": {...}}`` as the last line of stdout. A ``[time]``
    line gives each phase's wall seconds.
+
+Work that runs in processes of its own runs beside the script's phases,
+for the time limit: each phase's fresh-process decompression from its
+end until it is read back before a phase that needs most of the card
+(14, 19, zamba2-7b's training in 23), 25a beside phases 4-13, phases 24
+and 25 beside phases 15-18. The script's own process makes every CUDA
+call from its main thread.
 
 The CLI's ``pred-*`` predictors train at first use: phase 7 trains
 ``pred-base`` into ``build/chip_smoke/torch_cache`` (``$REPRO_TORCH_CACHE``
@@ -1544,31 +1571,67 @@ def phase_service(arch: str, sizes=SERVICE_JOBS, baselines: bool = True,
     return out
 
 
+#: fresh-process decompressions started and not yet read back
+#: (``fresh_decompress``, ``join_fresh``)
+_FRESH: list = []
+
+
 def fresh_decompress(jobs: dict) -> None:
     """The user's flow: decompression in a process of its own, which
     builds each predictor from the seed again, jobs in a third order.
     ``jobs``: {arch: (directory of its job*.llmc, the jobs' texts)}, all
-    decoded by one new interpreter, each model freed before the next."""
+    decoded by one new interpreter, each model freed before the next.
+    The process is started here and runs beside the script's next
+    phases; ``join_fresh`` waits for it and holds its tokens."""
+    order = [1, 3, 0, 2]
+    work = next(iter(jobs.values()))[0]
+    out, err = open(work / "fresh.out", "w"), open(work / "fresh.err", "w")
+    with out, err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+             "chip_smoke.decompress_in_fresh_process(*sys.argv[1:]))",
+             ",".join(map(str, order)),
+             *(f"{w}={arch}" for arch, (w, _) in jobs.items())],
+            cwd=ROOT, stdout=out, stderr=err)
+    _FRESH.append((proc, jobs, order, work, time.perf_counter()))
+
+
+def join_fresh() -> None:
+    """Wait for every fresh-process decompression started so far and
+    hold each job's tokens to its text. The script calls it before a
+    phase that needs most of the card's memory."""
     import numpy as np
     from repro_torch.data.tokenizer import encode
-    order = [1, 3, 0, 2]
-    t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke"
-         ".decompress_in_fresh_process(*sys.argv[1:]))",
-         ",".join(map(str, order)),
-         *(f"{work}={arch}" for arch, (work, _) in jobs.items())],
-        cwd=ROOT, capture_output=True, text=True, timeout=900)
-    if r.returncode != 0:
-        fail(f"fresh-process decompression exited {r.returncode}:\n"
-             f"{r.stdout}\n{r.stderr}")
-    for arch, (work, texts) in jobs.items():
-        for i, t in enumerate(texts):
-            if not np.array_equal(np.load(work / f"job{i}.npy"), encode(t)):
-                fail(f"fresh-process decompression: {arch} job {i} differs")
-    log(f"[service] {', '.join(jobs)} decompressed again in a fresh process "
-        f"(seed 0 re-init, order {order}): byte-identical "
-        f"({time.perf_counter() - t0:.1f} s with start-up)")
+    while _FRESH:
+        proc, jobs, order, work, t0 = _FRESH.pop(0)
+        try:
+            rc = proc.wait(timeout=max(1.0, 900 - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed after 900 s"
+        if rc != 0:
+            fail(f"fresh-process decompression exited {rc}:\n"
+                 f"{(work / 'fresh.out').read_text()[-3000:]}\n"
+                 f"{(work / 'fresh.err').read_text()[-6000:]}")
+        for arch, (w, texts) in jobs.items():
+            for i, t in enumerate(texts):
+                if not np.array_equal(np.load(w / f"job{i}.npy"), encode(t)):
+                    fail(f"fresh-process decompression: {arch} job {i} "
+                         f"differs")
+        log(f"[service] {', '.join(jobs)} decompressed again in a fresh "
+            f"process (seed 0 re-init, order {order}): byte-identical "
+            f"(read back {time.perf_counter() - t0:.1f} s after its start; "
+            f"it ran beside the next phases)")
+
+
+def stop_fresh() -> None:
+    """End the fresh processes still running (the script failed)."""
+    while _FRESH:
+        proc = _FRESH.pop(0)[0]
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
 
 
 # ---------------------------------------------------------- phase 10
@@ -2719,28 +2782,39 @@ def phase_paper() -> dict:
     env = dict(os.environ, REPRO_TORCH_CACHE=str(cache))
     env["PYTHONPATH"] = str(ROOT / "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
-    for cmd in (["compress", "gen.txt", "gen.llmc"],
-                ["decompress", "gen.llmc", "back.txt"]):
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "repro_torch.cli", *cmd],
-                           env=env, cwd=work, capture_output=True, text=True,
-                           timeout=600)
-        if r.returncode != 0 or "loaded" not in r.stderr \
-                or "training" in r.stderr:
-            fail(f"llmc-torch {cmd[0]} (exit {r.returncode}) did not load "
-                 f"the trained checkpoint:\n{r.stdout}\n{r.stderr}")
-        log(f"[paper] llmc-torch {cmd[0]}: {r.stdout.strip()} "
-            f"({time.perf_counter() - t0:.1f} s with start-up)")
+    # the fresh process that decodes the LLMCompressor archive runs
+    # beside the CLI's two
+    with open(work / "fresh.out", "w") as fo, \
+            open(work / "fresh.err", "w") as fe:
+        fresh = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+             "chip_smoke.decompress_paper_in_fresh_process(sys.argv[1]))",
+             str(work)], cwd=ROOT, env=env, stdout=fo, stderr=fe)
+    try:
+        for cmd in (["compress", "gen.txt", "gen.llmc"],
+                    ["decompress", "gen.llmc", "back.txt"]):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "repro_torch.cli",
+                                *cmd], env=env, cwd=work,
+                               capture_output=True, text=True, timeout=600)
+            if r.returncode != 0 or "loaded" not in r.stderr \
+                    or "training" in r.stderr:
+                fail(f"llmc-torch {cmd[0]} (exit {r.returncode}) did not "
+                     f"load the trained checkpoint:\n{r.stdout}\n{r.stderr}")
+            log(f"[paper] llmc-torch {cmd[0]}: {r.stdout.strip()} "
+                f"({time.perf_counter() - t0:.1f} s with start-up)")
+        rc = fresh.wait(timeout=600)
+    finally:
+        if fresh.poll() is None:
+            fresh.kill()
+        fresh.wait()
     if (work / "back.txt").read_bytes() != raw:
         fail("CLI round trip of the generated text differs")
     cli_ratio = len(raw) / (work / "gen.llmc").stat().st_size
-    r = subprocess.run(
-        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke"
-         ".decompress_paper_in_fresh_process(sys.argv[1]))", str(work)],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0 or "loaded" not in r.stderr:
+    ferr = (work / "fresh.err").read_text()
+    if rc != 0 or "loaded" not in ferr:
         fail(f"fresh-process decompression of the LLMCompressor archive "
-             f"exited {r.returncode}:\n{r.stdout}\n{r.stderr}")
+             f"exited {rc}:\n{(work / 'fresh.out').read_text()}\n{ferr}")
     if not np.array_equal(np.load(work / "gen64.npy"), data):
         fail("fresh-process decompression of the generated text differs")
     log(f"[paper] {len(raw)} B of pred-base's own wiki text: "
@@ -2945,9 +3019,7 @@ def phase_dense_configs() -> dict:
                                   routed=False)
         out[arch] = dict(svc, **paths)
         log(f"[time] 17 {arch}: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
     fresh_decompress(fresh)
-    log(f"[time] 17 fresh process: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3133,9 +3205,11 @@ def _window_fp32_twin(cfg, inp, toks) -> dict:
 
 # ------------------------------------------------------- phases 19-20
 #: the moe family: granite-moe-1b-a400m at full width and depth (phase
-#: 19), qwen3-moe-235b-a22b at full width cut to 4 of its 94 layers
-#: (phase 20: ~470 GB of bf16 whole, 22.4 GB at 4 layers)
-MOE_CONFIGS = (("19", "granite-moe-1b-a400m"), ("20", "qwen3-moe-235b-a22b@4"))
+#: 19), qwen3-moe-235b-a22b at full width cut to 2 of its 94 layers
+#: (phase 20: ~470 GB of bf16 whole, 12.4 GB at 2 layers; at 4 layers the
+#: script ran 1,055.4 s on a fast host and over its 1,200 s on a slower
+#: one, PERF.md §4)
+MOE_CONFIGS = (("19", "granite-moe-1b-a400m"), ("20", "qwen3-moe-235b-a22b@2"))
 
 
 def phase_moe_configs() -> dict:
@@ -3157,9 +3231,7 @@ def phase_moe_configs() -> dict:
         paths = phase_model_paths(arch, routed=False)
         out[arch] = dict(svc, **paths)
         log(f"[time] {phase} {arch}: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
     fresh_decompress(fresh)
-    log(f"[time] 19-20 fresh process: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3289,9 +3361,7 @@ def phase_conditioned_configs() -> dict:
         paths = phase_model_paths(arch, routed=False, extra=extra)
         out[arch] = dict(svc, **paths)
         log(f"[time] {phase} {arch}: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
     fresh_decompress(fresh)
-    log(f"[time] 21-22 fresh process: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3509,11 +3579,15 @@ def train_family(spec: str, B: int, S: int) -> dict:
     return out
 
 
-def phase_train_families() -> dict:
+def phase_train_families(after_first=None) -> dict:
     """Phase 23: ``train_family`` for each of TRAIN_FAMILIES, each model
-    freed before the next."""
+    freed before the next; ``after_first()`` called after the first
+    (mamba2-130m, the smallest: the fresh process of phases 21-22 ends
+    beside it, before zamba2-7b's 59 GB)."""
     out = {}
-    for spec, B, S in TRAIN_FAMILIES:
+    for i, (spec, B, S) in enumerate(TRAIN_FAMILIES):
+        if i == 1 and after_first is not None:
+            after_first()
         t0 = time.perf_counter()
         out[spec] = train_family(spec, B, S)
         log(f"[time] 23 {spec}: {time.perf_counter() - t0:.1f} s")
@@ -3767,7 +3841,6 @@ def phase_mesh() -> dict:
     results}."""
     from repro_torch.launch.mesh import run_ranks
     out = {}
-    _free_card()
     t0 = time.perf_counter()
     out.update(run_ranks(mesh_world, (1, 2), backend="gloo", device="cuda",
                          args=(MESH_CONFIGS,), timeout=900))
@@ -3779,6 +3852,395 @@ def phase_mesh() -> dict:
     log(f"[time] 24c TP {MESH_SEQ[2]} world: "
         f"{time.perf_counter() - t0:.1f} s")
     return out
+
+
+# ---------------------------------------------------------- phase 25
+#: training on a mesh, the ranks sharing the one card over gloo (a step's
+#: FSDP gathers and their reduce-scatters go through the host): 25a the
+#: driver ``python -m repro_torch.launch.train`` (qwen3-1.7b at full
+#: width cut to 2 layers, FSDP 2 x TP 2, 8 x 256 tokens a step, 2 steps,
+#: a checkpoint after each, a crash injected after step 1 (its index)
+#: before its checkpoint, the watchdog's restart resuming from step 1's),
+#: 25b granite-moe-1b-a400m at full width cut to 8 layers (EP 2 x FSDP
+#: 2, capacity drops), and 25c 25a's last checkpoint served at TP 2 and
+#: unsharded (25a beside phases 4-13, 25b-c beside phases 15-18). Depths cut for the time
+#: limit: a checkpoint holds 10 B a parameter (bf16 weights, fp32 m and
+#: v), and qwen3-1.7b's untied embedding and LM head alone are 0.62 B
+#: parameters (6.2 GB); at DENSE_CUT = 8 layers (1.02 B, 10.2 GB a
+#: checkpoint) phase 25 took 242.7 s and the script 1,342.9 s on an H100
+#: 80GB HBM3 at 700 W, over its limit (PERF.md §4)
+TRAIN_MESH_DENSE = "qwen3-1.7b@2"
+TRAIN_MESH_MOE = "granite-moe-1b-a400m@8"
+TRAIN_MESH_MOE_STEPS = 3
+TRAIN_MESH = dict(mesh=(2, 2), batch=8, seq=256, steps=2, ckpt_every=1,
+                  crash_at=1)
+#: 25c's jobs: cut below one chunk (a sharded step is eager, host-bound)
+TRAIN_MESH_JOBS = (("wiki", 24, 1), ("code", 16, 2), ("web", 20, 3))
+
+
+def _driver_events(stdout: str) -> list:
+    """(event, {field: value}) of each ``obs`` line of the driver."""
+    out = []
+    for ln in stdout.splitlines():
+        parts = ln.split()
+        for i, w in enumerate(parts):
+            if w.startswith("train."):
+                kv = dict(x.split("=", 1) for x in parts[i + 1:] if "=" in x)
+                out.append((w, kv))
+                break
+    return out
+
+
+TRAIN_MESH_WORK = ROOT / "build" / "chip_smoke" / "train_mesh"
+
+
+class _Driver:
+    """25a's driver, started as a user starts it (its own session, so
+    that its ranks end with it); its stdout read line by line. The
+    script starts it after phase 3, in a fresh ``TRAIN_MESH_WORK``, and
+    reads it back after phase 13 (``finish``)."""
+
+    def __init__(self, work: pathlib.Path = TRAIN_MESH_WORK):
+        import threading
+        _free_card()
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        c = TRAIN_MESH
+        self.ckpt = work / "ckpt"
+        cmd = [sys.executable, "-m", "repro_torch.launch.train",
+               "--arch", TRAIN_MESH_DENSE,
+               "--mesh", ",".join(map(str, c["mesh"])), "--backend", "gloo",
+               "--steps", str(c["steps"]), "--batch", str(c["batch"]),
+               "--seq-len", str(c["seq"] - 1), "--ckpt-dir", str(self.ckpt),
+               "--ckpt-every", str(c["ckpt_every"]),
+               "--crash-at", str(c["crash_at"]), "--watchdog",
+               "--max-restarts", "1", "--log-every", "1",
+               "--corpus-bytes", str(1 << 18), "--timeout", "600"]
+        self.err = work / "driver.err"
+        self.t0 = time.perf_counter()
+        with open(self.err, "w") as err:
+            self.proc = subprocess.Popen(
+                cmd, cwd=ROOT, env=dict(os.environ,
+                                        PYTHONPATH=str(ROOT / "src")),
+                stdout=subprocess.PIPE, stderr=err, text=True,
+                start_new_session=True)
+        self.lines, self.crash_s = [], None
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for ln in self.proc.stdout:
+            self.lines.append(ln)
+            if "train.fault_injection" in ln:
+                self.crash_s = time.perf_counter() - self.t0
+
+    def stop(self) -> None:
+        """End the driver and everything it started, if still running."""
+        import signal
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait()
+
+    def finish(self, timeout: float = 600) -> dict:
+        """Wait for the driver; its log read back (25a)."""
+        rc = self.proc.wait(timeout=timeout)
+        self.reader.join(timeout=60)
+        wall = time.perf_counter() - self.t0
+        stdout = "".join(self.lines)
+        ev = _driver_events(stdout)
+        names = [e for e, _ in ev]
+        log(f"[train-mesh] 25a driver ({wall:.1f} s, the injected crash at "
+            f"{self.crash_s} s, exit {rc}): "
+            + " | ".join(f"{e} {' '.join(f'{k}={v}' for k, v in kv.items())}"
+                         for e, kv in ev))
+        if rc != 0 or "train.done" not in names:
+            fail(f"25a: the driver did not reach train.done (exit {rc}):\n"
+                 f"{stdout[-3000:]}\n{self.err.read_text()[-6000:]}")
+        for need in ("train.fault_injection", "train.watchdog_restart",
+                     "train.resume"):
+            if need not in names:
+                fail(f"25a: no {need} in the driver's log")
+        steps = [kv for e, kv in ev if e == "train.step"]
+        done = dict(ev)["train.done"]
+        if int(done["launches"]) != 0:
+            fail(f"25a: the training steps launched kernels: {done}")
+        # a step after a start is a warm-up: the steady ones follow a step
+        steady = [float(kv["step_ms"]) for prev, kv in zip(steps, steps[1:])
+                  if int(kv["step"]) > int(prev["step"])]
+        out = dict(wall_s=wall, crash_s=self.crash_s, steps=steps,
+                   done=done,
+                   checkpoint_s=[float(kv["seconds"]) for e, kv in ev
+                                 if e == "train.checkpoint"],
+                   resume_s=[float(kv["seconds"]) for e, kv in ev
+                             if e == "train.resume"],
+                   step_ms=[float(kv["step_ms"]) for kv in steps],
+                   steady_step_ms=steady,
+                   collectives=[int(kv["collectives"]) for kv in steps])
+        log(f"[train-mesh] 25a: step host ms {out['step_ms']} (steady "
+            f"{steady}), collectives a step {out['collectives']}, "
+            f"checkpoint writes {out['checkpoint_s']} s, resume "
+            f"{out['resume_s']} s, peak memory a rank {done['peak_gib']} "
+            f"GiB (beside phases 4-13)")
+        return out
+
+
+def train_mesh_moe(mesh, spec: str, B: int, S: int, steps: int) -> dict:
+    """25b on one rank: the gradient of every leaf finite and nonzero on
+    this rank's blocks, ``steps`` AdamW steps on one batch (the loss
+    falling), each step's host ms and collectives, the share of dropped
+    (token, slot)s of this rank's rows, peak memory, and one more step
+    under the profiler on rank 0 (device ms, idle share)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import (init_train_state,
+                                              make_train_step, rank_rows,
+                                              value_and_grad)
+    cfg = config(spec)
+    dev = mesh.device
+    me = f"[train-mesh] 25b {spec} rank {mesh.rank}"
+    batch = {"tokens": np.random.default_rng(25).integers(
+        0, cfg.vocab_size, (B, S))}
+    opt = AdamWConfig(learning_rate=1e-3, warmup_steps=1,
+                      total_steps=steps)
+    t0 = time.perf_counter()
+    params, state = init_train_state(cfg, 0, dev, opt, mesh=mesh)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    before = dict(ops.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    kept, keep = [], moe._keep
+
+    def recording(rank, C):
+        kept.append(keep(rank, C))
+        return kept[-1]
+    moe._keep = recording
+    try:
+        loss0, grads = value_and_grad(
+            params, cfg, rank_rows(batch, cfg, mesh, B), mesh=mesh)
+    finally:
+        moe._keep = keep
+    drop = 1 - sum(int(k.sum()) for k in kept) / sum(k.numel() for k in kept)
+    check_grads(grads, f"25b rank {mesh.rank}")
+    del grads
+    step = make_train_step(cfg, mesh, opt=opt, global_batch=B)
+    losses, host, calls, mbytes = [], [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        c0, b0, t0 = mesh.calls, mesh.bytes, time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        host.append((time.perf_counter() - t0) * 1e3)
+        calls.append(mesh.calls - c0)
+        mbytes.append((mesh.bytes - b0) / 2**20)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if ops.LAUNCHES != before:
+        fail(f"{me}: the training steps launched kernels")
+    if not losses[-1] < losses[0]:
+        fail(f"{me}: the loss did not fall over {steps} steps: {losses}")
+    dev_ms = None
+    if mesh.rank == 0:
+        dev_ms, _, _ = profile_calls(lambda: step(params, state, batch), 1)
+    else:
+        step(params, state, batch)
+    torch.cuda.synchronize()
+    drops = [None] * mesh.size
+    import torch.distributed as dist
+    dist.all_gather_object(drops, drop)
+    out = dict(losses=losses, step_host_ms=host, collectives=calls,
+               collective_mib=mbytes,
+               drop_share=drops, peak_bytes=peak, init_s=t_init,
+               device_ms=dev_ms, loss0=float(loss0))
+    if mesh.rank == 0:
+        ms = float(np.median(host[1:]))
+        log(f"{me}: dropped (token, slot) share per rank "
+            f"{[round(d, 4) for d in drops]}; losses "
+            + ", ".join(f"{x:.4f}" for x in losses)
+            + f"; step host ms " + ", ".join(f"{x:.1f}" for x in host)
+            + f"; collectives a step {calls} ("
+            + ", ".join(f"{x:.0f}" for x in mbytes)
+            + f" MiB of inputs; beside phases 15-18); peak memory "
+            f"{peak / 2**30:.2f} GiB a rank; one more step under the "
+            f"profiler: device {_ms(dev_ms, 1)} (idle {_idle(dev_ms, ms)} "
+            f"of the median step)")
+    return out
+
+
+def train_mesh_serve(mesh, ckpt: str, texts: list) -> dict:
+    """25c on one rank of (1, 2): 25a's checkpoint read into the serve
+    layout, a service round trip at TP 2 (launches counted) and the
+    decode logits; on rank 0, the same unsharded on one device: the
+    round trip and the logits against TP 2's (SCORE_TOL)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.tokenizer import encode
+    from repro_torch.kernels import ops
+    from repro_torch.models.schema import init_params
+    from repro_torch.serve.engine import ModelPredictor
+    from repro_torch.serve.steps import vocab_sharded
+    from repro_torch.service import CompressionService
+    from repro_torch.sharding import specs
+    from repro_torch.train.checkpoint import restore_latest
+    cfg = config(TRAIN_MESH_DENSE)
+    me = f"[train-mesh] 25c rank {mesh.rank}"
+    toks = [encode(t) for t in texts]
+
+    def serve(pred):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        svc = CompressionService(pred, slots=16, chunk_size=128, topk=48)
+        blobs = [h.result()[0] for h in [svc.submit_compress(t)
+                                         for t in toks]]
+        svc = CompressionService(pred, slots=16, chunk_size=128, topk=48)
+        outs = [h.result() for h in [svc.submit_decompress(b)
+                                     for b in blobs]]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        for i, t in enumerate(toks):
+            if not np.array_equal(outs[i], t):
+                fail(f"{me}: job {i} differs after the round trip")
+        for k in ("decode_attention",) + (
+                () if vocab_sharded(cfg, pred.mesh) else ("topk_cdf",)):
+            if launches.get(k, 0) <= 0:
+                fail(f"{me}: the round trip launched {k} no time")
+        return blobs, launches, secs
+    t0 = time.perf_counter()
+    like = {"params": specs.init_params_sharded(cfg, mesh, 1, mesh.device,
+                                                layout="serve")}
+    got, step = restore_latest(ckpt, like, mesh=mesh, specs={
+        "params": specs.param_pspecs(cfg, mesh, "serve")})
+    t_restore = time.perf_counter() - t0
+    pred = ModelPredictor(got["params"], cfg, mesh=mesh)
+    blobs, launches, secs = serve(pred)
+    if not mesh.agree(b"".join(blobs)):
+        fail(f"{me}: this rank's archives differ from another rank's")
+    chunks = np.resize(np.concatenate(toks), 16 * 8).reshape(16, 8) \
+        .astype(np.int64)
+    tp_logits = _mesh_logits(pred, chunks)
+    del pred, got, like
+    _free_card()
+    out = dict(step=step, restore_s=t_restore, launches_tp2=launches,
+               round_trip_tp2_s=secs, bytes=sum(len(b) for b in blobs))
+    log(f"{me}: checkpoint step {step} read into the serve layout in "
+        f"{t_restore:.1f} s; TP 2 round trip of {len(toks)} jobs "
+        f"byte-exact in {secs:.1f} s, launches {launches}")
+    if mesh.rank != 0:
+        return out
+    t0 = time.perf_counter()
+    got, step1 = restore_latest(ckpt, {"params": init_params(cfg, 1,
+                                                             "cuda")})
+    n = _equal_to_file(got, pathlib.Path(ckpt) / f"step-{step1:08d}")
+    out["restore_1x1_s"] = time.perf_counter() - t0
+    log(f"{me}: checkpoint step {step1} restored onto one device, {n} "
+        f"parameter leaves equal to the file's, in "
+        f"{out['restore_1x1_s']:.1f} s")
+    pred = ModelPredictor(got["params"], cfg, device="cuda")
+    blobs1, launches1, secs1 = serve(pred)
+    whole = _mesh_logits(pred, chunks)
+    del pred, got
+    _free_card()
+    out.update(launches=launches1, round_trip_s=secs1,
+               vs_tp2=_compare_logits(
+                   "25c the trained checkpoint: TP 2 decode vs the "
+                   "unsharded decode", tp_logits, whole))
+    log(f"{me}: unsharded round trip byte-exact in {secs1:.1f} s, "
+        f"launches {launches1}; archives "
+        f"{'equal to' if blobs1 == blobs else 'other than'} TP 2's")
+    return out
+
+
+def _equal_to_file(tree, path: pathlib.Path) -> int:
+    """Every leaf of ``tree`` equal, bit for bit, to its array in the
+    checkpoint at ``path`` (read with numpy alone); returns the count."""
+    import numpy as np
+    import torch
+    from repro_torch.train.checkpoint import _named_leaves
+    n = 0
+    with np.load(path / "arrays.npz") as z:
+        for name, leaf in _named_leaves(tree):
+            mine = leaf.cpu()
+            mine = mine.view(torch.int16).numpy().view(np.uint16) \
+                if mine.dtype == torch.bfloat16 else mine.numpy()
+            if not np.array_equal(mine, z[name]):
+                fail(f"25: leaf {name} restored onto one device differs "
+                     f"from the checkpoint")
+            n += 1
+    return n
+
+
+class _Beside:
+    """``fn(*args)`` on a thread beside the script's next phases;
+    ``result()`` joins it and returns its value or raises what it
+    raised."""
+
+    def __init__(self, fn, *args):
+        import threading
+        self.out, self.err = None, None
+
+        def run():
+            try:
+                self.out = fn(*args)
+            except BaseException as e:  # noqa: BLE001 — raised in result()
+                self.err = e
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def join(self) -> None:
+        self.thread.join()
+
+    def result(self):
+        self.join()
+        if self.err is not None:
+            raise self.err
+        return self.out
+
+
+def phase_train_mesh(driven: dict) -> dict:
+    """Phase 25: 25a's numbers (``driven``: the driver, run beside phases
+    4-13), 25b, and 25c, the driver's last checkpoint served; returns
+    each part's numbers. Run on the thread of ``beside_15_18``."""
+    from repro_torch.data.synthetic import human_like
+    from repro_torch.launch.mesh import run_ranks
+    out = {"25a": driven}
+    c = TRAIN_MESH
+    t0 = time.perf_counter()
+    out["25b"] = run_ranks(train_mesh_moe, c["mesh"], ("data", "model"),
+                           backend="gloo", device="cuda",
+                           args=(TRAIN_MESH_MOE, c["batch"], c["seq"],
+                                 TRAIN_MESH_MOE_STEPS), timeout=600)
+    log(f"[time] 25b moe: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    texts = [human_like(d, n, seed=s) for d, n, s in TRAIN_MESH_JOBS]
+    out["25c"] = run_ranks(train_mesh_serve, (1, 2), ("data", "model"),
+                           backend="gloo", device="cuda",
+                           args=(str(TRAIN_MESH_WORK / "ckpt"), texts),
+                           timeout=600)
+    log(f"[time] 25c serving the checkpoint: "
+        f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(TRAIN_MESH_WORK, ignore_errors=True)
+    return out
+
+
+def beside_15_18(driven: dict, times: dict) -> tuple[dict, dict]:
+    """Phases 24 and 25 on a thread beside phases 15-18: their ranks are
+    processes of their own, host-bound (the card idle above 90%), and
+    hold little of the card; this thread makes no CUDA call in the
+    script's process (one would break a graph capture there). They end
+    before phase 19, whose fp32 twin takes most of the card. Returns
+    phase 24's results and phase 25's; logs each phase's wall seconds
+    into ``times``."""
+    out = []
+    for name, fn, args in (("24 serving on a mesh", phase_mesh, ()),
+                           ("25 training on a mesh", phase_train_mesh,
+                            (driven,))):
+        t0 = time.perf_counter()
+        out.append(fn(*args))
+        times[name] = round(time.perf_counter() - t0, 1)
+        log(f"[time] {name}: {times[name]} s (beside phases 15-18)")
+    return tuple(out)
 
 
 def main() -> int:
@@ -3857,25 +4319,52 @@ def main() -> int:
         return routed
 
     kern = timed("2 kernels", phase_kernels, gen, -(-jobs[0].size // 128))
-    svc = timed("3+10 qwen3-1.7b service", phase_service, "qwen3-1.7b")
-    routed = timed("4+5+11 qwen3-1.7b paths", paths_of, "qwen3-1.7b")
-    full = timed("6 full CDF", phase_full_cdf)
-    timed("6 mismatched archive", phase_mismatch)
-    timed("7 CLI", phase_cli)
-    timed("8+10 mamba2-130m service", phase_service, "mamba2-130m")
-    routed_ssm = timed("9 mamba2-130m paths", paths_of, "mamba2-130m")
-    timed("13 paper", phase_paper)
-    timed("14 qwen3-1.7b training", phase_train_full_width)
-    svc_h = timed("15 zamba2-7b service", phase_service, ZAMBA_CUT,
-                  SHORT_JOBS)
-    routed_h = timed("16 zamba2-7b paths", phase_model_paths, ZAMBA_CUT)
-    dense = timed("17 dense configs", phase_dense_configs)
-    window = timed("18 past the window", phase_window)
-    moe = timed("19+20 moe configs", phase_moe_configs)
-    cond = timed("21+22 vlm and encdec configs", phase_conditioned_configs)
-    trained = timed("23 training of the other families",
-                    phase_train_families)
-    mesh = timed("24 serving on a mesh", phase_mesh)
+    try:
+        # each phase's fresh-process decompression runs beside the next
+        # phases (``fresh_decompress``) and is read back before a phase
+        # that needs most of the card (``join_fresh``)
+        svc = timed("3+10 qwen3-1.7b service", phase_service, "qwen3-1.7b")
+        # 25a, the training driver, runs beside phases 4-13 (host-bound,
+        # and they hold little of the card) and has ended before phase 14
+        driver = _Driver()
+        try:
+            routed = timed("4+5+11 qwen3-1.7b paths", paths_of,
+                           "qwen3-1.7b")
+            full = timed("6 full CDF", phase_full_cdf)
+            timed("6 mismatched archive", phase_mismatch)
+            timed("7 CLI", phase_cli)
+            timed("8+10 mamba2-130m service", phase_service, "mamba2-130m")
+            routed_ssm = timed("9 mamba2-130m paths", paths_of,
+                               "mamba2-130m")
+            timed("13 paper", phase_paper)
+            driven = timed("25a its end, after phase 13", driver.finish)
+        finally:
+            driver.stop()
+        timed("3, 8 fresh processes, their end", join_fresh)
+        timed("14 qwen3-1.7b training", phase_train_full_width)
+        # phases 24 and 25 (25b, 25c) on a thread beside phases 15-18
+        _free_card()
+        beside = _Beside(beside_15_18, driven, times)
+        try:
+            svc_h = timed("15 zamba2-7b service", phase_service, ZAMBA_CUT,
+                          SHORT_JOBS)
+            routed_h = timed("16 zamba2-7b paths", phase_model_paths,
+                             ZAMBA_CUT)
+            dense = timed("17 dense configs", phase_dense_configs)
+            window = timed("18 past the window", phase_window)
+            mesh, train_mesh = timed("24-25 their end, after phase 18",
+                                     beside.result)
+        finally:
+            beside.join()
+        timed("15, 17 fresh processes, their end", join_fresh)
+        moe = timed("19+20 moe configs", phase_moe_configs)
+        cond = timed("21+22 vlm and encdec configs",
+                     phase_conditioned_configs)
+        trained = timed("23 training of the other families",
+                        phase_train_families, join_fresh)
+        timed("fresh processes, their end", join_fresh)
+    finally:
+        stop_fresh()
 
     paths = {"cdf_points": full, "flash_attention": routed,
              "ssd_intra": routed_ssm}
@@ -3918,6 +4407,12 @@ def main() -> int:
                # phase 24's round trips on a mesh, rank 0's counts
                "launches_phase24": {a: int(d["launches"].get(name, 0))
                                     for a, d in mesh.items()},
+               # phase 25c's round trips of the trained checkpoint (rank
+               # 0's at TP 2, and unsharded); 25a-b's steps launch none
+               "launches_phase25": {
+                   "25c-tp2": int(train_mesh["25c"]["launches_tp2"].get(
+                       name, 0)),
+                   "25c": int(train_mesh["25c"]["launches"].get(name, 0))},
                "max_abs_err": r["max_abs_err"], "tol": r["tol"],
                # attention: error over its row's max |value| (the bf16
                # limit), at every shape, and a planted skipped tile's

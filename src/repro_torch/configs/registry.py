@@ -44,8 +44,20 @@ def canon(arch_id: str) -> str:
 def get_config(arch_id: str):
     if arch_id in PREDICTORS:
         return PREDICTORS[arch_id]
+    return _module(arch_id).CONFIG
+
+
+def get_smoke_config(arch_id: str):
+    """The reduced same-family config of an architecture (its
+    ``SMOKE_CONFIG``: ``base.tiny_variant``), as the JAX package's
+    ``get_smoke_config``; a predictor is its own."""
+    if arch_id in PREDICTORS:
+        return PREDICTORS[arch_id]
+    return _module(arch_id).SMOKE_CONFIG
+
+
+def _module(arch_id: str):
     if canon(arch_id) not in ARCH_IDS:
         raise KeyError(f"unknown config {arch_id!r} (choose from "
                        f"{sorted(PREDICTORS) + ARCH_IDS})")
-    mod = import_module(f"repro_torch.configs.{canon(arch_id)}")
-    return mod.CONFIG
+    return import_module(f"repro_torch.configs.{canon(arch_id)}")

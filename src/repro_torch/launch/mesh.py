@@ -93,6 +93,11 @@ class Mesh:
         self.coords = dict(zip(axes, (int(c) for c in np.unravel_index(
             self.rank, shape))))
         self.device = torch.device("cpu" if device is None else device)
+        #: collectives run on this mesh (one per axis of more than one
+        #: rank) and the bytes of their inputs: what a step costs in
+        #: collectives (``chip_smoke.py`` phase 25)
+        self.calls = 0
+        self.bytes = 0
         self._groups = {}
         if layout_only:
             self._groups = {a: None for a, n in self.shape.items() if n > 1}
@@ -145,8 +150,13 @@ class Mesh:
             if g is None:
                 continue
             x = x.contiguous()
+            self._count(x)
             dist.all_reduce(x, op=op, group=g)
         return x
+
+    def _count(self, x: torch.Tensor) -> None:
+        self.calls += 1
+        self.bytes += x.numel() * x.element_size()
 
     def psum(self, x: torch.Tensor, axis) -> torch.Tensor:
         """The sum of ``x`` over the ranks along ``axis``, on every one of
@@ -167,6 +177,7 @@ class Mesh:
             if g is None:
                 continue
             x = x.contiguous()
+            self._count(x)
             parts = [torch.empty_like(x) for _ in range(self.axis_size(a))]
             dist.all_gather(parts, x, group=g)
             x = torch.cat(parts, dim=dim)

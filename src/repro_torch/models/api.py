@@ -9,9 +9,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import batch_axes
 from repro_torch.sharding import specs
 from . import encdec, hybrid, mamba2, moe, transformer
-from .layers import mesh_context
+from .layers import in_mesh_ctx, mesh_context, mesh_ctx
 from .schema import count_params, from_jax, init_params, schema
 
 _FAMS = {
@@ -66,7 +67,8 @@ def stub_inputs(cfg: ModelConfig, batch: int = 1, *, seed: int = 0,
     return {rows[0]: x.to(transformer.torch_dtype(cfg.dtype))}
 
 
-#: the families the port runs on a mesh (tensor and expert parallelism)
+#: the families the port runs on a mesh (tensor and expert parallelism,
+#: serving and training)
 MESH_FAMILIES = ("dense", "moe")
 
 
@@ -75,9 +77,20 @@ def check_mesh(cfg: ModelConfig, mesh) -> None:
     module_for(cfg)
     if mesh is not None and cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family} family on a mesh: the port serves "
-            f"{' and '.join(MESH_FAMILIES)} on a mesh; ssm, hybrid, encdec "
-            f"and vlm on a mesh are ROADMAP Queue 1 item 3")
+            f"the {cfg.family} family on a mesh: the port serves and "
+            f"trains {' and '.join(MESH_FAMILIES)} on a mesh; ssm, hybrid, "
+            f"encdec and vlm on a mesh are ROADMAP Queue 1 item 3")
+
+
+def _gather_top(params: dict, ctx) -> dict:
+    """The top-level leaves (``embed``, ``lm_head``, ``final_norm``)
+    gathered over 'data' in the train layout on ``ctx`` (the layers
+    gather their own, one layer at a time); ``params`` itself on one
+    device."""
+    if ctx is None:
+        return params
+    return {k: v if isinstance(v, dict) else ctx.gather(v, ctx.pspecs[k])
+            for k, v in params.items()}
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *, mesh=None,
@@ -86,7 +99,8 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mesh=None,
     a ``mesh`` (the serve layout): ``params`` are this rank's blocks
     (``sharding.specs.shard_params``), the tokens this rank's lanes
     (``batch_sharded``: the batch is cut over the batch axes) and the
-    logits this rank's block of the vocabulary where 'model' cuts it."""
+    logits this rank's block of the vocabulary where 'model' cuts it.
+    The train layout runs inside ``loss_fn``."""
     check_mesh(cfg, mesh)
     with mesh_context(mesh, cfg, batch_sharded=batch_sharded):
         return module_for(cfg).forward(params, cfg, batch, **kw)
@@ -154,13 +168,31 @@ def ring_leaves(cfg: ModelConfig) -> tuple[str, ...]:
 
 def _ce_from_logits(logits, targets):
     """Per-position cross entropy (B, S) in fp32: logsumexp minus the
-    target's logit (padded-vocabulary ids carry -1e30 and add nothing)."""
+    target's logit (padded-vocabulary ids carry -1e30 and add nothing).
+    In the train layout on a mesh whose 'model' axis cuts the
+    vocabulary, ``logits`` are this rank's block of columns: the max is
+    a ``pmax`` over 'model' (no gradient: the result does not depend on
+    it), the exp-sum a ``psum``, and the target's logit comes from the
+    rank that owns its column (a ``psum`` of each rank's owned ones);
+    the result is the same on every rank of 'model'."""
     lg = logits.float()
-    return torch.logsumexp(lg, dim=-1) - lg.gather(
-        -1, targets[..., None])[..., 0]
+    ctx = mesh_ctx()
+    if ctx is None or not ctx.cut("vocab"):
+        return torch.logsumexp(lg, dim=-1) - lg.gather(
+            -1, targets[..., None])[..., 0]
+    n = lg.shape[-1]
+    lo = ctx.mesh.axis_index("model") * n
+    m = ctx.mesh.pmax(lg.detach().amax(dim=-1), "model")
+    lse = m + ctx.psum((lg - m[..., None]).exp().sum(dim=-1),
+                       "model").log()
+    local = targets - lo
+    own = (local >= 0) & (local < n)
+    t = lg.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    return lse - ctx.psum(t * own, "model")
 
 
-def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0):
+def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0,
+            mesh=None):
     """Next-token cross entropy (paper Eq. 16), as the JAX package's
     ``loss_fn``: batch["tokens"] (B, S) is the whole input, the target of
     position t is token t + 1, and the last position (no target) is
@@ -172,8 +204,19 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0):
     ``loss_block > 0`` evaluates the LM head and the cross entropy per
     block of ``loss_block`` positions, each block under
     ``torch.utils.checkpoint``, so the fp32 logits exist one block at a
-    time."""
+    time.
+
+    On a ``mesh`` (the train layout): ``params`` are this rank's blocks
+    (``specs.param_pspecs(cfg, mesh, "train")``) and ``batch`` this
+    rank's rows of the global batch (cut over 'pod' and 'data'); the
+    cross entropy is taken over the vocabulary-sharded logits, and the
+    loss is the mean over the global batch's masked positions (sums
+    ``psum``med over the batch axes), the same on every rank. The
+    gradients autograd then gives are this rank's contributions: the
+    train step sums them over the axes a leaf is whole on
+    (``train/train_loop.py``)."""
     module_for(cfg)                     # an unknown family raises here
+    check_mesh(cfg, mesh)
     train_kw = TRAIN_FORWARD[cfg.family]
     tokens = batch["tokens"]
     targets = F.pad(tokens[:, 1:], (0, 1))
@@ -181,24 +224,32 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0):
                       device=tokens.device) if "mask" not in batch \
         else batch["mask"].float().clone()
     mask[:, -1] = 0.0
-    if loss_block:
-        hidden = forward(params, cfg, batch, return_hidden=True,
-                         **train_kw)
-        S, sb = hidden.shape[1], loss_block
+    fwd = module_for(cfg).forward
+    with mesh_context(mesh, cfg, "train", batch_sharded=True) as ctx:
+        params = _gather_top(params, ctx)
+        if loss_block:
+            hidden = fwd(params, cfg, batch, return_hidden=True, **train_kw)
+            S, sb = hidden.shape[1], loss_block
 
-        def blk(h, t):
-            return _ce_from_logits(transformer.lm_logits(cfg, params, h), t)
-        nll = torch.cat([
-            checkpoint(blk, hidden[:, s0:s0 + sb], targets[:, s0:s0 + sb],
-                       use_reentrant=False)
-            for s0 in range(0, S, sb)], dim=1)
-    else:
-        logits = forward(params, cfg, batch, **train_kw)
-        nll = _ce_from_logits(logits, targets)
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+            @in_mesh_ctx        # the recompute runs in the backward
+            def blk(h, t):
+                return _ce_from_logits(
+                    transformer.lm_logits(cfg, params, h), t)
+            nll = torch.cat([
+                checkpoint(blk, hidden[:, s0:s0 + sb],
+                           targets[:, s0:s0 + sb], use_reentrant=False)
+                for s0 in range(0, S, sb)], dim=1)
+        else:
+            nll = _ce_from_logits(fwd(params, cfg, batch, **train_kw),
+                                  targets)
+        tot = torch.stack([(nll * mask).sum(), mask.sum()])
+        if ctx is not None:
+            tot = ctx.psum(tot, batch_axes(mesh))
+    return tot[0] / tot[1].clamp(min=1.0)
 
 
-__all__ = ["forward", "loss_fn", "MESH_FAMILIES", "check_mesh", "TRAIN_FORWARD", "init_cache", "decode_step",
+__all__ = ["forward", "loss_fn", "MESH_FAMILIES", "check_mesh",
+           "TRAIN_FORWARD", "init_cache", "decode_step",
            "rollback_leaves", "ring_leaves", "conditioning_leaves",
            "module_for", "stub_inputs", "init_params", "from_jax",
            "count_params", "schema"]

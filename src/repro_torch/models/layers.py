@@ -16,8 +16,20 @@ layout for the calls inside it, each weight is this rank's block
 explicit ``all_reduce`` over 'model' (``tp_down_proj``). The port has no
 switch for implicit collectives (the JAX module's ``REPRO_EXPLICIT_TP``
 and ``REPRO_BF16_WIRE``, and its residual barrier): its collectives are
-always explicit, their payload in the model dtype, and that is the
-serve layout.
+always explicit, their payload in the model dtype. Two layouts, as in
+the JAX package:
+
+  * "serve": the weights resident (1D TP), the plain ``Mesh``
+    collectives, no backward;
+  * "train": FSDP and TP (``specs.param_pspecs(cfg, mesh, "train")``):
+    the D rows of a weight lie over 'data' where its ``embed`` axis
+    says so, and a layer gathers its weights over 'data' before use
+    (``MeshContext.gather``; under ``torch.utils.checkpoint`` the
+    backward gathers again, in the same order on every rank). Its
+    collectives are ``launch/collectives.py``'s, which autograd
+    differentiates: a replicated activation ``enter``s a
+    column-parallel product, whose backward sums its cotangent over
+    'model'; a row-parallel ``psum``'s backward is the identity.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import collectives
 from repro_torch.sharding import specs
 
 NEG_INF = -1e30
@@ -38,24 +51,66 @@ NEG_INF = -1e30
 @dataclass(frozen=True)
 class MeshContext:
     """The mesh a model call runs on: ``mesh`` (a ``launch.mesh.Mesh``),
-    ``layout`` ("serve": weights resident; the port runs no other on a
-    mesh yet), the sharding ``rules`` of the call's config on it
-    (``sharding.specs.rules``: logical axis -> mesh axis or None) and
-    whether the call's batch is cut over the batch axes
-    (``batch_sharded``: each rank holds its block of the lanes)."""
+    ``layout`` ("serve" or "train"), the sharding ``rules`` of the call's
+    config on it (``sharding.specs.rules``: logical axis -> mesh axis or
+    None), whether the call's batch is cut over the batch axes
+    (``batch_sharded``: each rank holds its block of the lanes or rows)
+    and, in the train layout, the spec of every parameter leaf
+    (``pspecs``)."""
     mesh: object
     layout: str
     rules: dict
     batch_sharded: bool = False
+    pspecs: dict | None = None
 
     @property
     def tp(self) -> int:
         return self.mesh.axis_size("model")
 
+    @property
+    def train(self) -> bool:
+        return self.layout == "train"
+
     def cut(self, logical: str) -> bool:
         """Whether ``logical`` is cut over 'model' into more than one
         block."""
         return self.rules[logical] == "model" and self.tp > 1
+
+    # the collectives of a model call: differentiable in the train
+    # layout, the plain ``Mesh`` ones in the serve layout
+    def psum(self, x, axis):
+        return collectives.psum(x, self.mesh, axis) if self.train \
+            else self.mesh.psum(x, axis)
+
+    def all_gather(self, x, axis, dim: int = 0):
+        return collectives.all_gather(x, self.mesh, axis, dim) \
+            if self.train else self.mesh.all_gather(x, axis, dim)
+
+    def enter(self, x, axis="model"):
+        """``x``, the same on every rank of ``axis``, entering a product
+        that differs along it (identity; its backward sums over
+        ``axis`` in the train layout)."""
+        return collectives.enter(x, self.mesh, axis) if self.train else x
+
+    def gather(self, w, spec: tuple):
+        """The train layout's FSDP gather: ``w`` (this rank's block under
+        ``spec``) whole along every dim that ``spec`` cuts over 'data'.
+        Other layouts, and dims cut over 'model', are left as they
+        are."""
+        if not self.train:
+            return w
+        for dim, entry in enumerate(spec):
+            if entry == "data":
+                w = collectives.all_gather(w, self.mesh, "data", dim)
+        return w
+
+    def gather_layer(self, lp: dict) -> dict:
+        """A layer's weights (its slices of the stacked ``layers``
+        leaves) gathered over 'data' (``gather``)."""
+        if not self.train:
+            return lp
+        return {k: self.gather(w, self.pspecs["layers"][k][1:])
+                for k, w in lp.items()}
 
 
 _MESH = contextvars.ContextVar("repro_torch_mesh", default=None)
@@ -65,18 +120,17 @@ _MESH = contextvars.ContextVar("repro_torch_mesh", default=None)
 def mesh_context(mesh, cfg=None, layout: str = "serve", *,
                  batch_sharded: bool = False):
     """Run the model calls inside on ``mesh`` (None: one device) with
-    ``cfg``'s sharding rules. The port's model paths run the serve layout
-    only: training on a mesh (the JAX train layout, FSDP) is ROADMAP
-    Queue 1 item 3."""
+    ``cfg``'s sharding rules in ``layout`` ("serve" or "train", as
+    ``sharding.specs.LAYOUTS``)."""
     ctx = None
     if mesh is not None:
-        if layout != "serve":
-            raise NotImplementedError(
-                f"layout {layout!r} on a mesh: the port's models run the "
-                f"serve layout (training on a mesh is ROADMAP Queue 1 "
-                f"item 3)")
-        ctx = MeshContext(mesh, layout, specs.rules(cfg, mesh, layout),
-                          bool(batch_sharded))
+        if layout not in specs.LAYOUTS:
+            raise ValueError(f"layout {layout!r} (one of {specs.LAYOUTS})")
+        ctx = MeshContext(
+            mesh, layout, specs.rules(cfg, mesh, layout),
+            bool(batch_sharded),
+            specs.param_pspecs(cfg, mesh, layout) if layout == "train"
+            else None)
     tok = _MESH.set(ctx)
     try:
         yield ctx
@@ -89,6 +143,29 @@ def mesh_ctx():
     return _MESH.get()
 
 
+def in_mesh_ctx(fn):
+    """``fn`` bound to the active ``MeshContext``: run later (the
+    recompute of a ``torch.utils.checkpoint`` in the backward, outside
+    the ``mesh_context`` block and, on the card, on autograd's own
+    thread), it runs on the same mesh and layout."""
+    ctx = _MESH.get()
+
+    def bound(*args, **kw):
+        tok = _MESH.set(ctx)
+        try:
+            return fn(*args, **kw)
+        finally:
+            _MESH.reset(tok)
+    return bound
+
+
+def gather_layer(lp: dict) -> dict:
+    """``lp`` gathered over 'data' in the train layout (each leaf whole
+    along its FSDP dim), else ``lp`` itself."""
+    ctx = mesh_ctx()
+    return lp if ctx is None else ctx.gather_layer(lp)
+
+
 def tp_down_proj(h, w, logical: str):
     """A product whose contracted dim is cut over 'model' when the rows
     of ``w`` are (``logical``: "heads" or "mlp"): this rank's partial
@@ -99,8 +176,16 @@ def tp_down_proj(h, w, logical: str):
     out = h @ w
     ctx = mesh_ctx()
     if ctx is not None and ctx.cut(logical):
-        out = ctx.mesh.psum(out.to(h.dtype), "model")
+        out = ctx.psum(out.to(h.dtype), "model")
     return out
+
+
+def column_input(x, logical: str):
+    """``x`` entering a column-parallel product whose columns are cut by
+    ``logical`` ("heads", "mlp", "vocab"): ``MeshContext.enter`` over
+    'model' when they are cut, else ``x``."""
+    ctx = mesh_ctx()
+    return ctx.enter(x) if ctx is not None and ctx.cut(logical) else x
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
@@ -126,9 +211,12 @@ def rope(x, positions, theta: float = 1e6):
 
 def swiglu(x, w_gate, w_up, w_down, reduce: str | None = None):
     """SwiGLU. On a mesh, gate and up are column-parallel (this rank's
-    columns of the hidden) and ``reduce`` ("mlp") names the rows of
-    ``w_down`` that ``tp_down_proj`` sums over 'model'; None: a plain
-    product (the moe experts, each whole on its rank)."""
+    columns of the hidden: ``x`` enters them, ``column_input``) and
+    ``reduce`` ("mlp") names the rows of ``w_down`` that
+    ``tp_down_proj`` sums over 'model'; None: a plain product (the moe
+    experts, each whole on its rank)."""
+    if reduce is not None:
+        x = column_input(x, reduce)
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down if reduce is None else tp_down_proj(h, w_down, reduce)
 

@@ -86,7 +86,17 @@ E_loc = E). Two layouts, as in JAX:
     rank's D-block of the output, which is gathered over 'data'; the
     rank keeps its own tokens' rows;
   * otherwise (``mapped``): the tokens are this rank's, the expert
-    weights whole.
+    weights whole;
+  * the train layout (``_moe_block_train``, JAX's ``mapped`` under
+    ``make_train_step``): the expert weights gathered over 'data' with
+    the rest of the layer, the tokens this rank's rows, and the
+    capacity-dropped dispatch with C from this rank's own T, as JAX's
+    ``shard_map`` body computes it. The drops then depend on the batch
+    shard: the sharded loss equals the mean of the shards' unsharded
+    losses, not the loss over the whole batch (each shard has the same
+    number of positions). The tokens ``enter`` the dispatch and the
+    router's gradient, a partial one on each rank, is summed over
+    'model' by the train step (``train_loop.model_partial``).
 
 Not ported: an int8 KV cache: the JAX package's moe decode step writes
 no scales (``moe.py decode_step`` unpacks three values from
@@ -103,7 +113,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import batch_axes
 from . import transformer
-from .layers import mesh_ctx, rms_norm, swiglu
+from .layers import gather_layer, mesh_ctx, rms_norm, swiglu
 from .transformer import (_decode_attn_one, attn_block, check_impl,
                           embed_tokens, layer_weights, lm_logits, remat)
 
@@ -199,12 +209,26 @@ def _combine(out, dest, weights, T: int, k: int, dtype):
     return y.view(T, k, -1).float().sum(dim=1).to(dtype)
 
 
-def moe_ffn_capacity(x_flat, lp: dict, cfg: ModelConfig):
+def _partial(out, dest, weights, T: int, k: int):
+    """This rank's fp32 partial output: each (token, slot)'s row ``dest``
+    of ``out`` weighted (0 where another rank's expert or a drop takes
+    it) and a token's k slots summed in fp32."""
+    y = out.index_select(0, dest) * weights.reshape(-1, 1).to(out.dtype)
+    return y.view(T, k, -1).float().sum(dim=1)
+
+
+def moe_ffn_capacity(x_flat, lp: dict, cfg: ModelConfig, *, lo: int = 0,
+                     E_loc: int | None = None):
     """Capacity-dropped dispatch and expert compute of T tokens (the
     training path): x (T, D) -> (T, D), JAX's ``moe_ffn_local`` with
-    ``dropless=False``. Differentiable."""
+    ``dropless=False``. Differentiable. On a mesh (JAX's ``mapped``), the experts lo .. lo +
+    E_loc - 1 are this rank's (``lp``'s expert weights are theirs, whole
+    over 'data'): the routing and each slot's rank are the global ones
+    over these T tokens, and the result is their fp32 partial output."""
     T, D = x_flat.shape
     E, k = cfg.n_experts, cfg.top_k
+    whole = E_loc is None
+    E_loc = E if whole else E_loc
     C = capacity(cfg, T)
     weights, experts = route(x_flat, lp["router"], k)
     fe = experts.reshape(-1)                                  # (T k,)
@@ -212,13 +236,18 @@ def moe_ffn_capacity(x_flat, lp: dict, cfg: ModelConfig):
     rank = _ranks(order, se, first)
     keep = _keep(rank, C)
     slot, held = capacity_rows(order, first, C)
-    buf = x_flat[slot // k].masked_fill(~held[..., None], 0)  # (E, C, D)
+    slot, held = slot[lo:lo + E_loc], held[lo:lo + E_loc]
+    buf = x_flat[slot // k].masked_fill(~held[..., None], 0)  # (E_loc, C, D)
     out = swiglu(buf, lp["we_gate"], lp["we_up"],
-                 lp["we_down"]).reshape(E * C, D)
-    # a dropped slot reads row 0 at weight 0
-    dest = torch.where(keep, fe * C + rank, 0)
-    return _combine(out, dest, weights * keep.view(T, k), T, k,
-                    x_flat.dtype)
+                 lp["we_down"]).reshape(E_loc * C, D)
+    if not whole:
+        keep = keep & (fe >= lo) & (fe < lo + E_loc)
+    # a dropped slot (or another rank's) reads row 0 at weight 0
+    dest = torch.where(keep, (fe - lo) * C + rank, 0)
+    w = weights * keep.view(T, k)
+    if whole:
+        return _combine(out, dest, w, T, k, x_flat.dtype)
+    return _partial(out, dest, w, T, k)
 
 
 def moe_ffn(x_flat, lp: dict, cfg: ModelConfig, *, lo: int = 0,
@@ -260,9 +289,7 @@ def moe_ffn(x_flat, lp: dict, cfg: ModelConfig, *, lo: int = 0,
     local = (fe >= lo) & (fe < lo + E_loc)
     # a slot another rank's expert takes reads row 0 at weight 0
     dest = torch.where(local, (fe - lo) * C + rank, 0)
-    y = out.index_select(0, dest) * (weights.reshape(-1) * local).reshape(
-        -1, 1).to(out.dtype)
-    return y.view(T, k, -1).float().sum(dim=1)
+    return _partial(out, dest, weights * local.view(T, k), T, k)
 
 
 def _moe_block_mesh(cfg: ModelConfig, lp: dict, x_flat, ctx,
@@ -270,12 +297,7 @@ def _moe_block_mesh(cfg: ModelConfig, lp: dict, x_flat, ctx,
     """The moe FFN of this rank's tokens x (T, D) on the mesh ``ctx``
     (expert parallelism; see the module's docstring) -> (T, D)."""
     mesh = ctx.mesh
-    tp = ctx.tp if ctx.rules["expert"] == "model" else 1
-    if tp == 1 and ctx.tp > 1:
-        raise NotImplementedError(
-            f"{cfg.n_experts} experts do not divide the model axis "
-            f"({ctx.tp}): experts whole on every rank of a mesh are not "
-            f"ported (ROADMAP Queue 1 item 3)")
+    tp = _expert_tp(cfg, ctx)
     E_loc = cfg.n_experts // tp
     lo = mesh.axis_index("model") * E_loc if tp > 1 else 0
     d_block = None
@@ -298,22 +320,61 @@ def _moe_block_mesh(cfg: ModelConfig, lp: dict, x_flat, ctx,
     return y.to(x_flat.dtype)
 
 
+def _moe_block_train(cfg: ModelConfig, lp: dict, x_flat, ctx):
+    """The moe FFN of this rank's tokens x (T, D) in the train layout
+    (JAX's ``mapped``): the expert weights whole over 'data' (the
+    layer's gather), this rank's experts over 'model', the capacity from
+    this rank's T (rows over 'pod' and 'data'), as JAX's ``shard_map``
+    computes it; the partial outputs summed over 'model' in fp32 and
+    rounded once."""
+    tp = _expert_tp(cfg, ctx)
+    if tp == 1:
+        return moe_ffn_capacity(x_flat, lp, cfg)
+    E_loc = cfg.n_experts // tp
+    y = moe_ffn_capacity(ctx.enter(x_flat), lp, cfg,
+                         lo=ctx.mesh.axis_index("model") * E_loc,
+                         E_loc=E_loc)
+    return ctx.psum(y, "model").to(x_flat.dtype)
+
+
+def _expert_tp(cfg: ModelConfig, ctx) -> int:
+    """The ranks the experts are cut over ('model'); experts that do not
+    divide a 'model' axis of more than one rank are refused."""
+    if ctx.rules["expert"] == "model":
+        return ctx.tp
+    if ctx.tp > 1:
+        raise NotImplementedError(
+            f"{cfg.n_experts} experts do not divide the model axis "
+            f"({ctx.tp}): experts whole on every rank of a mesh are not "
+            f"ported (ROADMAP Queue 1 item 3)")
+    return 1
+
+
 def moe_block(cfg: ModelConfig, lp: dict, x, dispatch_group: int = 0, *,
               dropless: bool = True):
     """The moe FFN sub-block (residual applied by the caller): x (B, S, D)
     -> (B, S, D). Dropless, ``dispatch_group`` > 0 dispatches the B * S
     tokens in groups of at most that many (exact); ``dropless=False``
     dispatches them all at once with capacity drops
-    (``moe_ffn_capacity``). On a mesh, expert parallelism
-    (``_moe_block_mesh``), dropless."""
+    (``moe_ffn_capacity``). On a mesh, expert parallelism: the serve
+    layout dispatches dropless (``_moe_block_mesh``), the train layout
+    with capacity drops (``_moe_block_train``), as JAX trains."""
     B, S, D = x.shape
     x_flat = x.reshape(B * S, D)
     ctx = mesh_ctx()
+    if ctx is not None and ctx.train:
+        if dropless:
+            raise NotImplementedError(
+                "the train layout dispatches with capacity drops, as JAX "
+                "trains (models.api.TRAIN_FORWARD); the dropless dispatch "
+                "runs in the serve layout")
+        return _moe_block_train(cfg, lp, x_flat, ctx).reshape(B, S, D)
     if ctx is not None:
         if not dropless:
             raise NotImplementedError(
-                "the capacity-dropped dispatch (training) on a mesh: "
-                "ROADMAP Queue 1 item 3")
+                "the capacity-dropped dispatch runs in the train layout "
+                "(models.api.loss_fn(mesh=...)); the serve layout "
+                "dispatches dropless")
         return _moe_block_mesh(cfg, lp, x_flat, ctx,
                                dispatch_group).reshape(B, S, D)
     if not dropless:
@@ -331,6 +392,7 @@ def moe_dense_block(cfg: ModelConfig, lp: dict, x, *, positions,
                     dropless: bool = True):
     """Attention + moe FFN transformer block, each pre-norm with its
     residual."""
+    lp = gather_layer(lp)           # FSDP: whole over 'data' (train layout)
     x = x + attn_block(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps),
                        positions=positions, attn_impl=attn_impl)
     return x + moe_block(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps),

@@ -40,7 +40,12 @@ where the KV heads divide tp), its hidden columns of the MLP and, where
 'model'. KV heads that do not divide tp leave the K/V projections whole
 on every rank: q is gathered over 'model', scoring attends all heads,
 and decode runs the sequence-sharded attention
-(``decode_requires_lockstep``, ``_seq_sharded_decode_attn``).
+(``decode_requires_lockstep``, ``_seq_sharded_decode_attn``). In the
+train layout (``models.api.loss_fn(mesh=...)``) each block first
+gathers its weights' D rows over 'data' (``layers.gather_layer``), the
+normed activations ``enter`` the column-parallel products, and the
+batch is this rank's rows: the gradients come out as this rank's
+blocks (``train/train_loop.py``).
 
 One deliberate difference: JAX is functional and returns a new cache;
 here ``decode_step`` writes the new K/V into the cache tensors in place
@@ -58,7 +63,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from .layers import (NEG_INF, attention_masked, decode_attention, mesh_ctx,
+from repro_torch.launch import collectives
+from .layers import (NEG_INF, attention_masked, column_input,
+                     decode_attention, gather_layer, in_mesh_ctx,
+                     mesh_ctx,
                      prefill_attention, rms_norm, rope, swiglu,
                      tp_down_proj)
 
@@ -89,14 +97,23 @@ def lm_logits(cfg: ModelConfig, params, x):
     """Logits (..., Vp) of the final-normed ``x``; on a mesh whose 'model'
     axis cuts the vocabulary, this rank's block of Vp / tp columns (ids
     from rank * Vp / tp on: ``lm_head`` is that block, a tied ``embed``
-    gives its rows), the padding ids among them masked."""
+    gives its rows), the padding ids among them masked. In the train
+    layout ``x`` enters the product (its backward sums over 'model') and
+    a tied ``embed``, whole on every rank of 'model', gives its rows
+    through ``collectives.split`` (whose backward gathers the blocks'
+    gradients)."""
     ctx = mesh_ctx()
     lo = 0
     if ctx is not None and ctx.cut("vocab"):
         n = cfg.padded_vocab // ctx.tp
         lo = ctx.mesh.axis_index("model") * n
-        head = params["embed"][lo:lo + n].T if cfg.tie_embeddings \
-            else params["lm_head"]
+        x = ctx.enter(x)
+        if not cfg.tie_embeddings:
+            head = params["lm_head"]
+        elif ctx.train:
+            head = collectives.split(params["embed"], ctx.mesh, "model").T
+        else:
+            head = params["embed"][lo:lo + n].T
     else:
         head = params["embed"].T if cfg.tie_embeddings \
             else params["lm_head"]
@@ -124,9 +141,13 @@ def remat(cfg: ModelConfig, block, x, *args):
     ``cfg.remat`` is set and autograd records (the JAX package's
     per-layer ``jax.checkpoint``): the backward recomputes the block's
     activations instead of keeping them. Tensors the block closes over
-    get their gradients too (non-reentrant checkpoint)."""
+    get their gradients too (non-reentrant checkpoint). The recompute
+    runs on the mesh the forward ran on (``layers.in_mesh_ctx``): in the
+    train layout it gathers the layer's weights again, in the same order
+    on every rank."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(block, x, *args, use_reentrant=False)
+        return checkpoint(in_mesh_ctx(block), x, *args,
+                          use_reentrant=False)
     return block(x, *args)
 
 
@@ -144,9 +165,10 @@ def attn_block(cfg: ModelConfig, lp: dict, x, *, positions,
     hd = cfg.head_dim
     ctx = mesh_ctx()
     gather = _gathers_q(cfg, ctx)
+    x = column_input(x, "heads")
     q = x @ lp[f"w{prefix}q"]
     if gather:
-        q = ctx.mesh.all_gather(q, "model", dim=-1)
+        q = ctx.all_gather(q, "model", dim=-1)
     q = q.reshape(B, S, -1, hd)
     if kv is None:
         k = (x @ lp[f"w{prefix}k"]).reshape(B, S, -1, hd)
@@ -187,6 +209,7 @@ def _own_columns(o, ctx):
 
 def dense_block(cfg: ModelConfig, lp: dict, x, *, positions,
                 attn_impl: str = "flash"):
+    lp = gather_layer(lp)           # FSDP: whole over 'data' (train layout)
     x = x + attn_block(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps),
                        positions=positions, attn_impl=attn_impl)
     return x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["wi_gate"],

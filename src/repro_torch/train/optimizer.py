@@ -7,6 +7,16 @@ update is functional, as in JAX: ``adamw_update`` returns new parameters
 and a new state and leaves its inputs as they were. The moments ``m`` and
 ``v`` are fp32 whatever the parameter's dtype; the update is made in fp32
 and cast back to the parameter's dtype.
+
+On a mesh (``mesh`` and ``pspecs``, the train layout's spec of every
+leaf) each leaf is this rank's block and ``m``, ``v`` and ``err`` are
+cut like it (ZeRO: FSDP parameters, FSDP optimizer states); the update
+of a block is the update of its elements. Two quantities span blocks:
+``global_norm`` sums each leaf's squares once (a ``psum`` over the axes
+the leaf is cut on, never over one it is whole on), and
+``grad_compress`` quantizes with the leaf's global amax (a ``pmax`` over
+its cut axes), so each element rounds as the unsharded update rounds
+it. Every rank ends with the same norm.
 """
 from __future__ import annotations
 
@@ -40,10 +50,23 @@ def tree_map(fn, tree, *rest):
 
 
 def tree_leaves(tree) -> list:
-    """The leaves in sorted-key order (the JAX tree order)."""
+    """The leaves in sorted-key order (the JAX tree order); anything but
+    a dict is a leaf (a spec tree's are tuples)."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_unflatten(like, leaves: list):
+    """Nested dicts of ``like``'s structure over ``leaves`` (sorted-key
+    order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+    return build(like)
 
 
 def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
@@ -70,17 +93,53 @@ def init_opt_state(params, cfg: AdamWConfig) -> dict:
     return state
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(x.float() ** 2)
-                          for x in tree_leaves(tree)))
+def cut_axes(mesh, spec) -> tuple:
+    """The axes of ``mesh`` (more than one rank each) that ``spec`` cuts
+    a leaf over, in the mesh's order; () on one device."""
+    if mesh is None or spec is None:
+        return ()
+    named = set()
+    for entry in spec:
+        named.update(entry if isinstance(entry, (tuple, list)) else
+                     (entry,))
+    return tuple(a for a in mesh.axis_names
+                 if a in named and mesh.axis_size(a) > 1)
+
+
+def reduce_by_axes(values: list, axes: list, mesh, op: str):
+    """Each ``values[i]`` (a 0-d fp32 tensor) reduced by ``op`` ("psum"
+    or "pmax") over the axes ``axes[i]``: one collective per mesh axis
+    for all the values that axis reduces. Returns the list."""
+    values = list(values)
+    for a in ([] if mesh is None else mesh.axis_names):
+        sel = [i for i, ax in enumerate(axes) if a in ax]
+        if not sel:
+            continue
+        red = getattr(mesh, op)(torch.stack([values[i] for i in sel]), a)
+        for j, i in enumerate(sel):
+            values[i] = red[j]
+    return values
+
+
+def global_norm(tree, mesh=None, pspecs=None) -> torch.Tensor:
+    """The L2 norm of every leaf's elements; on a mesh, of the whole
+    leaves, each block's squares summed over the axes its leaf is cut
+    on."""
+    sq = [torch.sum(x.float() ** 2) for x in tree_leaves(tree)]
+    if mesh is not None:
+        axes = [cut_axes(mesh, s) for s in tree_leaves(pspecs)]
+        sq = reduce_by_axes(sq, axes, mesh, "psum")
+    return torch.sqrt(sum(sq))
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
+def adamw_update(params, grads, state: dict, cfg: AdamWConfig, *,
+                 mesh=None, pspecs=None):
     """Returns (new_params, new_state, grad_norm); the norm is taken
-    before clipping."""
+    before clipping. On a ``mesh``, every tree holds this rank's blocks
+    under ``pspecs`` (a tree like ``params``)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, pspecs)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0) \
         if cfg.clip_norm else None
 
@@ -93,7 +152,7 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     if cfg.grad_compress:
         from .grad_compress import compress_decompress
         grads, new_err = compress_decompress(tree_map(clipped, grads),
-                                             state["err"])
+                                             state["err"], mesh, pspecs)
         scale = None
 
     lr = lr_at(cfg, step)

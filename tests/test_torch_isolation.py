@@ -169,3 +169,32 @@ def test_the_mesh_modules_are_among_those_checked():
         assert path.is_file()
         for mod in _imports(path):
             assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
+
+
+def test_the_training_mesh_modules_are_among_those_checked():
+    """Training on a mesh and its driver (the differentiable
+    collectives, ``launch/train.py``) are walked by the import probe
+    above and have their own source checks; the driver's ranks import
+    the port alone."""
+    import pkgutil
+    import repro_torch
+    mods = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                  "repro_torch.")}
+    for name in ("repro_torch.launch.collectives",
+                 "repro_torch.launch.train",
+                 "repro_torch.train.train_loop",
+                 "repro_torch.train.checkpoint"):
+        assert name in mods, name
+        path = ROOT / "src" / (name.replace(".", "/") + ".py")
+        for mod in _imports(path):
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, repro_torch.launch.train as t, "
+         "repro_torch.launch.collectives\n"
+         "bad = [k for k in sys.modules if k.split('.')[0] in "
+         "('jax', 'jaxlib', 'repro')]\n"
+         "print(','.join(bad))"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "", r.stdout + r.stderr

@@ -188,9 +188,19 @@ def test_a_mesh_is_refused_for_other_families(family):
 
 
 def test_a_mesh_is_refused_for_training():
+    """Training on a mesh takes the dense and moe families (held in
+    ``tests/test_torch_train_mesh.py``); what stays open is refused: the
+    other families, and experts that do not divide 'model'."""
     mesh = Mesh((1, 2), ("data", "model"), rank=0)
+    make_train_step(CFG, mesh)
+    for family in ("ssm", "hybrid", "encdec", "vlm"):
+        cfg = ModelConfig(**dataclasses.asdict(tiny(family)))
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 3"):
+            make_train_step(cfg, mesh)
+    moe3 = ModelConfig(**dataclasses.asdict(tiny("moe", n_experts=3)))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        make_train_step(CFG, mesh)
+        make_train_step(moe3, mesh)
 
 
 def test_a_mesh_with_lanes_over_data_is_refused_by_the_engine():
