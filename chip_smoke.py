@@ -283,13 +283,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    whose 4 KV heads take the sequence-sharded decode through the partial
    kernel, refused by the service (lock-step) and round-tripped by the
    grouped decoder, with the model dtype's cache and again with the
-   int8 cache. Each round trip byte-exact on every rank, every rank's
+   int8 cache; then (24d-g, the same TP 2 world) ``mamba2-130m`` whole
+   (12 of 24 SSD heads a rank), ``zamba2-7b`` cut to 14 layers (56 of
+   112 SSD heads, one application of the shared block),
+   ``whisper-large-v3`` whole (its encoder on 16 of 32 heads, a rank's
+   16 KV heads of the one cross source) and ``llava-next-34b`` cut to 4
+   layers (scored under its 576-position image), through the service.
+   Each round trip byte-exact on every rank, every rank's
    archives equal to rank 0's (``Mesh.agree``), each rank's launches
-   printed and the path's kernels required, the host ms a model step
-   takes; scoring (the score step's forward, one ``flash_attention`` a
-   layer) against the decode steps; on rank 0 the
+   printed and the path's kernels required, the host ms and the
+   collectives a model step takes; scoring (the score step's forward,
+   its ``flash_attention`` and ``ssd_intra`` launches counted and
+   required) against the decode steps (24a-c) or against the unsharded
+   scoring (24d-g); on rank 0 the
    sharded decode against the unsharded one on the same weights
-   (SCORE_TOL; granite through its fp32 twin; pred-base SCORE_TOL_FP32)
+   (SCORE_TOL; granite, mamba2 and zamba2 through their fp32 twins,
+   and mamba2's and zamba2's fp32 twins at TP 2, on every rank, against
+   the unsharded twin at SCORE_TOL_FP32; pred-base SCORE_TOL_FP32)
    with the share of equal top-48 ids printed. None of these times is a
    measure of tensor parallelism over NCCL on separate cards
    (``python -m repro_torch.launch.mesh_probe`` profiles such steps and
@@ -322,7 +332,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    config, ``launches_phase18``, ``launches_moe`` per phase 19-20
    config, ``launches_phase21_22`` per phase 21-22 config and
    ``launches_phase23``, phase 23's kernel forwards per config;
-   ``launches_phase24`` per phase 24 config, rank 0's;
+   ``launches_phase24`` per phase 24 config, rank 0's, and
+   ``launches_phase24_scoring``, its scoring's;
    ``launches_phase25``, 25c's round trips at TP 2 (rank 0) and
    unsharded; the partial form's ``launches`` from 24c), then the
    card's name and power limit again (the tail of a long log keeps
@@ -1169,6 +1180,20 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
          (probe_chunks, 32) + zssm + (bf, gen)),
         ("ssd_intra@zamba2-prefix32", check_ssd,
          (16, S + 32) + zssm + (bf, gen)),
+        # phase 24d-g's local shapes at TP 2: a rank's SSD heads
+        # (mamba2-130m 12 of 24, zamba2-7b 56 of 112), whisper's encoder
+        # over a rank's 16 of 32 heads, and its cross-source decode over
+        # a rank's 16 KV heads (one source, stride 0 over the lanes)
+        ("ssd_intra@24d", check_ssd,
+         (16, S, ssm[0] // 2) + ssm[1:] + (bf, gen)),
+        ("ssd_intra@24e", check_ssd,
+         (16, S, zssm[0] // 2) + zssm[1:] + (bf, gen)),
+        ("flash_attention@24f-encoder", check_flash,
+         (1, whisper[0] // 2, whisper[1] // 2, Se, whisper[2], bf, gen,
+          None, False)),
+        ("decode_attention@24f-cross", check_attention,
+         ((16, whisper[0] // 2, whisper[1] // 2, whisper[2], Se), bf, gen,
+          True)),
     ]:
         r = fn(*args)
         res[name] = r
@@ -3615,6 +3640,21 @@ MESH_CONFIGS = (
     ("24b", "granite-moe-1b-a400m", 2,
      (("wiki", 8, 1), ("code", 6, 2), ("web", 7, 3), ("math", 5, 4)),
      128, 8))
+#: 24d-g: the ssm, hybrid, encdec and vlm families at TP 2 in
+#: the same world, through the service: mamba2-130m whole (12 of 24 SSD
+#: heads a rank, conv channels 768 + 256), zamba2-7b cut to 14 of 81
+#: layers (13 SSD layers, one application of the shared block, one
+#: trailing: 56 of 112 SSD heads, 16 of 32 attention heads),
+#: whisper-large-v3 whole (16 of 32 heads; the cross K/V one copy of
+#: 196.5 MB a rank that all lanes read) and llava-next-34b cut to 4 of
+#: 60 layers (32 of 64 heads, 4 of 8 KV heads; scored under its
+#: 576-position image)
+MESH_FAMILY_JOBS = (("wiki", 16, 1), ("code", 12, 2), ("web", 14, 3))
+MESH_CONFIGS += (
+    ("24d", "mamba2-130m", 2, MESH_FAMILY_JOBS, 128, 8),
+    ("24e", "zamba2-7b@14", 2, MESH_FAMILY_JOBS, 128, 8),
+    ("24f", "whisper-large-v3", 2, MESH_FAMILY_JOBS, 128, 8),
+    ("24g", "llava-next-34b@4", 2, MESH_FAMILY_JOBS, 128, 8))
 MESH_SEQ = ("24c", "pred-base", 8, (("wiki", 256, 5),), 16, 16)
 MESH_SEQ_INT8 = ("24c-int8", "pred-base+int8", 8, (("code", 16, 6),), 16,
                  0)
@@ -3647,41 +3687,70 @@ def _mesh_logits(pred, chunks):
 
 
 def _layout(pred) -> str:
-    """This rank's blocks: q heads, KV heads, vocabulary columns and
-    experts."""
+    """This rank's blocks: q heads, KV heads, SSD heads and conv
+    channels, vocabulary columns and experts."""
     from repro_torch.serve.steps import vocab_sharded
     cfg, p = pred.cfg, pred.params
-    lay = p["layers"]
     vocab = p["lm_head"].shape[-1] if "lm_head" in p else \
         p["embed"].shape[0]
     if vocab_sharded(cfg, pred.mesh) and cfg.tie_embeddings:
         vocab //= pred.mesh.shape["model"]
-    out = (f"{lay['wq'].shape[-1] // cfg.head_dim} of {cfg.padded_heads} "
-           f"q heads, {lay['wk'].shape[-1] // cfg.head_dim} of "
-           f"{cfg.padded_kv_heads} KV heads, {vocab} of {cfg.padded_vocab} "
-           f"vocabulary columns")
+    parts = []
+    if cfg.family in ("ssm", "hybrid"):
+        lay = p["layers"]
+        di = lay["in_x"].shape[-1]
+        parts.append(f"{lay['A_log'].shape[-1]} of {cfg.ssm_heads} SSD "
+                     f"heads, conv channels {di} + {2 * cfg.ssm_state}")
+    attn = {"ssm": None, "hybrid": "shared_attn",
+            "encdec": "dec_layers"}.get(cfg.family, "layers")
+    if attn:
+        lay = p[attn]
+        parts.append(f"{lay['wq'].shape[-1] // cfg.head_dim} of "
+                     f"{cfg.padded_heads} q heads, "
+                     f"{lay['wk'].shape[-1] // cfg.head_dim} of "
+                     f"{cfg.padded_kv_heads} KV heads")
+    parts.append(f"{vocab} of {cfg.padded_vocab} vocabulary columns")
     if cfg.family == "moe":
-        out += f", {lay['we_gate'].shape[1]} of {cfg.n_experts} experts"
-    return out
+        parts.append(f"{p['layers']['we_gate'].shape[1]} of "
+                     f"{cfg.n_experts} experts")
+    return ", ".join(parts)
+
+
+def _mesh_conditioning(cfg) -> dict:
+    """The conditioning a phase 24 predictor serves under: llava's image
+    (16 lanes x 576 positions, drawn from seed 1; scoring reads it, the
+    decode step does not); whisper's frames come from ``random_init``'s
+    stub frontend (one source for every lane)."""
+    from repro_torch.models.api import stub_inputs
+    if cfg.family != "vlm":
+        return {}
+    return stub_inputs(cfg, 16, seed=1, device="cuda")
 
 
 def mesh_rank(mesh, spec: str, texts: list, chunk: int,
               check_len: int) -> dict:
     """Phase 24 on one rank of ``mesh`` for config ``spec`` (random
-    weights from seed 0, this rank's blocks drawn leaf by leaf). The main
-    path, launch counts reset just before and read just after: a
+    weights from seed 0, this rank's blocks drawn leaf by leaf; llava
+    under its image, whisper under its stub frames). The main path,
+    launch counts reset just before and read just after: a
     ``CompressionService`` round trip (16 slots, ``chunk``, top 48,
     decompressed in another order) where the decode is per-lane; else
     the service's lock-step refusal and ``LLMCompressor``'s grouped
     decoder (decode_batch 16) both ways. Byte identity on every rank, and
-    every rank's archives rank 0's. Then, outside the counted window:
-    teacher-forced scoring (the score step's forward) against the decode steps
-    on 16 x ``check_len`` positions (not for an int8 cache, whose scoring
-    forward is the model dtype's); and on rank 0, the sharded decode
-    against the unsharded one on the same weights (the whole model drawn
-    from the seed), through an unsharded fp32 twin for moe (router
-    near-ties, as in phases 19-20); no comparisons at ``check_len`` 0.
-    Returns rank 0's numbers; each rank logs its own launches."""
+    every rank's archives rank 0's; the collectives a model step makes.
+    Then, outside the counted window: teacher-forced scoring (the score
+    step's forward; its launches counted, every kernel of the family's
+    forward required, not for an int8 cache, whose scoring forward is
+    the model dtype's) on 16 x ``check_len`` positions, against the
+    decode steps (24a-c) or, for the families of 24d-g, against the
+    unsharded scoring; and on rank 0, the sharded decode against the
+    unsharded one on the same weights (the whole model drawn from the
+    seed), through an unsharded fp32 twin for moe (router near-ties, as
+    in phases 19-20) and for mamba2 and zamba2 (bf16 drift, as in phases
+    9 and 16; their fp32 twins at TP 2, built on every rank, held to
+    the unsharded fp32 twin at SCORE_TOL_FP32); no comparisons at
+    ``check_len`` 0. Returns rank 0's numbers; each rank logs its own
+    launches."""
     import numpy as np
     import torch
     from repro_torch.core import LLMCompressor
@@ -3694,9 +3763,11 @@ def mesh_rank(mesh, spec: str, texts: list, chunk: int,
     cfg = config(spec)
     tp = mesh.shape["model"]
     cut = vocab_sharded(cfg, mesh)
+    family_cell = cfg.family in ("ssm", "hybrid", "encdec", "vlm")
     me = f"[mesh] {spec} TP {tp} rank {mesh.rank}"
     t0 = time.perf_counter()
-    pred = ModelPredictor.random_init(cfg, seed=0, mesh=mesh)
+    pred = ModelPredictor.random_init(cfg, seed=0, mesh=mesh,
+                                      extra_batch=_mesh_conditioning(cfg))
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     if mesh.rank == 0:
@@ -3709,6 +3780,7 @@ def mesh_rank(mesh, spec: str, texts: list, chunk: int,
     out = dict(layout=_layout(pred), lockstep=pred.lockstep, n_tok=n_tok)
     ops.reset_launches()
     torch.cuda.synchronize()
+    calls0 = mesh.calls
     t0 = time.perf_counter()
     if not pred.lockstep:
         svc = CompressionService(pred, slots=16, chunk_size=chunk, topk=48)
@@ -3740,15 +3812,20 @@ def mesh_rank(mesh, spec: str, texts: list, chunk: int,
                         for t in toks)
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
+    calls = mesh.calls - calls0
     launches = {k: v for k, v in ops.LAUNCHES.items() if v}
     log(f"{me}: launches on the main path {launches}")
     for i, t in enumerate(toks):
         if not np.array_equal(outs[i], t):
             fail(f"{me}: job {i} differs after the round trip")
-    attn = ("decode_attention_partial" + ("_int8" if cfg.kv_cache_dtype
-                                          == "int8" else "")) \
-        if pred.lockstep else attn_kernel(cfg)
-    for k in [attn] + ([] if cut else ["topk_cdf"]):
+    need = [k for k in decode_kernels(cfg) if k != "topk_cdf" or not cut]
+    if pred.lockstep:
+        need = ["decode_attention_partial" + (
+            "_int8" if cfg.kv_cache_dtype == "int8" else "")] \
+            + ([] if cut else ["topk_cdf"])
+    if cfg.family == "encdec":      # the encoder in each begin_decode
+        need.append("flash_attention")
+    for k in need:
         if launches.get(k, 0) <= 0:
             fail(f"{me}: the main path launched {k} no time")
     if not mesh.agree(b"".join(blobs)):
@@ -3756,13 +3833,15 @@ def mesh_rank(mesh, spec: str, texts: list, chunk: int,
     nbytes = sum(len(b) for b in blobs)
     out.update(launches=dict(ops.LAUNCHES), round_trip_s=t_all,
                compress_s=t_c, model_steps=steps,
-               step_ms=t_all / max(1, steps) * 1e3, bytes=nbytes)
+               step_ms=t_all / max(1, steps) * 1e3, bytes=nbytes,
+               collectives=calls,
+               collectives_per_step=calls / max(1, steps))
     if mesh.rank == 0:
         log(f"{me}: round trip of {len(toks)} jobs ({n_tok} tokens -> "
             f"{nbytes} B) byte-exact on every rank, every rank's archives "
             f"rank 0's; {t_all:.1f} s for {steps} model steps "
             f"({out['step_ms']:.1f} ms a step with the coder, eager, "
-            f"gloo)")
+            f"gloo; {out['collectives_per_step']:.1f} collectives a step)")
     marks = {"init": t_init, "round trip": t_all}
     out["seconds"] = marks
     if not check_len:
@@ -3776,31 +3855,60 @@ def mesh_rank(mesh, spec: str, texts: list, chunk: int,
     if not int8:
         ops.reset_launches()
         scored = full_logits(pred.score_chunks(chunks)).clone()
-        n_flash = ops.LAUNCHES["flash_attention"]
-        if n_flash != attention_blocks(cfg):
-            fail(f"{me}: scoring launched flash_attention {n_flash} times, "
-                 f"not once a layer")
+        torch.cuda.synchronize()
+        out["score_launches"] = {k: v for k, v in ops.LAUNCHES.items()
+                                 if v}
+        _check_score_launches(cfg, ops.LAUNCHES, f"{me}: scoring")
+        if mesh.rank == 0:
+            log(f"{me}: scoring's launches {out['score_launches']}")
     del pred
     _free_card()
+    tw_dec = tw_score = None
+    if cfg.family in ("ssm", "hybrid"):
+        # the fp32 twin at TP 2, on every rank
+        tw = ModelPredictor.random_init(cfg.with_(dtype="float32"), seed=0,
+                                        mesh=mesh)
+        tw_dec = _mesh_logits(tw, chunks)
+        tw_score = full_logits(tw.score_chunks(chunks)).clone()
+        del tw
+        _free_card()
     marks["scoring and decode checks"] = time.perf_counter() - t0
     if mesh.rank != 0:
         return out
     t0 = time.perf_counter()
-    twin = None
-    if cfg.family == "moe" and cfg.dtype != "float32":
+    twin = twin_score = None
+    if (cfg.family == "moe" or tw_dec is not None) \
+            and cfg.dtype != "float32":
         tw = ModelPredictor.random_init(cfg.with_(dtype="float32"), seed=0)
         twin = _mesh_logits(tw, chunks)
+        if tw_dec is not None:
+            twin_score = tw.score_chunks(chunks).clone()
         del tw
         _free_card()
     tol = SCORE_TOL_FP32 if cfg.dtype == "float32" else SCORE_TOL
-    if not int8:
-        out["score"] = _compare_logits(
-            f"24 {spec} TP {tp}: scoring vs decode", scored, decoded,
-            tol=tol, fp32_twin=twin)
-    full = ModelPredictor.random_init(cfg, seed=0)
+    if tw_dec is not None:
+        out["fp32_vs_unsharded"] = _compare_logits(
+            f"24 {spec} fp32 twin: TP {tp} decode vs the unsharded decode",
+            tw_dec, twin, tol=SCORE_TOL_FP32)
+        out["fp32_score_vs_unsharded"] = _compare_logits(
+            f"24 {spec} fp32 twin: TP {tp} scoring vs the unsharded "
+            f"scoring", tw_score, twin_score, tol=SCORE_TOL_FP32)
+    full = ModelPredictor.random_init(cfg, seed=0,
+                                      extra_batch=_mesh_conditioning(cfg))
     whole = _mesh_logits(full, chunks)
+    whole_score = full.score_chunks(chunks).clone() if family_cell \
+        else None
     del full
     _free_card()
+    if not int8:
+        if family_cell:
+            out["score"] = _compare_logits(
+                f"24 {spec}: TP {tp} scoring vs the unsharded scoring",
+                scored, whole_score, tol=tol, fp32_twin=twin_score)
+        else:
+            out["score"] = _compare_logits(
+                f"24 {spec} TP {tp}: scoring vs decode", scored, decoded,
+                tol=tol, fp32_twin=twin)
     out["vs_unsharded"] = _compare_logits(
         f"24 {spec}: TP {tp} decode vs the unsharded decode", decoded,
         whole, tol=tol, fp32_twin=twin)
@@ -3836,7 +3944,7 @@ def mesh_world(mesh, configs) -> dict:
 def phase_mesh() -> dict:
     """Phase 24: serving on a mesh (``launch.mesh.run_ranks``: one process
     a rank, all on the one card over gloo, the only backend that lets
-    ranks share a device). 24a and 24b in one world of 2 ranks, 24c (and
+    ranks share a device). 24a-b and 24d-g in one world of 2 ranks, 24c (and
     its int8-cache twin) in one of 8. Returns {phase: rank 0's
     results}."""
     from repro_torch.launch.mesh import run_ranks
@@ -3844,7 +3952,8 @@ def phase_mesh() -> dict:
     t0 = time.perf_counter()
     out.update(run_ranks(mesh_world, (1, 2), backend="gloo", device="cuda",
                          args=(MESH_CONFIGS,), timeout=900))
-    log(f"[time] 24a-b TP 2 world: {time.perf_counter() - t0:.1f} s")
+    log(f"[time] 24a-b, 24d-g TP 2 world: "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     out.update(run_ranks(mesh_world, (1, MESH_SEQ[2]), backend="gloo",
                          device="cuda", args=((MESH_SEQ, MESH_SEQ_INT8),),
@@ -4407,6 +4516,11 @@ def main() -> int:
                # phase 24's round trips on a mesh, rank 0's counts
                "launches_phase24": {a: int(d["launches"].get(name, 0))
                                     for a, d in mesh.items()},
+               # phase 24's scoring on the mesh (the score step's
+               # forward), rank 0's: 24d-g's ssd_intra at a rank's heads
+               "launches_phase24_scoring": {
+                   a: int(d.get("score_launches", {}).get(name, 0))
+                   for a, d in mesh.items()},
                # phase 25c's round trips of the trained checkpoint (rank
                # 0's at TP 2, and unsharded); 25a-b's steps launch none
                "launches_phase25": {

@@ -1,7 +1,8 @@
 """Time a mesh's collectives and decode steps where the ranks run:
 
     python -m repro_torch.launch.mesh_probe [--ranks 2 8]
-        [--step qwen3-14b@8:2 ...] [--backend gloo] [--device cuda]
+        [--step qwen3-14b@8:2 --step zamba2-7b@14:2 ...] [--backend gloo]
+        [--device cuda]
         [--iters 50]
 
 For each world size of ``--ranks``, ``run_ranks`` starts the ranks (all
@@ -12,9 +13,11 @@ row-parallel product at qwen3-14b's width), an ``all_gather`` of
 width) and a device-to-host synchronisation alone.
 
 Each ``--step NAME[@LAYERS]:TP`` builds that config (random weights from
-seed 0, cut to LAYERS layers if given) on a (1, TP) mesh and times a
+seed 0, cut to LAYERS layers if given; any family: an encdec model
+decodes against its stub frontend's frames, whose cross K/V
+``begin_decode`` writes) on a (1, TP) mesh and times a
 decode step of 16 lanes with its top-48 CDF moved to the host (what a
-coder step waits for): host ms over a few steps, then, under
+coder step waits for): host ms and collectives over a few steps, then, under
 ``torch.profiler``, the rank's compute kernels' device ms (the gloo
 staging copies apart, which include waits for the other ranks' work on
 a shared card), their count and the idle share. Rank 0's numbers, one
@@ -80,11 +83,13 @@ def _step(mesh, spec: str, iters: int) -> dict:
     sync = torch.cuda.synchronize if mesh.device.type == "cuda" \
         else (lambda: None)
     sync()
+    calls = mesh.calls
     t0 = time.perf_counter()
     for _ in range(iters):
         step()
     sync()
     host = (time.perf_counter() - t0) / iters * 1e3
+    calls = (mesh.calls - calls) / iters
     acts = [ProfilerActivity.CUDA] if mesh.device.type == "cuda" \
         else [ProfilerActivity.CPU]
     with profile(activities=acts) as prof:
@@ -99,6 +104,7 @@ def _step(mesh, spec: str, iters: int) -> dict:
     copy_ms = sum(e.self_device_time_total for e in ev
                   if e.key.startswith("Memcpy")) / 1e3 / iters
     return dict(step=spec, tp=mesh.shape["model"], host_ms=host,
+                collectives=calls,
                 kernel_ms=kern_ms or None, copy_ms=copy_ms,
                 kernels=sum(e.count for e in kernels) / iters,
                 idle=1 - kern_ms / host if kern_ms else None)

@@ -67,19 +67,21 @@ def stub_inputs(cfg: ModelConfig, batch: int = 1, *, seed: int = 0,
     return {rows[0]: x.to(transformer.torch_dtype(cfg.dtype))}
 
 
-#: the families the port runs on a mesh (tensor and expert parallelism,
-#: serving and training)
-MESH_FAMILIES = ("dense", "moe")
+#: the families the port trains on a mesh (the train layout); every
+#: family serves on one
+TRAIN_MESH_FAMILIES = ("dense", "moe")
 
 
-def check_mesh(cfg: ModelConfig, mesh) -> None:
-    """Refuse a mesh for a family the port does not shard yet."""
+def check_mesh(cfg: ModelConfig, mesh, *, train: bool = False) -> None:
+    """Refuse an unknown family, and a mesh for training (``train``) a
+    family outside ``TRAIN_MESH_FAMILIES``."""
     module_for(cfg)
-    if mesh is not None and cfg.family not in MESH_FAMILIES:
+    if mesh is not None and train and cfg.family not in TRAIN_MESH_FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family} family on a mesh: the port serves and "
-            f"trains {' and '.join(MESH_FAMILIES)} on a mesh; ssm, hybrid, "
-            f"encdec and vlm on a mesh are ROADMAP Queue 1 item 3")
+            f"training the {cfg.family} family on a mesh: the port trains "
+            f"{' and '.join(TRAIN_MESH_FAMILIES)} on a mesh (and serves "
+            f"every family there); ssm, hybrid, encdec and vlm training "
+            f"on a mesh are ROADMAP Queue 1 item 3")
 
 
 def _gather_top(params: dict, ctx) -> dict:
@@ -111,14 +113,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     """A zeroed decode cache; ``kw`` is the family's own (encdec:
     ``source_len`` and ``lanes`` of its cross-attention K/V). On a
     ``mesh``: this rank's block of the cache of ``batch`` lanes
-    (``sharding.specs.cache_pspecs``), allocated at its own shapes; a
-    sequence cut over the batch axes (a batch that does not divide
-    them) is refused."""
+    (``sharding.specs.cache_pspecs``), allocated at its own shapes
+    (``sharding.specs.cache_local_shapes``: mamba2's ``conv`` in the
+    port's layout, the encdec cross K/V of one source whole along the
+    lanes); a sequence cut over the batch axes (a batch that does not
+    divide them) is refused."""
     mod = module_for(cfg)
     if mesh is None:
         return mod.init_cache(cfg, batch, max_len, dtype, device, **kw)
     check_mesh(cfg, mesh)
-    seq = specs.cache_pspecs(cfg, mesh, batch=batch)["k"][2]
+    seq = specs.cache_pspecs(cfg, mesh, batch=batch).get("k", (None,) * 3)[2]
     if seq not in (None, "model"):
         raise NotImplementedError(
             f"a cache of {batch} lanes on {mesh.shape}: the batch does not "
@@ -140,6 +144,22 @@ def decode_step(params, cfg: ModelConfig, cache, prev_tokens, *, mesh=None,
     check_mesh(cfg, mesh)
     with mesh_context(mesh, cfg, batch_sharded=batch_sharded):
         return module_for(cfg).decode_step(params, cfg, cache, prev_tokens)
+
+
+@torch.no_grad()
+def write_conditioning(params, cfg: ModelConfig, cache, extra: dict, *,
+                       mesh=None, batch_sharded: bool = False) -> None:
+    """Write the per-job conditioning of ``extra`` into ``cache`` in
+    place: the encdec cross K/V of ``extra["frames"]`` (``lanes``,
+    S_enc, D), encoded at their own batch (``encdec.write_cross_kv``);
+    nothing for the other families (the vlm image reaches scoring only).
+    On a ``mesh``, this rank's block of the cache and its rows of the
+    frames (``batch_sharded``), or the one source all lanes read."""
+    if cfg.family != "encdec":
+        return
+    with mesh_context(mesh, cfg, batch_sharded=batch_sharded):
+        encdec.write_cross_kv(params, cfg, cache["xk"], cache["xv"],
+                              extra["frames"])
 
 
 def rollback_leaves(cfg: ModelConfig) -> tuple[str, ...]:
@@ -216,7 +236,7 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0,
     train step sums them over the axes a leaf is whole on
     (``train/train_loop.py``)."""
     module_for(cfg)                     # an unknown family raises here
-    check_mesh(cfg, mesh)
+    check_mesh(cfg, mesh, train=True)
     train_kw = TRAIN_FORWARD[cfg.family]
     tokens = batch["tokens"]
     targets = F.pad(tokens[:, 1:], (0, 1))
@@ -248,8 +268,9 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0,
     return tot[0] / tot[1].clamp(min=1.0)
 
 
-__all__ = ["forward", "loss_fn", "MESH_FAMILIES", "check_mesh",
+__all__ = ["forward", "loss_fn", "TRAIN_MESH_FAMILIES", "check_mesh",
            "TRAIN_FORWARD", "init_cache", "decode_step",
            "rollback_leaves", "ring_leaves", "conditioning_leaves",
+           "write_conditioning",
            "module_for", "stub_inputs", "init_params", "from_jax",
            "count_params", "schema"]

@@ -23,6 +23,21 @@ precomputed frame embeddings (B, S_enc, D) over as ``frames``.
   every step attends whole (every lane's length is S_enc, as the JAX
   step's ``pos = S_enc - 1``).
 
+On a mesh (``layers.mesh_context``, the serve layout) each block runs as
+the dense family's does on its heads (``transformer.attn_block``; the
+encoder's non-causal flash over the rank's heads), its MLP columns and
+``tp_down_proj``'s sums over 'model'. The cross K/V of a rank are its
+KV heads' block of the one shared source (``cross_kv``: its columns of
+``wxk``/``wxv``), which a decode step attends with its q heads, summed
+over 'model' after ``wxo``. Where the KV heads do not divide 'model'
+(JAX's ``cache_pspecs`` then cuts ``xk``/``xv`` along the source), a
+rank holds its slice of the source positions, every KV head: the step
+runs the partial decode kernel over it with all q heads and combines
+the ranks' partials by their LSE (``transformer.combine_partials``), as
+the sequence-sharded self cache does. Every source position is written
+before the first step, so the cross cache needs no lock-step of its
+own.
+
 The cross K/V are per-job conditioning, not per-lane context: a lane
 reset, a prefix-cache snapshot or restore and a speculative rollback
 leave them as they are (``CONDITIONING_LEAVES``), as the JAX engine's
@@ -43,10 +58,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from .layers import rms_norm, swiglu
-from .transformer import (ATTN_IMPLS, _decode_attn_one, attn_block,
-                          check_impl, embed_tokens, lm_logits, remat,
-                          torch_dtype)
+from .layers import column_input, mesh_ctx, rms_norm, swiglu, tp_down_proj
+from .transformer import (ATTN_IMPLS, _decode_attn_one, _own_columns,
+                          attn_block, check_impl, combine_partials,
+                          embed_tokens, lm_logits, remat, torch_dtype)
 
 #: the cache leaves a speculative rollback restores per lane, whole: only
 #: ``pos`` (the self-attention K/V past it are hidden and overwritten;
@@ -96,7 +111,7 @@ def encode(params, cfg: ModelConfig, frames, attn_impl: str = "flash"):
                            positions=None, attn_impl=attn_impl,
                            causal=False)
         return x + swiglu(rms_norm(x, lp["ln2"], eps), lp["wi_gate"],
-                          lp["wi_up"], lp["wo_mlp"])
+                          lp["wi_up"], lp["wo_mlp"], reduce="mlp")
     for layer in range(cfg.n_enc_layers):
         x = remat(cfg, block, x, _layer(params["enc_layers"], layer))
     return rms_norm(x, params["enc_final_norm"], eps)
@@ -104,11 +119,29 @@ def encode(params, cfg: ModelConfig, frames, attn_impl: str = "flash"):
 
 def cross_kv(cfg: ModelConfig, lp: dict, enc):
     """One decoder layer's cross-attention K and V of encoder states enc
-    (B, S_enc, D): each (B, S_enc, K, hd)."""
+    (B, S_enc, D): each (B, S_enc, K, hd) (on a mesh that cuts the KV
+    heads, this rank's K / tp)."""
     B, Se, _ = enc.shape
-    Kp, hd = cfg.padded_kv_heads, cfg.head_dim
-    return ((enc @ lp["wxk"]).reshape(B, Se, Kp, hd),
-            (enc @ lp["wxv"]).reshape(B, Se, Kp, hd))
+    hd = cfg.head_dim
+    enc = column_input(enc, "kv_heads")
+    return ((enc @ lp["wxk"]).reshape(B, Se, -1, hd),
+            (enc @ lp["wxv"]).reshape(B, Se, -1, hd))
+
+
+def source_cut(ctx=None) -> bool:
+    """Whether the cross K/V on the mesh ``ctx`` (default: the active
+    one) are cut along the source positions: 'model' has more than one
+    rank and does not divide the KV heads (JAX's ``cache_pspecs``)."""
+    ctx = mesh_ctx() if ctx is None else ctx
+    return ctx is not None and ctx.tp > 1 and not ctx.cut("kv_heads")
+
+
+def _own_source(k, n: int):
+    """This rank's ``n`` source positions of ``k`` (B, S_enc, K, hd)
+    where the cross K/V are cut along the source, else ``k``."""
+    if not source_cut():
+        return k
+    return k.narrow(1, mesh_ctx().mesh.axis_index("model") * n, n)
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *,
@@ -137,7 +170,7 @@ def forward(params, cfg: ModelConfig, batch: dict, *,
                            positions=None, attn_impl=attn_impl, prefix="x",
                            kv=kv, causal=False)
         return x + swiglu(rms_norm(x, lp["ln2"], eps), lp["wi_gate"],
-                          lp["wi_up"], lp["wo_mlp"])
+                          lp["wi_up"], lp["wo_mlp"], reduce="mlp")
     for layer in range(cfg.n_layers):
         x = remat(cfg, block, x, _layer(params["dec_layers"], layer))
     x = rms_norm(x, params["final_norm"], eps)
@@ -170,12 +203,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 def write_cross_kv(params, cfg: ModelConfig, xk, xv, frames) -> None:
     """Encode ``frames`` (lanes, S_enc, D) once and write every decoder
     layer's cross K/V into ``xk``/``xv`` (L, lanes, S_enc, K, hd) in
-    place."""
+    place (on a mesh, this rank's block: its KV heads, or its slice of
+    the source positions)."""
     enc = encode(params, cfg, frames)
     for layer in range(cfg.n_layers):
         k, v = cross_kv(cfg, _layer(params["dec_layers"], layer), enc)
-        xk[layer].copy_(k)
-        xv[layer].copy_(v)
+        xk[layer].copy_(_own_source(k, xk.shape[2]))
+        xv[layer].copy_(_own_source(v, xv.shape[2]))
 
 
 def precompute_cross_kv(params, cfg: ModelConfig, frames):
@@ -190,6 +224,34 @@ def precompute_cross_kv(params, cfg: ModelConfig, frames):
     return xk, xv
 
 
+def _cross_attend(cfg: ModelConfig, lp: dict, x, xk, xv, src_len):
+    """One decode step's cross-attention of the normed x (B, 1, D) over
+    one layer's cross K/V ``xk``/``xv`` (lanes, S_enc, K, hd), every
+    position live (``src_len`` (B,) int32): (B, 1, D). On a mesh, this
+    rank's heads over its KV heads, or, where the source is cut along
+    its positions (``source_cut``), every q head over this rank's slice
+    through the partial kernel, the ranks' partials combined by their
+    LSE; the output's rows of ``wxo`` summed over 'model'."""
+    B, hd = x.shape[0], cfg.head_dim
+    ctx = mesh_ctx()
+    split = source_cut(ctx)
+    gather = split and ctx.cut("heads")
+    q = column_input(x, "heads") @ lp["wxq"]
+    if gather:
+        q = ctx.all_gather(q, "model", dim=-1)
+    q = q.reshape(B, -1, hd)
+    k, v = xk.expand(B, -1, -1, -1), xv.expand(B, -1, -1, -1)
+    if split:
+        o, lse = ops.decode_attention_partial(q, k, v, src_len)
+        o = combine_partials(ctx.mesh, o, lse).to(q.dtype)
+    else:
+        o = ops.decode_attention(q, k, v, src_len)
+    o = o.reshape(B, 1, -1)
+    if gather:
+        o = _own_columns(o, ctx)
+    return tp_down_proj(o, lp["wxo"], "heads")
+
+
 def decode_step(params, cfg: ModelConfig, cache, prev_tokens):
     """One autoregressive step: (logits (B, Vp), cache). Per layer: self-
     attention through the decode-attention kernel over the lane's own
@@ -198,7 +260,6 @@ def decode_step(params, cfg: ModelConfig, cache, prev_tokens):
     advances by one; the cross K/V are only read."""
     pos = cache["pos"]
     B = prev_tokens.shape[0]
-    Hp, hd = cfg.padded_heads, cfg.head_dim
     eps = cfg.norm_eps
     x = embed_tokens(cfg, params, prev_tokens[:, None])
     Se = cache["xk"].shape[2]
@@ -207,13 +268,11 @@ def decode_step(params, cfg: ModelConfig, cache, prev_tokens):
         lp = _layer(params["dec_layers"], layer)
         x = x + _decode_attn_one(cfg, lp, rms_norm(x, lp["ln1"], eps),
                                  cache["k"][layer], cache["v"][layer], pos)
-        q = (rms_norm(x, lp["ln_x"], eps) @ lp["wxq"]).reshape(B, Hp, hd)
-        o = ops.decode_attention(q, cache["xk"][layer].expand(B, -1, -1, -1),
-                                 cache["xv"][layer].expand(B, -1, -1, -1),
-                                 src_len)
-        x = x + o.reshape(B, 1, Hp * hd) @ lp["wxo"]
+        x = x + _cross_attend(cfg, lp, rms_norm(x, lp["ln_x"], eps),
+                              cache["xk"][layer], cache["xv"][layer],
+                              src_len)
         x = x + swiglu(rms_norm(x, lp["ln2"], eps), lp["wi_gate"],
-                       lp["wi_up"], lp["wo_mlp"])
+                       lp["wi_up"], lp["wo_mlp"], reduce="mlp")
     x = rms_norm(x, params["final_norm"], eps)
     logits = lm_logits(cfg, params, x)[:, 0]
     pos.add_(1)             # in place: every cache leaf keeps its storage

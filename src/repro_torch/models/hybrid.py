@@ -20,6 +20,12 @@ under ``torch.utils.checkpoint`` when ``cfg.remat`` is set (per block,
 not per group, as the JAX package remats); the shared block's gradient
 sums over its applications.
 
+On a mesh the SSD layers run as ``mamba2.py``'s do (a rank's heads, one
+psum over 'model' a layer) and each application of the shared block as
+the dense family's (``transformer.dense_block`` / ``decode_block``: a
+rank's heads over its KV heads, or, where the KV heads do not divide
+'model', every head over a rank's slice of the sequence, lock-step).
+
 As in ``mamba2.py`` and ``transformer.py``, ``decode_step`` writes every
 cache leaf in place (the conv and SSM states, the new K/V at each lane's
 ``pos``, and ``pos`` itself), so a captured CUDA graph of the step reads

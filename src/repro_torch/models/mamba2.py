@@ -17,6 +17,21 @@ the state entering a chunk is cast to x's dtype before it meets C; the
 recurrent state stays fp32 and is cast to x's dtype in the output
 product; a sequence is padded to a chunk multiple with dt = 0.
 
+On a mesh (``layers.mesh_context``, the serve layout) where 'model' cuts
+``ssm_inner`` (the heads and d_inner divide it: ``sharding.specs``
+rules), a rank runs its block of heads: its columns of ``in_z``,
+``in_x`` and ``in_dt``, its heads of ``A_log``, ``D_skip`` and
+``dt_bias``, ``in_B`` and ``in_C`` whole, its conv channels in the
+port's layout [its xc block | B | C] (``sharding.specs.cut_conv``), the
+scan (``ssd_intra``) over its H / tp heads, and its rows of
+``out_proj``, whose products are summed over 'model' (one ``psum`` a
+layer: ``layers.tp_down_proj``). The head count and d_inner of a call
+are its weights' (``_local_dims``). Where ``ssm_inner`` is not cut the
+mixer runs whole on every rank, with no collective. JAX's
+``shard(xc, ("pod", "data"), None, None)`` in ``ssm_block`` replicates
+xc's channels while scoring: where the data sits, not what is computed;
+the port keeps the heads cut.
+
 One deliberate difference: JAX is functional and returns a new cache;
 here ``decode_step`` writes the conv and SSM states and ``pos`` into the
 cache tensors in place, as the dense family does with its K/V, so a
@@ -31,7 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from .layers import rms_norm
+from .layers import column_input, rms_norm, tp_down_proj
 from .transformer import (check_impl, embed_tokens, layer_weights,
                           lm_logits, remat, torch_dtype)
 
@@ -139,16 +154,23 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None,
 
 
 def _projections(lp: dict, h):
-    return (h @ lp["in_z"], h @ lp["in_x"], h @ lp["in_B"], h @ lp["in_C"],
-            h @ lp["in_dt"])
+    hc = column_input(h, "ssm_inner")
+    return (hc @ lp["in_z"], hc @ lp["in_x"], h @ lp["in_B"],
+            h @ lp["in_C"], hc @ lp["in_dt"])
+
+
+def _local_dims(cfg: ModelConfig, lp: dict) -> tuple[int, int, int, int]:
+    """(d_inner, N, heads, headdim) of a layer's weights ``lp``: on a
+    mesh that cuts ``ssm_inner``, this rank's d_inner / tp and H / tp."""
+    return (lp["in_x"].shape[-1], cfg.ssm_state, lp["A_log"].shape[-1],
+            cfg.ssm_headdim)
 
 
 def ssm_block(cfg: ModelConfig, lp: dict, x, ssd_impl: str = "kernel"):
     """Full mamba2 layer (teacher-forced). x (B, S, D) -> (B, S, D); the
     scan's intra-chunk part is ``ssd_impl``'s (``ssd_chunked``)."""
     B, S, _ = x.shape
-    di, N = cfg.ssm_d_inner, cfg.ssm_state
-    H, P = cfg.ssm_heads, cfg.ssm_headdim
+    di, N, H, P = _local_dims(cfg, lp)
     h = rms_norm(x, lp["ln"], cfg.norm_eps)
     z, xc, Bm, Cm, dt_raw = _projections(lp, h)
     conv_out, _ = _conv1d_causal(torch.cat([xc, Bm, Cm], dim=-1),
@@ -161,7 +183,7 @@ def ssm_block(cfg: ModelConfig, lp: dict, x, ssd_impl: str = "kernel"):
                        impl=ssd_impl)
     y = y + lp["D_skip"][None, None, :, None] * xh
     y = (y.reshape(B, S, di) * F.silu(z)).to(x.dtype)
-    return x + y @ lp["out_proj"]
+    return x + tp_down_proj(y, lp["out_proj"], "ssm_inner")
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *,
@@ -205,10 +227,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 def ssm_decode_step(cfg: ModelConfig, lp: dict, x, conv_state, ssm_state):
     """One-token mamba2 step of one layer: x (B, 1, D) -> (B, 1, D).
     ``conv_state`` (B, K-1, C) and ``ssm_state`` (B, H, P, N) fp32 are
-    updated in place."""
+    updated in place (on a mesh, this rank's channels and heads)."""
     B = x.shape[0]
-    di, N = cfg.ssm_d_inner, cfg.ssm_state
-    H, P = cfg.ssm_heads, cfg.ssm_headdim
+    di, N, H, P = _local_dims(cfg, lp)
     h = rms_norm(x, lp["ln"], cfg.norm_eps)
     z, xc, Bm, Cm, dt_raw = _projections(lp, h)
     conv_out, new_conv = _conv1d_causal(torch.cat([xc, Bm, Cm], dim=-1),
@@ -224,7 +245,7 @@ def ssm_decode_step(cfg: ModelConfig, lp: dict, x, conv_state, ssm_state):
     y = torch.einsum("bhpn,bn->bhp", ssm_state.to(x.dtype), Cm)
     y = y + lp["D_skip"][None, :, None] * xh
     y = (y.reshape(B, 1, di) * F.silu(z)).to(x.dtype)
-    return x + y @ lp["out_proj"]
+    return x + tp_down_proj(y, lp["out_proj"], "ssm_inner")
 
 
 def decode_step(params, cfg: ModelConfig, cache, prev_tokens):

@@ -340,13 +340,18 @@ def decode_requires_lockstep(cfg: ModelConfig, mesh=None) -> bool:
     positions to their max (``_seq_sharded_decode_attn``), so it is
     lock-step only: no per-slot refill. One predicate for the refusal
     (the service scheduler's) and the dispatch, so they cannot drift.
-    The JAX predicate also asks for its explicit-TP switch or the serve
-    layout; the port's collectives are always explicit and its models
-    run only the serve layout on a mesh, so it has no such term."""
+    It covers every family with a self-attention cache: hybrid's shared
+    block, encdec's decoder, vlm's (the dense step). The ssm family has
+    no attention and never takes it (the JAX predicate reads only the
+    KV heads, so it refuses a mamba2 predictor where they do not
+    divide). The JAX predicate also asks for its explicit-TP switch or
+    the serve layout; the port's collectives are always explicit and
+    its serving runs the serve layout, so it has no such term."""
     if mesh is None:
         ctx = mesh_ctx()
         mesh = None if ctx is None else ctx.mesh
-    if mesh is None or "model" not in mesh.axis_names:
+    if mesh is None or "model" not in mesh.axis_names \
+            or cfg.family == "ssm":
         return False
     tp = mesh.shape["model"]
     return tp > 1 and cfg.padded_kv_heads % tp != 0 \
@@ -374,9 +379,9 @@ def _seq_sharded_decode_attn(cfg: ModelConfig, mesh, q, k_new, v_new, kc,
     exp(lse_r - M) / sum_r exp(lse_r - M). JAX takes M with a ``pmax``
     and the sums with two ``psum``s; here one ``all_gather`` brings every
     rank's (o, lse) and each rank combines them in rank order, the same
-    bits on every rank: one collective a layer where a collective (a
-    host round trip over gloo) costs more than the combine. Returns (B,
-    1, H, hd) in q's dtype."""
+    bits on every rank (``combine_partials``): one collective a layer
+    where a collective (a host round trip over gloo) costs more than the
+    combine. Returns (B, 1, H, hd) in q's dtype."""
     B, _, H, hd = q.shape
     S_loc = kc.shape[1]
     r = mesh.axis_index("model")
@@ -402,12 +407,24 @@ def _seq_sharded_decode_attn(cfg: ModelConfig, mesh, q, k_new, v_new, kc,
     else:
         o, lse = ops.decode_attention_partial_int8(q[:, 0], kc, vc,
                                                    *scales, lengths)
+    return combine_partials(mesh, o, lse).to(q.dtype).reshape(B, 1, H, hd)
+
+
+def combine_partials(mesh, o, lse):
+    """The attention over a sequence cut over 'model' from every rank's
+    partial (``ops.decode_attention_partial``: o (B, H, hd) normalized
+    over its slice, lse (B, H); a rank with no live position 0 and
+    -inf): one ``all_gather`` of every rank's (o, lse), then, in rank
+    order on every rank (the same bits everywhere), o = sum_r o_r
+    exp(lse_r - M) / sum_r exp(lse_r - M), M the max of the lse. fp32
+    (B, H, hd)."""
+    hd = o.shape[-1]
     parts = mesh.all_gather(torch.cat([o, lse[..., None]], dim=-1)[None],
                             "model", dim=0)             # (tp, B, H, hd + 1)
     o_r, lse_r = parts[..., :hd], parts[..., hd]
     w = torch.exp(lse_r - lse_r.amax(dim=0))            # (tp, B, H)
     num = (o_r * w[..., None]).sum(dim=0)
-    return (num / w.sum(dim=0)[..., None]).to(q.dtype).reshape(B, 1, H, hd)
+    return num / w.sum(dim=0)[..., None]
 
 
 def _decode_attn_one(cfg, lp: dict, x, kc, vc, pos, scales=None):

@@ -55,11 +55,16 @@ The BOS convention: the model input for chunk tokens x_0..x_{C-1} is
 fresh context per chunk — the paper's chunked setup (§5.4).
 
 On a mesh (``mesh=``, a ``launch.mesh.Mesh`` of one rank's process;
-the dense and moe families, every lane on every rank: a mesh whose
-batch axes have more than one rank is refused), ``params`` are this
-rank's blocks (``random_init(mesh=...)`` draws each leaf from the seed
-and keeps its block: ``sharding.specs.init_params_sharded``) and the
-cache is this rank's block of it. Decode, verify and scoring run the
+every family, every lane on every rank: a mesh whose batch axes have
+more than one rank is refused), ``params`` are this rank's blocks
+(``random_init(mesh=...)`` draws each leaf from the seed and keeps its
+block: ``sharding.specs.init_params_sharded``, mamba2's ``conv_w`` in
+the port's layout) and the cache is this rank's block of it: its heads
+of the SSM state and its conv channels, its KV heads (or its slice of
+the sequence) of K/V, and the encdec cross K/V that the encoder, run
+on the mesh, gives this rank from the frames (its KV heads, or its
+slice of the source). Scoring puts the conditioning into the score
+step's forward (the vlm image prefix, the encdec frames). Decode, verify and scoring run the
 serve steps' model calls (``serve/steps.py``) eagerly: a gloo
 collective cannot be captured in a CUDA graph, so there are no
 ``graphs.DecodePrograms`` on a mesh. Decode and verify call
@@ -163,16 +168,16 @@ class ModelPredictor:
         leaf (``sharding.specs.init_params_sharded``)."""
         if mesh is not None:
             model_api.check_mesh(cfg, mesh)
-            dev = resolve_device(mesh.device if device is None else device)
-            return cls(specs.init_params_sharded(cfg, mesh, seed, dev), cfg,
-                       device=dev, extra_batch=extra_batch, mesh=mesh, **kw)
-        dev = resolve_device(device)
+        dev = resolve_device(device if device is not None or mesh is None
+                             else mesh.device)
         extra = dict(extra_batch or {})
         if cfg.family == "encdec" and "frames" not in extra:
             extra.update(model_api.stub_inputs(cfg, 1, seed=seed,
                                                device=dev))
-        return cls(model_api.init_params(cfg, seed, dev), cfg, device=dev,
-                   extra_batch=extra, **kw)
+        params = model_api.init_params(cfg, seed, dev) if mesh is None \
+            else specs.init_params_sharded(cfg, mesh, seed, dev)
+        return cls(params, cfg, device=dev, extra_batch=extra, mesh=mesh,
+                   **kw)
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(np.asarray(tokens, np.int64),
@@ -181,27 +186,25 @@ class ModelPredictor:
     def _alloc_cache(self, batch: int, max_len: int) -> dict:
         """A zeroed cache of ``batch`` lanes; an encdec cross cache as long
         as the frames and with their lanes (1 or ``batch``)."""
-        if self.mesh is not None:
-            if self.lockstep:       # the sequence cut into tp equal blocks
-                tp = self.mesh.shape["model"]
-                max_len = -(-max_len // tp) * tp
-            return model_api.init_cache(self.cfg, batch, max_len,
-                                        device=self.device, mesh=self.mesh)
         kw = {}
         if self.cfg.family == "encdec":
             frames = self.extra_batch["frames"]
             kw = dict(source_len=frames.shape[1],
                       lanes=encdec.source_lanes(frames.shape[0], batch))
+        if self.mesh is not None and self.lockstep:
+            # the sequence cut into tp equal blocks
+            tp = self.mesh.shape["model"]
+            max_len = -(-max_len // tp) * tp
         return model_api.init_cache(self.cfg, batch, max_len,
-                                    device=self.device, **kw)
+                                    device=self.device, mesh=self.mesh,
+                                    **kw)
 
-    @torch.no_grad()
     def _condition(self, cache) -> None:
         """Write the per-job conditioning into ``cache`` in place: the
-        encdec cross K/V of the frames, encoded at their own batch."""
-        if self.cfg.family == "encdec":
-            encdec.write_cross_kv(self.params, self.cfg, cache["xk"],
-                                  cache["xv"], self.extra_batch["frames"])
+        encdec cross K/V of the frames, encoded at their own batch (on a
+        mesh, this rank's block of them)."""
+        model_api.write_conditioning(self.params, self.cfg, cache,
+                                     self.extra_batch, mesh=self.mesh)
 
     def _init_cache(self, batch: int, max_len: int) -> dict:
         """A fresh cache with its conditioning, off the captured programs
@@ -259,7 +262,8 @@ class ModelPredictor:
             inp = np.concatenate(parts + [tokens[:, :-1]], axis=1)
             if self.mesh is not None:       # the score step's model calls
                 hidden = steps.score_hidden(self.params, self.cfg,
-                                            self._tokens(inp), self.mesh)
+                                            self._tokens(inp), self.mesh,
+                                            extra=self.extra_batch)
                 return steps.head_logits(self.params, self.cfg,
                                          hidden[:, P:], self.mesh)
             logits = model_api.forward(

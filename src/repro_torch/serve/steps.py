@@ -31,6 +31,16 @@ JAX scores the moe family in its train layout (FSDP over 'data'), which
 changes where its weights live and not the function; FSDP comes with
 training on a mesh.
 
+Every family serves on a mesh. The per-job conditioning comes with the
+tokens, cut over the batch axes as JAX's ``batch_pspecs`` cuts it where
+its batch is the tokens': the vlm's ``img_embeds`` in the score step's
+batch (scoring only, as on one device) and the encdec ``frames``, which
+the score step encodes and ``write_conditioning`` (or the prefill step,
+given ``extra``) encodes into the cache's cross K/V, this rank's block
+of them; frames of batch 1 are one source that every lane reads, whole
+on every rank. The ssm and hybrid caches' ``conv`` and ``state`` are
+this rank's channels and heads (``sharding.specs``).
+
 The steps run eagerly: a gloo collective cannot be captured in a CUDA
 graph (on one device, ``serve/graphs.py`` captures the engine's decode
 step instead). Each call is an ``obs.span`` (model.*).
@@ -84,13 +94,17 @@ def decode_logits(params, cfg: ModelConfig, cache, prev: torch.Tensor,
 
 
 def score_hidden(params, cfg: ModelConfig, tokens: torch.Tensor, mesh=None,
-                 *, batch_sharded: bool = False) -> torch.Tensor:
+                 *, batch_sharded: bool = False,
+                 extra: dict | None = None) -> torch.Tensor:
     """The score step's teacher-forced forward (the prefill-attention
-    kernel): the final hidden states (B, S, D) of its lanes ``tokens``.
+    kernel, and ``ssd_intra``): the final hidden states (B, S, D) of its
+    lanes ``tokens``, under their conditioning ``extra`` (vlm
+    ``img_embeds``, encdec ``frames``: this rank's rows, or one source).
     The moe family dispatches in groups of 2,048 tokens."""
     kw = {"dispatch_group": 2048} if cfg.family == "moe" else {}
-    return model_api.forward(params, cfg, {"tokens": tokens}, mesh=mesh,
-                             batch_sharded=batch_sharded,
+    return model_api.forward(params, cfg, {"tokens": tokens,
+                                           **(extra or {})},
+                             mesh=mesh, batch_sharded=batch_sharded,
                              return_hidden=True, **kw)
 
 
@@ -121,6 +135,16 @@ class _Rows:
             return x
         return self.mesh.all_gather(x, self.axes, dim=0)
 
+    def conditioning(self, extra: dict, batch: int, device) -> dict:
+        """This rank's rows of each conditioning entry whose batch is the
+        tokens' ``batch``; an entry of batch 1 (one source for every
+        lane) whole."""
+        out = {}
+        for k, v in extra.items():
+            v = torch.as_tensor(v, device=device)
+            out[k] = self.mine(v) if v.shape[0] == batch else v
+        return out
+
 
 def _first(tree):
     for v in tree.values():
@@ -145,16 +169,33 @@ def make_serve_step(cfg: ModelConfig, mesh=None, *, batch: int,
     return serve_step
 
 
+def write_conditioning(params, cfg: ModelConfig, cache, extra: dict,
+                       mesh=None, *, batch: int) -> None:
+    """The encdec cross K/V of ``extra["frames"]`` (B or 1, S_enc, D)
+    written into this rank's ``cache`` of ``batch`` lanes, in place
+    (``models.api.write_conditioning``): JAX's ``precompute_cross_kv``
+    put into its cache. Nothing for the other families."""
+    rows = _Rows(mesh, batch)
+    model_api.write_conditioning(
+        params, cfg, cache,
+        rows.conditioning(extra, batch, _first(params).device),
+        mesh=mesh, batch_sharded=rows.sharded)
+
+
 def make_prefill_step(cfg: ModelConfig, mesh=None, *, batch: int):
-    """prefill_step(params, cache, prefix (B, P)) -> the cache after
-    [BOS, prefix[:, :-1]] (BOS = vocab_size - 1), one decode step per
-    position: bit-identical to P serve steps' caches. The caller feeds
-    prefix[:, -1] as the first serve_step input."""
+    """prefill_step(params, cache, prefix (B, P), extra=None) -> the cache
+    after [BOS, prefix[:, :-1]] (BOS = vocab_size - 1), one decode step
+    per position: bit-identical to P serve steps' caches. The caller
+    feeds prefix[:, -1] as the first serve_step input. ``extra`` (encdec
+    ``frames``) is written into the cache first (``write_conditioning``)."""
     rows = _Rows(mesh, batch)
 
     @torch.no_grad()
-    def prefill_step(params, cache, prefix):
+    def prefill_step(params, cache, prefix, extra=None):
         with obs.span("model.prefill_step"):
+            if extra:
+                write_conditioning(params, cfg, cache, extra, mesh,
+                                   batch=batch)
             prefix = rows.mine(torch.as_tensor(prefix, device=_first(
                 params).device).long())
             inp = torch.cat([torch.full_like(prefix[:, :1],
@@ -170,19 +211,24 @@ def make_prefill_step(cfg: ModelConfig, mesh=None, *, batch: int):
 def make_score_step(cfg: ModelConfig, mesh=None, *, topk: int = 64,
                     precision: int = 16, s_block: int = 2048,
                     global_batch: int = 1):
-    """score_step(params, batch {"tokens": (B, S)}) -> (ids (B, S, K),
-    qpmf (B, S, K+1)): the teacher-forced forward (the prefill-attention
-    kernel), then the LM head and the top-K per block of ``s_block``
-    positions."""
+    """score_step(params, batch {"tokens": (B, S)} and the conditioning:
+    vlm "img_embeds" (B, n_img, D), encdec "frames" (B or 1, S_enc, D))
+    -> (ids (B, S, K), qpmf (B, S, K+1)) of the text positions: the
+    teacher-forced forward (the prefill-attention kernel), then the LM
+    head and the top-K per block of ``s_block`` positions."""
     rows = _Rows(mesh, global_batch)
 
     @torch.no_grad()
     def score_step(params, batch):
         with obs.span("model.score_step"):
+            dev = _first(params).device
             tokens = rows.mine(torch.as_tensor(
-                batch["tokens"], device=_first(params).device).long())
+                batch["tokens"], device=dev).long())
+            extra = rows.conditioning(
+                {k: v for k, v in batch.items() if k != "tokens"},
+                global_batch, dev)
             hidden = score_hidden(params, cfg, tokens, mesh,
-                                  batch_sharded=rows.sharded)
+                                  batch_sharded=rows.sharded, extra=extra)
             ids, qpmf = [], []
             for s0 in range(0, hidden.shape[1], s_block):
                 i, q = head_logits(params, cfg, hidden[:, s0:s0 + s_block],

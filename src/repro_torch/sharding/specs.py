@@ -19,12 +19,25 @@ draws each leaf of ``init_params`` from the seed in turn and keeps only
 this rank's block, so the peak is one whole leaf, never the whole model.
 A cache is allocated directly at this rank's shapes (``local_shape``).
 
+mamba2's conv leaves (``conv_w`` (L, KC, di + 2N) and the cache's
+``conv`` (L, B, KC - 1, di + 2N)) keep JAX's spec, the logical
+``ssm_inner`` over the concatenated channels [xc | B | C], but not its
+even cut: an even cut of di + 2N does not line up with the split into
+xc, B and C (mamba2-130m at TP 2: 896 channels a rank against an xc
+block of 768), which GSPMD reshards around and a hand-sharded rank
+cannot. A rank holds its block of xc's channels, followed by B and C
+whole (``cut_conv``; di / tp + 2N channels), the layout its own
+projections give it; ``gather_conv`` and ``join_conv`` put the global
+leaf back together.
+
 One difference from the JAX trees: JAX keeps the decode positions
 ``pos`` whole on every device (P()), since its step is one global
 program; a rank here runs only its own lanes, so ``shard_cache`` cuts
 ``pos`` along the lanes as the K/V leaves' batch dimension is cut.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import batch_axes, mesh_degree
@@ -194,15 +207,75 @@ def cut(t, mesh, spec: tuple):
     return out.clone() if out is not t else out
 
 
+# ------------------------------------------------------- mamba2's conv
+#: the leaves whose last dim is mamba2's conv channels [xc | B | C]: the
+#: parameter ``conv_w`` and the cache's ``conv``
+CONV_LEAVES = ("conv_w", "conv")
+
+
+def _is_conv(cfg: ModelConfig, name: str) -> bool:
+    return name in CONV_LEAVES and cfg.family in ("ssm", "hybrid")
+
+
+def cut_conv(t, cfg: ModelConfig, mesh, entry):
+    """This rank's block of a conv leaf ``t`` (last dim di + 2N) whose
+    last dim JAX's spec cuts by ``entry``: its block of xc's di
+    channels, then B and C whole (di / n + 2N channels); ``t`` itself
+    where ``entry`` cuts nothing."""
+    if not _axes_of(entry):
+        return t
+    di = cfg.ssm_d_inner
+    start, n = block(mesh, entry, di)
+    return torch.cat([t[..., start:start + n], t[..., di:]], dim=-1)
+
+
+def join_conv(blocks: list, cfg: ModelConfig):
+    """The global conv leaf from the blocks (``cut_conv``) of the ranks
+    along its cut, in their order: the xc blocks side by side, then B
+    and C (whole on every rank)."""
+    bc = 2 * cfg.ssm_state
+    return torch.cat([b[..., :b.shape[-1] - bc] for b in blocks]
+                     + [blocks[0][..., blocks[0].shape[-1] - bc:]], dim=-1)
+
+
+def gather_conv(local, cfg: ModelConfig, mesh, entry):
+    """The global conv leaf on every rank from this rank's block
+    (``cut_conv``): the xc blocks gathered over ``entry``'s axes."""
+    axes = _axes_of(entry)
+    if not axes:
+        return local
+    return join_conv(list(mesh.all_gather(local[None], axes, dim=0)), cfg)
+
+
+def _cut_leaf(name: str, t, cfg: ModelConfig, mesh, spec: tuple):
+    """This rank's block of leaf ``name`` under ``spec``: ``cut``, and
+    for a conv leaf its last dim by ``cut_conv``."""
+    if _is_conv(cfg, name):
+        return cut_conv(cut(t, mesh, tuple(spec[:-1]) + (None,)), cfg,
+                        mesh, spec[-1])
+    return cut(t, mesh, spec)
+
+
+def _local_leaf_shape(name: str, cfg: ModelConfig, mesh, spec: tuple,
+                      shape: tuple) -> tuple:
+    """The shape of ``_cut_leaf``'s block of a leaf of ``shape``."""
+    if _is_conv(cfg, name):
+        out = local_shape(mesh, tuple(spec[:-1]) + (None,), shape)
+        di = block(mesh, spec[-1], cfg.ssm_d_inner)[1]
+        return out[:-1] + (di + 2 * cfg.ssm_state,)
+    return local_shape(mesh, spec, shape)
+
+
 def shard_params(params: dict, cfg: ModelConfig, mesh,
                  layout: str = "serve") -> dict:
     """This rank's block of every leaf of the whole tree ``params`` (from
-    ``init_params`` or ``from_jax``), leaf by leaf."""
+    ``init_params`` or ``from_jax``), leaf by leaf (``conv_w`` in the
+    port's layout: ``cut_conv``)."""
     specs = param_pspecs(cfg, mesh, layout)
 
     def walk(p, s):
-        return {k: walk(v, s[k]) if isinstance(v, dict) else cut(v, mesh,
-                                                                s[k])
+        return {k: walk(v, s[k]) if isinstance(v, dict)
+                else _cut_leaf(k, v, cfg, mesh, s[k])
                 for k, v in p.items()}
     return walk(params, specs)
 
@@ -219,16 +292,29 @@ def init_params_sharded(cfg: ModelConfig, mesh, seed: int = 0,
         s = specs
         for k in path:
             s = s[k]
-        return cut(arr, mesh, s)
+        return _cut_leaf(path[-1], arr, cfg, mesh, s)
     return init_params(cfg, seed, device, keep=keep)
+
+
+def _cache_spec(specs: dict, name: str, shape: tuple, batch: int) -> tuple:
+    """The spec of cache leaf ``name`` of ``shape``: ``pos`` is cut
+    along the lanes as the K/V (or conv) are; the encdec cross K/V of
+    ONE source (a lane dim of 1 that every lane reads) are not cut along
+    the lanes."""
+    if name == "pos":
+        return (_lane_spec(specs),)
+    spec = specs[name]
+    if name in ("xk", "xv") and shape[1] == 1 and batch != 1:
+        spec = (spec[0], None) + tuple(spec[2:])
+    return spec
 
 
 def shard_cache(cache: dict, cfg: ModelConfig, mesh, *, batch: int) -> dict:
     """This rank's block of every leaf of a whole decode cache of
-    ``batch`` lanes; ``pos`` is cut along the lanes as the K/V are."""
+    ``batch`` lanes (``conv`` in the port's layout: ``cut_conv``)."""
     specs = cache_pspecs(cfg, mesh, batch=batch)
-    lanes = _lane_spec(specs)
-    return {k: cut(v, mesh, (lanes,) if k == "pos" else specs[k])
+    return {k: _cut_leaf(k, v, cfg, mesh,
+                         _cache_spec(specs, k, tuple(v.shape), batch))
             for k, v in cache.items()}
 
 
@@ -244,6 +330,7 @@ def cache_local_shapes(cfg: ModelConfig, mesh, shapes: dict, *,
     """This rank's shapes of a cache whose whole leaves have ``shapes``
     (name -> shape)."""
     specs = cache_pspecs(cfg, mesh, batch=batch)
-    lanes = _lane_spec(specs)
-    return {k: local_shape(mesh, (lanes,) if k == "pos" else specs[k], s)
+    return {k: _local_leaf_shape(k, cfg, mesh,
+                                 _cache_spec(specs, k, tuple(s), batch),
+                                 tuple(s))
             for k, s in shapes.items()}

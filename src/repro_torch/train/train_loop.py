@@ -150,9 +150,9 @@ def reduce_grads(grads: list, cfg: ModelConfig, mesh) -> list:
 
 def check_train_mesh(cfg: ModelConfig, mesh) -> None:
     """Refuse what the port does not train on a mesh yet: the families
-    outside ``models.api.MESH_FAMILIES`` and experts that do not divide
-    'model' (ROADMAP Queue 1 item 3)."""
-    model_api.check_mesh(cfg, mesh)
+    outside ``models.api.TRAIN_MESH_FAMILIES`` and experts that do not
+    divide 'model' (ROADMAP Queue 1 item 3)."""
+    model_api.check_mesh(cfg, mesh, train=True)
     tp = mesh.axis_size("model")
     if cfg.family == "moe" and tp > 1 and cfg.n_experts % tp:
         raise NotImplementedError(

@@ -105,10 +105,22 @@ def _whole(cfg):
     return schema.from_jax(pj)
 
 
-def _reassemble(blocks, whole, spec_of, meshes):
+def _reassemble(blocks, whole, spec_of, meshes, cfg=None):
     """Write every rank's block at its offsets; each element must be
-    written, and every copy of it must agree with the whole tree."""
+    written, and every copy of it must agree with the whole tree. A
+    conv leaf (the port's [xc block | B | C] layout) is joined from the
+    blocks of the ranks along 'model' (``specs.join_conv``), and every
+    rank's block must be its rank's of the join."""
     for path, w in _flat(whole):
+        if cfg is not None and path[-1] in specs.CONV_LEAVES \
+                and cfg.family in ("ssm", "hybrid"):
+            tp = meshes[0].shape["model"]
+            first = [dict(_flat(blocks[r]))[path] for r in range(tp)]
+            assert torch.equal(specs.join_conv(first, cfg), w), path
+            for mesh, tree in zip(meshes, blocks):
+                assert torch.equal(dict(_flat(tree))[path], specs.cut_conv(
+                    w, cfg, mesh, spec_of(path)[-1])), path
+            continue
         out = torch.full_like(w, float("nan"), dtype=torch.float32)
         for mesh, tree in zip(meshes, blocks):
             b = dict(_flat(tree))[path]
@@ -123,7 +135,8 @@ def _reassemble(blocks, whole, spec_of, meshes):
         assert torch.equal(out, w.float()), path
 
 
-@pytest.mark.parametrize("family", ["dense", "moe"])
+@pytest.mark.parametrize("family", ["dense", "moe", "ssm", "hybrid",
+                                    "encdec", "vlm"])
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2), (1, 4)])
 def test_shard_params_reassemble_the_whole_tree(family, shape):
     jcfg = tiny(family, vocab_pad_multiple=4)
@@ -133,11 +146,13 @@ def test_shard_params_reassemble_the_whole_tree(family, shape):
               for r in range(int(np.prod(shape)))]
     blocks = [specs.shard_params(whole, pcfg, m) for m in meshes]
     sp = dict(_flat(specs.param_pspecs(pcfg, meshes[0], "serve")))
-    _reassemble(blocks, whole, lambda p: sp[p], meshes)
+    _reassemble(blocks, whole, lambda p: sp[p], meshes, pcfg)
     # a leaf cut over 'model' is smaller on every rank
     if shape[1] > 1:
-        wq = dict(_flat(blocks[0]))[("layers", "wq")]
-        assert wq.shape[-1] * shape[1] == whole["layers"]["wq"].shape[-1]
+        name = "in_x" if family in ("ssm", "hybrid") else "wq"
+        layers = "dec_layers" if family == "encdec" else "layers"
+        w = dict(_flat(blocks[0]))[(layers, name)]
+        assert w.shape[-1] * shape[1] == whole[layers][name].shape[-1]
     # drawn leaf by leaf from the seed: the blocks of init_params
     full = schema.init_params(pcfg, 5)
     for m in meshes:
@@ -145,6 +160,78 @@ def test_shard_params_reassemble_the_whole_tree(family, shape):
         want = dict(_flat(specs.shard_params(full, pcfg, m)))
         assert got.keys() == want.keys()
         assert all(torch.equal(got[k], want[k]) for k in got)
+
+
+def _jax_conv_leaves(jcfg, batch: int = 4) -> dict:
+    """JAX's global conv leaves of ``jcfg``: ``conv_w`` drawn from a key,
+    and a ``conv`` cache filled with distinct values."""
+    from repro.models import mamba2 as jm
+    pj = jschema.init_params(jcfg, jax.random.PRNGKey(1))
+    cache = np.asarray(jm.init_cache(jcfg, batch, 8)["conv"])
+    cache = np.arange(cache.size, dtype=np.float32).reshape(cache.shape)
+    return {"conv_w": torch.from_numpy(np.array(
+        pj["layers"]["conv_w"], np.float32)), "conv": torch.from_numpy(cache)}
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+@pytest.mark.parametrize("arch", ["tiny-ssm", "tiny-hybrid", "mamba2_130m",
+                                  "zamba2_7b"])
+def test_conv_layout_round_trip(arch, tp):
+    """mamba2's conv leaves in the port's layout: each rank of 'model'
+    holds its block of xc's channels, then B and C whole; the ranks'
+    blocks, joined (``join_conv``), give JAX's global leaf, of
+    ``conv_w`` (L, KC, di + 2N) and of the ``conv`` cache (L, B, KC - 1,
+    di + 2N). At tiny's shapes with JAX's values; at mamba2-130m's and
+    zamba2-7b's on the meta device (shapes), and on one channel row of
+    distinct values (the columns each rank keeps)."""
+    if arch.startswith("tiny"):
+        jcfg = tiny(arch.split("-")[1])
+        cfg = ModelConfig(**dataclasses.asdict(jcfg))
+        leaves = _jax_conv_leaves(jcfg)
+    else:
+        cfg = pget(arch)
+        assert cfg == ModelConfig(**dataclasses.asdict(jget(arch)))
+        leaves = {"conv_w": torch.empty(
+            schema.schema(cfg)["layers"]["conv_w"].shape, device="meta"),
+            "conv": api.init_cache(cfg, 4, 8, device="meta")["conv"]}
+    di, N = cfg.ssm_d_inner, cfg.ssm_state
+    meshes = [Mesh((1, tp), ("data", "model"), rank=r) for r in range(tp)]
+    assert specs.rules(cfg, meshes[0], "serve")["ssm_inner"] == "model"
+    row = torch.arange(di + 2 * N, dtype=torch.float32)
+    for name, whole in dict(leaves, row=row).items():
+        spec = ((None,) * (whole.dim() - 1)) + ("model",)
+        blocks = [specs.cut_conv(whole, cfg, m, spec[-1]) for m in meshes]
+        for r, b in enumerate(blocks):
+            assert tuple(b.shape) == tuple(whole.shape[:-1]) + (
+                di // tp + 2 * N,), name
+        joined = specs.join_conv(blocks, cfg)
+        assert joined.shape == whole.shape
+        if whole.device.type != "meta":
+            assert torch.equal(joined, whole), name
+    # the row: rank r keeps xc's channels r * di / tp .., then B and C
+    n = di // tp
+    for r, m in enumerate(meshes):
+        got = specs.cut_conv(row, cfg, m, "model")
+        assert torch.equal(got, torch.cat([row[r * n:(r + 1) * n],
+                                           row[di:]]))
+    # the cache and the parameters a rank allocates have these shapes
+    local = api.init_cache(cfg, 4, 8, device="meta", mesh=meshes[-1])
+    assert local["conv"].shape[-1] == n + 2 * N
+    assert local["state"].shape[2] == cfg.ssm_heads // tp
+    if arch.startswith("tiny"):
+        cache = {"conv": leaves["conv"],
+                 "state": torch.zeros(tuple(local["state"].shape[:2])
+                                      + (cfg.ssm_heads,)
+                                      + tuple(local["state"].shape[3:])),
+                 "pos": torch.zeros(4, dtype=torch.int32)}
+        if cfg.family == "hybrid":
+            cache.update({k: v for k, v in api.init_cache(
+                cfg, 4, 8).items() if k in ("k", "v")})
+        got = specs.shard_cache(cache, cfg, meshes[-1], batch=4)
+        assert {k: v.shape for k, v in got.items()} == \
+            {k: v.shape for k, v in local.items()}
+        assert torch.equal(got["conv"], specs.cut_conv(
+            leaves["conv"], cfg, meshes[-1], "model"))
 
 
 @pytest.mark.parametrize("kv", [None, "int8"])

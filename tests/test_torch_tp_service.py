@@ -18,9 +18,16 @@ blocks (``ModelPredictor.random_init(mesh=...)``).
     and lock-step: the service refuses the predictor with the lock-step
     message, speculative verify is refused, and ``LLMCompressor``'s
     grouped decoder round-trips byte for byte on every rank.
-  * A mesh is refused for the ssm, hybrid, encdec and vlm families and
-    for training, each naming the ROADMAP item (a layout-only mesh: the
-    refusal comes before any collective).
+  * The ssm, hybrid, encdec and vlm families (``tiny``'s shapes,
+    vocabulary padded to 260: the sharded top-K) at (1, 2), in one more
+    world of 2: a service round trip byte-exact, every rank's archives
+    rank 0's, and the grouped decoder decodes the service's archives;
+    the mesh's decode logits within 1e-4 of the unsharded predictor's
+    on the same seed (encdec: the stub frontend's one source, its cross
+    K/V one copy that every lane reads, this rank's KV heads of it).
+  * Training on a mesh is refused for those four families, naming the
+    ROADMAP item (a layout-only mesh: the refusal comes before any
+    collective).
 """
 import dataclasses
 
@@ -122,6 +129,67 @@ def tp4(mesh, texts) -> dict:
     return out
 
 
+#: the four families served at TP 2 (``tiny``'s shapes)
+FAMILIES = ("ssm", "hybrid", "encdec", "vlm")
+
+
+def _family_cfg(family: str) -> ModelConfig:
+    return ModelConfig(**dataclasses.asdict(tiny(family,
+                                                 vocab_pad_multiple=4)))
+
+
+def _first_logits(pred, n: int = 4) -> torch.Tensor:
+    """The whole logits of ``n`` decode steps of 4 lanes."""
+    from repro_torch.core.cdf import full_logits
+    state = pred.begin_decode(4)
+    prev = np.full(4, pred.bos_id)
+    out = []
+    for t in range(n):
+        lg, state = pred.decode_step(state, prev)
+        out.append(full_logits(lg) if pred.mesh is not None else lg)
+        prev = (np.arange(4) * 37 + t) % 256
+    return torch.stack(out)
+
+
+def families_tp2(mesh, texts) -> dict:
+    """Each of ``FAMILIES`` at TP 2 on this rank: the service round trip,
+    the grouped decoder on the service's archives, and the first decode
+    steps' logits (whole), beside rank 0's unsharded predictor's."""
+    torch.set_num_threads(1)
+    out = {}
+    for family in FAMILIES:
+        cfg = _family_cfg(family)
+        pred = ModelPredictor.random_init(cfg, seed=SEED, device="cpu",
+                                          mesh=mesh)
+        svc = _service(pred)
+        blobs = [h.result()[0] for h in [svc.submit_compress(t)
+                                         for t in texts]]
+        handles = {i: svc.submit_decompress(blobs[i]) for i in (2, 0, 1)}
+        comp = LLMCompressor(pred, chunk_size=16, topk=8, decode_batch=4)
+        r = dict(round_trip=all(np.array_equal(handles[i].result(), t)
+                                for i, t in enumerate(texts)),
+                 grouped=all(np.array_equal(comp.decompress(b), t)
+                             for b, t in zip(blobs, texts)),
+                 agree=mesh.agree(b"".join(blobs)),
+                 lockstep=pred.lockstep,
+                 vocab_cut=steps.vocab_sharded(cfg, mesh))
+        pred.set_decode_len(8)
+        r["logits"] = _first_logits(pred)
+        if mesh.rank == 0:
+            whole = ModelPredictor.random_init(cfg, seed=SEED, device="cpu")
+            whole.set_decode_len(8)
+            r["whole_logits"] = _first_logits(whole)
+        out[family] = r
+    return out
+
+
+@pytest.fixture(scope="module")
+def families_run(tmp_path_factory):
+    d = tmp_path_factory.mktemp("families")
+    return run_ranks(families_tp2, (1, 2), backend="gloo", device="cpu",
+                     args=(_texts(),), store_dir=d, timeout=900)
+
+
 @pytest.fixture(scope="module")
 def tp2_run(tmp_path_factory):
     d = tmp_path_factory.mktemp("tp2")
@@ -179,12 +247,17 @@ def test_grouped_decoder_round_trips_at_tp4(tp4_run):
     assert tp4_run["agree"]
 
 
-@pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec", "vlm"])
-def test_a_mesh_is_refused_for_other_families(family):
-    cfg = ModelConfig(**dataclasses.asdict(tiny(family)))
-    mesh = Mesh((1, 2), ("data", "model"), rank=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        ModelPredictor.random_init(cfg, seed=0, device="cpu", mesh=mesh)
+@pytest.mark.parametrize("family", FAMILIES)
+def test_other_families_round_trip_at_tp2(families_run, family):
+    """A TP 2 service round trip of the family is byte-exact on every
+    rank, and the grouped decoder decodes the service's archives; the
+    mesh's decode logits are the unsharded predictor's (same seed)."""
+    r = families_run[family]
+    assert not r["lockstep"] and r["vocab_cut"]
+    assert r["round_trip"] and r["grouped"]
+    assert r["agree"], "a rank's archive differs from rank 0's"
+    torch.testing.assert_close(r["logits"], r["whole_logits"], atol=1e-4,
+                               rtol=1e-4)
 
 
 def test_a_mesh_is_refused_for_training():
