@@ -318,11 +318,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    the profiler (idle share); 25c the driver's last checkpoint restored
    onto one device (every parameter equal to the file's), into the serve
    layout at TP 2 and unsharded, a service round trip byte-exact at
-   each, the TP 2 decode within SCORE_TOL of the unsharded one. 25a
-   starts after phase 3 and runs beside phases 4-13 (host-bound, and it
-   holds little of the card); it has ended before phase 14 (which takes
-   47 GiB). Phase 24, then 25b and 25c, run on a thread beside phases
-   15-18 and have ended before phase 19.
+   each, the TP 2 decode within SCORE_TOL of the unsharded one; 25d the
+   ssm, hybrid, encdec and vlm families (``TRAIN_MESH_ALONE`` and
+   ``TRAIN_MESH_FAMILIES``: zamba2-7b@14, llava-next-34b@1 under its
+   576-position image, mamba2-130m whole, whisper-large-v3 at 2 + 2 layers
+   with its 1,500 frames) through ``make_train_step(cfg, mesh)``, 2
+   steps each: every step's gradient blocks finite and nonzero on every
+   rank, the loss falling, no kernel launched, host ms, collectives and
+   their MiB, ``grad_norm``, peak memory, the last step profiled on rank
+   0 (idle share); then mamba2's trained checkpoint (its conv leaf
+   gathered into JAX's global leaf) served at TP 2 and unsharded in a
+   world of 2: both round trips byte-exact, TP 2 scoring held to the
+   unsharded through the trained weights' fp32 twin. 25a starts after phase 3
+   and runs beside phases 4-13 (host-bound, and it holds little of the
+   card); it has ended before phase 14 (which takes 47 GiB). Phase 24,
+   then 25b and 25c, run on a thread beside phases 15-18 and have ended
+   before phase 19. 25d's zamba2 and llava (39 and 67 GiB over their
+   ranks) run beside the kernels' build, while the card holds nothing
+   else, and have ended before phase 2; its whisper and mamba2 and
+   mamba2's serving run on a thread beside phases 19-22 and have ended
+   before phase 23.
 12. Last, one JSON line describing every kernel (its ``launches`` from
    the main path that runs it: phase 3 for ``decode_attention`` and
    ``topk_cdf``, 6 for ``cdf_points``, 5 for ``flash_attention``, 9 for
@@ -335,7 +350,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``launches_phase24`` per phase 24 config, rank 0's, and
    ``launches_phase24_scoring``, its scoring's;
    ``launches_phase25``, 25c's round trips at TP 2 (rank 0) and
-   unsharded; the partial form's ``launches`` from 24c), then the
+   unsharded, and 25d's of mamba2's trained checkpoint with its
+   scoring; the partial form's ``launches`` from 24c), then the
    card's name and power limit again (the tail of a long log keeps
    them) and the result line ``{"ok":
    true, "device": {...}}`` as the last line of stdout. A ``[time]``
@@ -345,8 +361,9 @@ Work that runs in processes of its own runs beside the script's phases,
 for the time limit: each phase's fresh-process decompression from its
 end until it is read back before a phase that needs most of the card
 (14, 19, zamba2-7b's training in 23), 25a beside phases 4-13, phases 24
-and 25 beside phases 15-18. The script's own process makes every CUDA
-call from its main thread.
+and 25b-c beside phases 15-18, 25d beside the build (zamba2, llava) and
+phases 19-22 (whisper, mamba2). The script's own process makes every
+CUDA call from its main thread.
 
 The CLI's ``pred-*`` predictors train at first use: phase 7 trains
 ``pred-base`` into ``build/chip_smoke/torch_cache`` (``$REPRO_TORCH_CACHE``
@@ -4177,59 +4194,86 @@ def train_mesh_moe(mesh, spec: str, B: int, S: int, steps: int) -> dict:
     return out
 
 
+def _round_trip(pred, toks: list, need, me: str) -> tuple:
+    """A service round trip of the jobs ``toks`` on ``pred`` (16 slots,
+    chunk 128, top 48; launch counts reset just before), byte-exact,
+    each kernel of ``need`` launched: (archives, launches, seconds)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.service import CompressionService
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    svc = CompressionService(pred, slots=16, chunk_size=128, topk=48)
+    blobs = [h.result()[0] for h in [svc.submit_compress(t) for t in toks]]
+    svc = CompressionService(pred, slots=16, chunk_size=128, topk=48)
+    outs = [h.result() for h in [svc.submit_decompress(b) for b in blobs]]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    for i, t in enumerate(toks):
+        if not np.array_equal(outs[i], t):
+            fail(f"{me}: job {i} differs after the round trip")
+    for k in need:
+        if launches.get(k, 0) <= 0:
+            fail(f"{me}: the round trip launched {k} no time")
+    return blobs, launches, secs
+
+
+def _restore_served(ckpt: str, cfg, mesh) -> tuple:
+    """The parameters of the checkpoint in ``ckpt`` read into the serve
+    layout of ``mesh`` (mamba2's conv leaf cut by its ``ConvSpec``):
+    (parameters, step, seconds)."""
+    from repro_torch.sharding import specs
+    from repro_torch.train.checkpoint import restore_latest
+    t0 = time.perf_counter()
+    like = {"params": specs.init_params_sharded(cfg, mesh, 1, mesh.device,
+                                                layout="serve")}
+    got, step = restore_latest(ckpt, like, mesh=mesh, specs={
+        "params": specs.param_pspecs(cfg, mesh, "serve")})
+    return got["params"], step, time.perf_counter() - t0
+
+
+def _restore_whole(ckpt: str, cfg, me: str) -> tuple:
+    """The checkpoint's parameters restored onto one device, every leaf
+    equal to the file's: (parameters, step, seconds)."""
+    from repro_torch.models.schema import init_params
+    from repro_torch.train.checkpoint import restore_latest
+    t0 = time.perf_counter()
+    got, step = restore_latest(ckpt, {"params": init_params(cfg, 1,
+                                                            "cuda")})
+    n = _equal_to_file(got, pathlib.Path(ckpt) / f"step-{step:08d}")
+    secs = time.perf_counter() - t0
+    log(f"{me}: checkpoint step {step} restored onto one device, {n} "
+        f"parameter leaves equal to the file's, in {secs:.1f} s")
+    return got["params"], step, secs
+
+
 def train_mesh_serve(mesh, ckpt: str, texts: list) -> dict:
     """25c on one rank of (1, 2): 25a's checkpoint read into the serve
     layout, a service round trip at TP 2 (launches counted) and the
     decode logits; on rank 0, the same unsharded on one device: the
     round trip and the logits against TP 2's (SCORE_TOL)."""
     import numpy as np
-    import torch
     from repro_torch.data.tokenizer import encode
-    from repro_torch.kernels import ops
-    from repro_torch.models.schema import init_params
     from repro_torch.serve.engine import ModelPredictor
     from repro_torch.serve.steps import vocab_sharded
-    from repro_torch.service import CompressionService
-    from repro_torch.sharding import specs
-    from repro_torch.train.checkpoint import restore_latest
     cfg = config(TRAIN_MESH_DENSE)
     me = f"[train-mesh] 25c rank {mesh.rank}"
     toks = [encode(t) for t in texts]
 
-    def serve(pred):
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        svc = CompressionService(pred, slots=16, chunk_size=128, topk=48)
-        blobs = [h.result()[0] for h in [svc.submit_compress(t)
-                                         for t in toks]]
-        svc = CompressionService(pred, slots=16, chunk_size=128, topk=48)
-        outs = [h.result() for h in [svc.submit_decompress(b)
-                                     for b in blobs]]
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
-        for i, t in enumerate(toks):
-            if not np.array_equal(outs[i], t):
-                fail(f"{me}: job {i} differs after the round trip")
-        for k in ("decode_attention",) + (
-                () if vocab_sharded(cfg, pred.mesh) else ("topk_cdf",)):
-            if launches.get(k, 0) <= 0:
-                fail(f"{me}: the round trip launched {k} no time")
-        return blobs, launches, secs
-    t0 = time.perf_counter()
-    like = {"params": specs.init_params_sharded(cfg, mesh, 1, mesh.device,
-                                                layout="serve")}
-    got, step = restore_latest(ckpt, like, mesh=mesh, specs={
-        "params": specs.param_pspecs(cfg, mesh, "serve")})
-    t_restore = time.perf_counter() - t0
-    pred = ModelPredictor(got["params"], cfg, mesh=mesh)
-    blobs, launches, secs = serve(pred)
+    def need(pred):
+        return ("decode_attention",) + (
+            () if vocab_sharded(cfg, pred.mesh) else ("topk_cdf",))
+    params, step, t_restore = _restore_served(ckpt, cfg, mesh)
+    pred = ModelPredictor(params, cfg, mesh=mesh)
+    blobs, launches, secs = _round_trip(pred, toks, need(pred), me)
     if not mesh.agree(b"".join(blobs)):
         fail(f"{me}: this rank's archives differ from another rank's")
     chunks = np.resize(np.concatenate(toks), 16 * 8).reshape(16, 8) \
         .astype(np.int64)
     tp_logits = _mesh_logits(pred, chunks)
-    del pred, got, like
+    del pred, params
     _free_card()
     out = dict(step=step, restore_s=t_restore, launches_tp2=launches,
                round_trip_tp2_s=secs, bytes=sum(len(b) for b in blobs))
@@ -4238,18 +4282,11 @@ def train_mesh_serve(mesh, ckpt: str, texts: list) -> dict:
         f"byte-exact in {secs:.1f} s, launches {launches}")
     if mesh.rank != 0:
         return out
-    t0 = time.perf_counter()
-    got, step1 = restore_latest(ckpt, {"params": init_params(cfg, 1,
-                                                             "cuda")})
-    n = _equal_to_file(got, pathlib.Path(ckpt) / f"step-{step1:08d}")
-    out["restore_1x1_s"] = time.perf_counter() - t0
-    log(f"{me}: checkpoint step {step1} restored onto one device, {n} "
-        f"parameter leaves equal to the file's, in "
-        f"{out['restore_1x1_s']:.1f} s")
-    pred = ModelPredictor(got["params"], cfg, device="cuda")
-    blobs1, launches1, secs1 = serve(pred)
+    params, _, out["restore_1x1_s"] = _restore_whole(ckpt, cfg, me)
+    pred = ModelPredictor(params, cfg, device="cuda")
+    blobs1, launches1, secs1 = _round_trip(pred, toks, need(pred), me)
     whole = _mesh_logits(pred, chunks)
-    del pred, got
+    del pred, params
     _free_card()
     out.update(launches=launches1, round_trip_s=secs1,
                vs_tp2=_compare_logits(
@@ -4257,6 +4294,254 @@ def train_mesh_serve(mesh, ckpt: str, texts: list) -> dict:
                    "unsharded decode", tp_logits, whole))
     log(f"{me}: unsharded round trip byte-exact in {secs1:.1f} s, "
         f"launches {launches1}; archives "
+        f"{'equal to' if blobs1 == blobs else 'other than'} TP 2's")
+    return out
+
+
+#: 25d: the ssm, hybrid, encdec and vlm families trained on a mesh, in
+#: worlds of 4 ranks sharing the card over gloo (FSDP 2 over 'data' x TP
+#: 2 over 'model', bf16, fp32 m/v, remat per layer, TRAIN_MESH's 8 x 256
+#: tokens a step, TRAIN_MESH_FAMILY_STEPS steps each on one seeded batch):
+#: (name, config spec, further cuts). zamba2-7b cut to 14 of 81 layers as
+#: in 24e (13 SSD layers, one application of the shared block, one
+#: trailing); llava-next-34b cut to 1 of 60 layers, under its
+#: 576-position image; whisper-large-v3 cut to 2 of 32 encoder and 2 of
+#: 32 decoder layers, with its 1,500 frames a row; mamba2-130m whole (12
+#: of 24 SSD heads a rank, conv channels 768 + 256). Depths cut for the
+#: time limit (a step is the host moving the FSDP gathers through gloo:
+#: PERF.md §5). zamba2's update holds 9.8 GiB a rank and llava's 16.8
+#: (its 64,000 x 7,168 embedding and LM head): 39 and 67 GiB for the
+#: world, so those two run while the card holds nothing else, beside the
+#: kernels' build (``TRAIN_MESH_ALONE``); whisper (3.2 GiB a rank) and
+#: mamba2 (1.1) run beside phases 19-22 (``beside_19_22``), then
+#: mamba2's trained checkpoint is served at TP 2 and unsharded
+#: (``train_mesh_serve_ssm``).
+TRAIN_MESH_ALONE = (
+    ("25d-hybrid", "zamba2-7b@14", {}),
+    ("25d-vlm", "llava-next-34b@1", {}))
+TRAIN_MESH_FAMILIES = (
+    ("25d-encdec", "whisper-large-v3@2", {"n_enc_layers": 2}),
+    ("25d-ssm", "mamba2-130m", {}))
+TRAIN_MESH_FAMILY_STEPS = 2
+TRAIN_MESH_SSM_CKPT = TRAIN_MESH_WORK / "ssm_ckpt"
+
+
+def step_device_ms(fn):
+    """``fn()`` once under ``torch.profiler``, device activity only (the
+    host adds little to the call): the device ms of its kernels and
+    copies (gloo's own ranges left out: its copies are counted), or None
+    where the trace came back without them. Never repeated, unlike
+    ``profile_calls``: on a mesh every rank runs the same steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if _on_device(e) and not e.key.startswith("gloo:"))
+    return us / 1e3 if us > 0 else None
+
+
+def _grads_ok(grads, what: str) -> int:
+    """Every gradient block of ``grads`` finite and nonzero (one host
+    sync for the tree); returns the number of leaves."""
+    import torch
+    names, leaves = zip(*_named(grads))
+    amax = torch.stack([g.detach().float().abs().amax() for g in leaves])
+    bad = [(n, float(a)) for n, a in zip(names, amax.cpu())
+           if not (a > 0 and torch.isfinite(a))]
+    if bad:
+        fail(f"{what}: gradient blocks not finite or zero: {bad}")
+    return len(leaves)
+
+
+def train_mesh_family(mesh, name: str, spec: str, over: dict, B: int,
+                      S: int, steps: int) -> dict:
+    """25d for one config on one rank: ``steps`` train steps on one
+    seeded global batch (and the family's conditioning: whisper's frames,
+    llava's image, drawn from seed 25) through ``make_train_step(cfg,
+    mesh)``, every step's gradient blocks finite and nonzero on every
+    rank (read inside the step, before the update), the loss falling, no
+    kernel launched; each step's host ms, collectives and their MiB,
+    ``grad_norm``, peak memory, and on rank 0 the last step under the
+    profiler (device ms, idle share). mamba2's trained state is saved
+    (the global leaves, ``TRAIN_MESH_SSM_CKPT``)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import stub_inputs
+    from repro_torch.models.schema import count_params
+    from repro_torch.train import train_loop
+    from repro_torch.train.checkpoint import save_checkpoint
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = config(spec).with_(**over)
+    dev = mesh.device
+    me = f"[train-mesh] {name} {label(cfg)} rank {mesh.rank}"
+    batch = {"tokens": np.random.default_rng(25).integers(
+        0, cfg.vocab_size, (B, S))}
+    batch.update(stub_inputs(cfg, B, seed=25, device=dev))
+    # lr 1e-3: an update below half a bf16 ulp of its weight would round
+    # away
+    opt = AdamWConfig(learning_rate=1e-3, warmup_steps=1, total_steps=steps)
+    t0 = time.perf_counter()
+    params, state = train_loop.init_train_state(cfg, 0, dev, opt,
+                                                mesh=mesh)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    checked, update = [], train_loop.adamw_update
+
+    def checking(p, grads, *a, **kw):
+        checked.append(_grads_ok(grads, f"{me} step {len(checked) + 1}"))
+        return update(p, grads, *a, **kw)
+    step = train_loop.make_train_step(cfg, mesh, opt=opt, global_batch=B)
+    before = dict(ops.LAUNCHES)
+    losses, norms, host, calls, mbytes, dev_ms = [], [], [], [], [], None
+    cur = [params, state]
+    del params, state
+
+    def one():
+        torch.cuda.synchronize()
+        c0, b0, t0 = mesh.calls, mesh.bytes, time.perf_counter()
+        cur[0], cur[1], m = step(cur[0], cur[1], batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        host.append((time.perf_counter() - t0) * 1e3)
+        calls.append(mesh.calls - c0)
+        mbytes.append((mesh.bytes - b0) / 2**20)
+    train_loop.adamw_update = checking
+    try:
+        for i in range(steps):
+            if i == steps - 1 and mesh.rank == 0:
+                dev_ms = step_device_ms(one)
+            else:
+                one()
+    finally:
+        train_loop.adamw_update = update
+    peak = torch.cuda.max_memory_allocated(dev)
+    if ops.LAUNCHES != before:
+        fail(f"{me}: the training steps launched kernels: {before} -> "
+             f"{ops.LAUNCHES}")
+    if len(checked) != steps:
+        fail(f"{me}: {len(checked)} of {steps} steps' gradients checked")
+    if not losses[-1] < losses[0]:
+        fail(f"{me}: the loss did not fall over {steps} steps: {losses}")
+    out = dict(params=count_params(cfg), losses=losses, grad_norm=norms,
+               step_host_ms=host, collectives=calls, collective_mib=mbytes,
+               peak_bytes=peak, init_s=t_init, device_ms=dev_ms,
+               grad_leaves=checked[0])
+    if name == "25d-ssm":
+        from repro_torch.train.train_loop import state_specs
+        t0 = time.perf_counter()
+        save_checkpoint(TRAIN_MESH_SSM_CKPT, steps, {
+            "params": cur[0], "opt": cur[1],
+            "pipe": {"step": np.asarray(steps, np.int64)}}, mesh=mesh,
+            specs=state_specs(cfg, mesh, opt))
+        out["checkpoint_s"] = time.perf_counter() - t0
+    del cur, step
+    _free_card()
+    if mesh.rank == 0:
+        cond = {k: tuple(v.shape) for k, v in batch.items()
+                if k != "tokens"}
+        log(f"{me} ({out['params'] / 1e9:.3f} B params; {B} x {S} tokens"
+            + (f", {cond}" if cond else "") + f"): drawn in {t_init:.1f} s; "
+            f"every rank's {checked[0]} gradient blocks finite and nonzero "
+            f"at each of {steps} steps; losses "
+            + ", ".join(f"{x:.4f}" for x in losses) + "; grad_norm "
+            + ", ".join(f"{x:.3f}" for x in norms) + "; step host ms "
+            + ", ".join(f"{x:.1f}" for x in host)
+            + f"; collectives a step {calls} ("
+            + ", ".join(f"{x:.0f}" for x in mbytes)
+            + f" MiB of inputs); peak memory {peak / 2**30:.2f} GiB a rank;"
+            f" the last step under the profiler (device activity only): "
+            f"device {_ms(dev_ms, 1)}, idle {_idle(dev_ms, host[-1])} of "
+            f"its host ms"
+            + (f"; checkpoint written in {out['checkpoint_s']:.1f} s"
+               if "checkpoint_s" in out else ""))
+    return out
+
+
+def train_mesh_family_world(mesh, configs, B: int, S: int,
+                            steps: int) -> dict:
+    """25d: ``train_mesh_family`` for each of ``configs`` in turn on this
+    world. ``torch.utils.checkpoint`` imports ``torch._dynamo`` at its
+    first call (7-15 s): imported first, so that no config's step pays
+    it."""
+    import torch._dynamo  # noqa: F401
+    out = {}
+    for name, spec, over in configs:
+        t0 = time.perf_counter()
+        out[name] = train_mesh_family(mesh, name, spec, over, B, S, steps)
+        if mesh.rank == 0:
+            log(f"[time] {name} {spec}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def train_mesh_serve_ssm(mesh, ckpt: str, texts: list) -> dict:
+    """25d's serving, on one rank of (1, 2): mamba2-130m's trained
+    checkpoint read into the serve layout, a service round trip at TP 2
+    and teacher-forced scoring (its ``ssd_intra`` launches counted and
+    required); on rank 0 the same unsharded (the round trip's
+    ``topk_cdf`` required), every restored leaf equal to the file's, and
+    TP 2 scoring held to the unsharded scoring through the trained
+    weights' fp32 twin (mean and max |difference| within twice the
+    unsharded bf16 scoring's distance from it, as in phase 24d)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cdf import full_logits
+    from repro_torch.data.tokenizer import encode
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ModelPredictor
+    from repro_torch.serve.steps import vocab_sharded
+    from repro_torch.train.optimizer import tree_map
+    cfg = config("mamba2-130m")
+    me = f"[train-mesh] 25d serving rank {mesh.rank}"
+    toks = [encode(t) for t in texts]
+    chunks = np.resize(np.concatenate(toks), 16 * 32).reshape(16, 32) \
+        .astype(np.int64)
+
+    def scoring(pred):
+        ops.reset_launches()
+        scored = full_logits(pred.score_chunks(chunks)).clone()
+        torch.cuda.synchronize()
+        _check_score_launches(cfg, ops.LAUNCHES, f"{me}: scoring")
+        return scored, {k: v for k, v in ops.LAUNCHES.items() if v}
+    params, step, t_restore = _restore_served(ckpt, cfg, mesh)
+    pred = ModelPredictor(params, cfg, mesh=mesh)
+    blobs, launches, secs = _round_trip(
+        pred, toks, () if vocab_sharded(cfg, mesh) else ("topk_cdf",), me)
+    if not mesh.agree(b"".join(blobs)):
+        fail(f"{me}: this rank's archives differ from another rank's")
+    tp_scored, score_l = scoring(pred)
+    del pred, params
+    _free_card()
+    out = dict(step=step, restore_s=t_restore, launches_tp2=launches,
+               score_launches_tp2=score_l, round_trip_tp2_s=secs,
+               bytes=sum(len(b) for b in blobs))
+    log(f"{me}: checkpoint step {step} read into the serve layout in "
+        f"{t_restore:.1f} s; TP 2 round trip of {len(toks)} jobs "
+        f"byte-exact in {secs:.1f} s, launches {launches}; scoring's "
+        f"{score_l}")
+    if mesh.rank != 0:
+        return out
+    params, _, out["restore_1x1_s"] = _restore_whole(ckpt, cfg, me)
+    pred = ModelPredictor(params, cfg, device="cuda")
+    blobs1, launches1, secs1 = _round_trip(pred, toks, ("topk_cdf",), me)
+    whole, score_l1 = scoring(pred)
+    del pred
+    twin = ModelPredictor(tree_map(lambda t: t.float(), params),
+                          cfg.with_(dtype="float32"), device="cuda")
+    twin_score = full_logits(twin.score_chunks(chunks)).clone()
+    del twin, params
+    _free_card()
+    out.update(launches=launches1, score_launches=score_l1,
+               round_trip_s=secs1,
+               vs_unsharded=_compare_logits(
+                   "25d mamba2-130m trained on the mesh: TP 2 scoring vs "
+                   "the unsharded scoring", tp_scored, whole,
+                   fp32_twin=twin_score))
+    log(f"{me}: unsharded round trip byte-exact in {secs1:.1f} s, "
+        f"launches {launches1}, scoring's {score_l1}; archives "
         f"{'equal to' if blobs1 == blobs else 'other than'} TP 2's")
     return out
 
@@ -4329,7 +4614,49 @@ def phase_train_mesh(driven: dict) -> dict:
                            timeout=600)
     log(f"[time] 25c serving the checkpoint: "
         f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(TRAIN_MESH_WORK / "ckpt", ignore_errors=True)
+    return out
+
+
+def train_mesh_families(configs) -> dict:
+    """25d's training of ``configs`` in one world of 4 ranks
+    (``train_mesh_family_world``)."""
+    from repro_torch.launch.mesh import run_ranks
+    c = TRAIN_MESH
+    t0 = time.perf_counter()
+    out = run_ranks(train_mesh_family_world, c["mesh"], ("data", "model"),
+                    backend="gloo", device="cuda",
+                    args=(configs, c["batch"], c["seq"],
+                          TRAIN_MESH_FAMILY_STEPS), timeout=900)
+    log(f"[time] 25d world of {', '.join(n for n, _, _ in configs)}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def beside_19_22(times: dict) -> dict:
+    """25d's whisper and mamba2 (``TRAIN_MESH_FAMILIES``: whisper's 13
+    GiB beside phase 19's 12, before phase 20's 45), then mamba2's
+    trained checkpoint served (``train_mesh_serve_ssm``, a world of (1,
+    2)), on a thread beside phases 19-22, as ``beside_15_18`` runs its
+    phases; ended before phase 23 (zamba2@29's 66 GiB). Returns {name:
+    rank 0's results, "25d-serve": ...}."""
+    from repro_torch.data.synthetic import human_like
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    out = train_mesh_families(TRAIN_MESH_FAMILIES)
+    times["25d whisper, mamba2"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    texts = [human_like(d, n, seed=s) for d, n, s in TRAIN_MESH_JOBS]
+    out["25d-serve"] = run_ranks(train_mesh_serve_ssm, (1, 2),
+                                 ("data", "model"), backend="gloo",
+                                 device="cuda",
+                                 args=(str(TRAIN_MESH_SSM_CKPT), texts),
+                                 timeout=600)
+    times["25d serving mamba2's checkpoint"] = round(
+        time.perf_counter() - t0, 1)
     shutil.rmtree(TRAIN_MESH_WORK, ignore_errors=True)
+    for name in ("25d whisper, mamba2", "25d serving mamba2's checkpoint"):
+        log(f"[time] {name}: {times[name]} s (beside phases 19-22)")
     return out
 
 
@@ -4390,19 +4717,32 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, driver "
         f"{drv}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
-    t0 = time.perf_counter()
-    built = build.build_all()
-    log(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
-        f"(one nvcc per source, in parallel)")
-    for name, (secs, report) in built.items():
-        regs = [ln.strip() for ln in report.splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"[build] {name} ({secs:.1f} s): " + " | ".join(regs[:6]))
-
+    # 25d's zamba2 and llava (39 and 67 GiB over their ranks) train while
+    # the card holds nothing else: beside the kernels' build, which
+    # their train steps do not need
+    early = _Beside(train_mesh_families, TRAIN_MESH_ALONE)
+    times = {}
+    try:
+        t0 = time.perf_counter()
+        built = build.build_all()
+        log(f"[build] {len(built)} libraries in "
+            f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in "
+            f"parallel)")
+        for name, (secs, report) in built.items():
+            regs = [ln.strip() for ln in report.splitlines()
+                    if "registers" in ln or "spill" in ln]
+            log(f"[build] {name} ({secs:.1f} s): " + " | ".join(regs[:6]))
+        t0 = time.perf_counter()
+        alone = early.result()
+        times["25d zamba2 and llava, their end, after the build"] = round(
+            time.perf_counter() - t0, 1)
+        log(f"[time] 25d zamba2 and llava, their end, after the build: "
+            f"{times['25d zamba2 and llava, their end, after the build']} s")
+    finally:
+        early.join()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     jobs = routed_jobs()
-    times = {}
 
     def timed(name, fn, *args, **kw):
         """Run a phase and log its wall seconds (the 1200 s budget)."""
@@ -4466,9 +4806,16 @@ def main() -> int:
         finally:
             beside.join()
         timed("15, 17 fresh processes, their end", join_fresh)
-        moe = timed("19+20 moe configs", phase_moe_configs)
-        cond = timed("21+22 vlm and encdec configs",
-                     phase_conditioned_configs)
+        # 25d's whisper and mamba2, and mamba2's serving, beside 19-22
+        beside = _Beside(beside_19_22, times)
+        try:
+            moe = timed("19+20 moe configs", phase_moe_configs)
+            cond = timed("21+22 vlm and encdec configs",
+                         phase_conditioned_configs)
+            families = timed("25d its end, after phase 22", beside.result)
+        finally:
+            beside.join()
+        train_mesh.update(alone, **families)
         trained = timed("23 training of the other families",
                         phase_train_families, join_fresh)
         timed("fresh processes, their end", join_fresh)
@@ -4522,11 +4869,17 @@ def main() -> int:
                    a: int(d.get("score_launches", {}).get(name, 0))
                    for a, d in mesh.items()},
                # phase 25c's round trips of the trained checkpoint (rank
-               # 0's at TP 2, and unsharded); 25a-b's steps launch none
+               # 0's at TP 2, and unsharded), and 25d's of mamba2-130m's
+               # with its scoring; 25a-b's and 25d's steps launch none
                "launches_phase25": {
                    "25c-tp2": int(train_mesh["25c"]["launches_tp2"].get(
                        name, 0)),
-                   "25c": int(train_mesh["25c"]["launches"].get(name, 0))},
+                   "25c": int(train_mesh["25c"]["launches"].get(name, 0)),
+                   **{f"25d{k}": int(train_mesh["25d-serve"][v].get(
+                       name, 0)) for k, v in (
+                       ("-tp2", "launches_tp2"),
+                       ("-tp2-scoring", "score_launches_tp2"),
+                       ("", "launches"), ("-scoring", "score_launches"))}},
                "max_abs_err": r["max_abs_err"], "tol": r["tol"],
                # attention: error over its row's max |value| (the bf16
                # limit), at every shape, and a planted skipped tile's

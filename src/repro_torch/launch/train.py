@@ -13,7 +13,9 @@ Behaviour:
     CPU). Nothing falls back to another device or backend;
   * ``--arch NAME`` takes the registry's config (``--smoke``: its reduced
     same-family config); ``NAME@L`` cuts its depth to L layers at full
-    width;
+    width. Every family but encdec trains, on one device or a mesh (vlm
+    on its text alone, as the JAX driver feeds it); encdec is refused
+    before anything starts: the token pipeline makes no ``frames``;
   * auto-resume from the newest sound checkpoint (corrupt ones skipped),
     onto any mesh shape (elastic: the checkpoint holds the global
     leaves, each rank cuts its own);
@@ -78,6 +80,13 @@ def train_main(args) -> int:
     from repro_torch.data.tokenizer import encode
     from repro_torch.launch.mesh import check_backend, run_ranks
     shape = mesh_shape(args)
+    if config_of(args).family == "encdec":
+        # JAX's driver raises a KeyError on batch["frames"] here
+        raise ValueError(
+            f"{args.arch}: the encdec family trains on frames (B, S_enc, "
+            f"D) beside the tokens, and the driver's token pipeline makes "
+            f"no frames; train it through train_loop.make_train_step with "
+            f"batch['frames']")
     if shape != (1, 1):
         check_backend(args.backend, args.device, shape[0] * shape[1])
     elif torch.device(args.device).type == "cuda" and \

@@ -67,21 +67,10 @@ def stub_inputs(cfg: ModelConfig, batch: int = 1, *, seed: int = 0,
     return {rows[0]: x.to(transformer.torch_dtype(cfg.dtype))}
 
 
-#: the families the port trains on a mesh (the train layout); every
-#: family serves on one
-TRAIN_MESH_FAMILIES = ("dense", "moe")
-
-
-def check_mesh(cfg: ModelConfig, mesh, *, train: bool = False) -> None:
-    """Refuse an unknown family, and a mesh for training (``train``) a
-    family outside ``TRAIN_MESH_FAMILIES``."""
-    module_for(cfg)
-    if mesh is not None and train and cfg.family not in TRAIN_MESH_FAMILIES:
-        raise NotImplementedError(
-            f"training the {cfg.family} family on a mesh: the port trains "
-            f"{' and '.join(TRAIN_MESH_FAMILIES)} on a mesh (and serves "
-            f"every family there); ssm, hybrid, encdec and vlm training "
-            f"on a mesh are ROADMAP Queue 1 item 3")
+#: the families the port trains on a mesh (the train layout), as it
+#: serves every family there: all six (``train_loop.check_train_mesh``
+#: refuses what stays open, experts that do not divide 'model')
+TRAIN_MESH_FAMILIES = tuple(_FAMS)
 
 
 def _gather_top(params: dict, ctx) -> dict:
@@ -103,7 +92,6 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mesh=None,
     (``batch_sharded``: the batch is cut over the batch axes) and the
     logits this rank's block of the vocabulary where 'model' cuts it.
     The train layout runs inside ``loss_fn``."""
-    check_mesh(cfg, mesh)
     with mesh_context(mesh, cfg, batch_sharded=batch_sharded):
         return module_for(cfg).forward(params, cfg, batch, **kw)
 
@@ -121,7 +109,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     mod = module_for(cfg)
     if mesh is None:
         return mod.init_cache(cfg, batch, max_len, dtype, device, **kw)
-    check_mesh(cfg, mesh)
     seq = specs.cache_pspecs(cfg, mesh, batch=batch).get("k", (None,) * 3)[2]
     if seq not in (None, "model"):
         raise NotImplementedError(
@@ -141,7 +128,6 @@ def decode_step(params, cfg: ModelConfig, cache, prev_tokens, *, mesh=None,
     """(logits (B, padded_vocab), cache) — the cache is updated in place.
     On a ``mesh``, as ``forward``: this rank's lanes and cache, and its
     block of the vocabulary."""
-    check_mesh(cfg, mesh)
     with mesh_context(mesh, cfg, batch_sharded=batch_sharded):
         return module_for(cfg).decode_step(params, cfg, cache, prev_tokens)
 
@@ -236,7 +222,6 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0,
     train step sums them over the axes a leaf is whole on
     (``train/train_loop.py``)."""
     module_for(cfg)                     # an unknown family raises here
-    check_mesh(cfg, mesh, train=True)
     train_kw = TRAIN_FORWARD[cfg.family]
     tokens = batch["tokens"]
     targets = F.pad(tokens[:, 1:], (0, 1))
@@ -268,7 +253,7 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0,
     return tot[0] / tot[1].clamp(min=1.0)
 
 
-__all__ = ["forward", "loss_fn", "TRAIN_MESH_FAMILIES", "check_mesh",
+__all__ = ["forward", "loss_fn", "TRAIN_MESH_FAMILIES",
            "TRAIN_FORWARD", "init_cache", "decode_step",
            "rollback_leaves", "ring_leaves", "conditioning_leaves",
            "write_conditioning",

@@ -23,6 +23,14 @@ precomputed frame embeddings (B, S_enc, D) over as ``frames``.
   every step attends whole (every lane's length is S_enc, as the JAX
   step's ``pos = S_enc - 1``).
 
+In the train layout (``models.api.loss_fn(mesh=...)``) the encoder runs
+on this rank's rows of the frames, each encoder and decoder layer
+gathers its weights over 'data' by its own group's specs
+(``enc_layers``, ``dec_layers``), and the encoder states enter every
+layer's cross K/V projection over 'model' (the K/V this rank's KV heads,
+or whole and read by its q heads only: either way each rank holds a part
+of their cotangent).
+
 On a mesh (``layers.mesh_context``, the serve layout) each block runs as
 the dense family's does on its heads (``transformer.attn_block``; the
 encoder's non-causal flash over the rank's heads), its MLP columns and
@@ -58,7 +66,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from .layers import column_input, mesh_ctx, rms_norm, swiglu, tp_down_proj
+from .layers import (column_input, gather_layer, mesh_ctx, rms_norm, swiglu,
+                     tp_down_proj)
 from .transformer import (ATTN_IMPLS, _decode_attn_one, _own_columns,
                           attn_block, check_impl, combine_partials,
                           embed_tokens, lm_logits, remat, torch_dtype)
@@ -107,6 +116,7 @@ def encode(params, cfg: ModelConfig, frames, attn_impl: str = "flash"):
     x = x + sinusoidal(x.shape[1], x.shape[2], x.dtype, x.device)
 
     def block(x, lp):
+        lp = gather_layer(lp, "enc_layers")     # FSDP (train layout)
         x = x + attn_block(cfg, lp, rms_norm(x, lp["ln1"], eps),
                            positions=None, attn_impl=attn_impl,
                            causal=False)
@@ -123,7 +133,11 @@ def cross_kv(cfg: ModelConfig, lp: dict, enc):
     heads, this rank's K / tp)."""
     B, Se, _ = enc.shape
     hd = cfg.head_dim
-    enc = column_input(enc, "kv_heads")
+    # the K/V are this rank's KV heads, or (KV heads that do not divide
+    # 'model') whole but read by this rank's q heads only: either way
+    # the encoder states' cotangent is summed over 'model' in the train
+    # layout (KV heads cut imply q heads cut)
+    enc = column_input(enc, "heads")
     return ((enc @ lp["wxk"]).reshape(B, Se, -1, hd),
             (enc @ lp["wxv"]).reshape(B, Se, -1, hd))
 
@@ -162,6 +176,7 @@ def forward(params, cfg: ModelConfig, batch: dict, *,
     eps = cfg.norm_eps
 
     def block(x, lp):
+        lp = gather_layer(lp, "dec_layers")     # FSDP (train layout)
         k, v = cross_kv(cfg, lp, enc)
         kv = (k.expand(B, -1, -1, -1), v.expand(B, -1, -1, -1))
         x = x + attn_block(cfg, lp, rms_norm(x, lp["ln1"], eps),

@@ -24,7 +24,12 @@ On a mesh the SSD layers run as ``mamba2.py``'s do (a rank's heads, one
 psum over 'model' a layer) and each application of the shared block as
 the dense family's (``transformer.dense_block`` / ``decode_block``: a
 rank's heads over its KV heads, or, where the KV heads do not divide
-'model', every head over a rank's slice of the sequence, lock-step).
+'model', every head over a rank's slice of the sequence, lock-step). In
+the train layout each application gathers the shared block's weights
+over 'data' by their own, unstacked specs (``gather_layer(...,
+"shared_attn")``); each gather's backward reduce-scatters that
+application's gradient, and autograd sums the applications' into the
+one leaf, as ``jax.grad`` does.
 
 As in ``mamba2.py`` and ``transformer.py``, ``decode_step`` writes every
 cache leaf in place (the conv and SSM states, the new K/V at each lane's
@@ -80,7 +85,8 @@ def forward(params, cfg: ModelConfig, batch: dict, *,
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     attend = partial(dense_block, cfg, params["shared_attn"],
-                     positions=positions, attn_impl=attn_impl)
+                     positions=positions, attn_impl=attn_impl,
+                     group="shared_attn")
     for kind, i in block_order(cfg):
         block = partial(ssm_block, cfg, layer_weights(params, i),
                         ssd_impl=ssd_impl) if kind == "ssm" else attend

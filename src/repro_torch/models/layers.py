@@ -104,12 +104,16 @@ class MeshContext:
                 w = collectives.all_gather(w, self.mesh, "data", dim)
         return w
 
-    def gather_layer(self, lp: dict) -> dict:
-        """A layer's weights (its slices of the stacked ``layers``
-        leaves) gathered over 'data' (``gather``)."""
+    def gather_layer(self, lp: dict, group: str = "layers") -> dict:
+        """A block's weights gathered over 'data' (``gather``): its slices
+        of the stacked leaves of ``group`` ("layers", "enc_layers",
+        "dec_layers"), or the leaves of an unstacked group (hybrid's
+        "shared_attn"), each by its own spec (a slice's spec drops the
+        stacked dim)."""
         if not self.train:
             return lp
-        return {k: self.gather(w, self.pspecs["layers"][k][1:])
+        sp = self.pspecs[group]
+        return {k: self.gather(w, tuple(sp[k])[len(sp[k]) - w.dim():])
                 for k, w in lp.items()}
 
 
@@ -159,11 +163,12 @@ def in_mesh_ctx(fn):
     return bound
 
 
-def gather_layer(lp: dict) -> dict:
-    """``lp`` gathered over 'data' in the train layout (each leaf whole
-    along its FSDP dim), else ``lp`` itself."""
+def gather_layer(lp: dict, group: str = "layers") -> dict:
+    """``lp`` (a block's weights from the leaf group ``group``) gathered
+    over 'data' in the train layout (each leaf whole along its FSDP
+    dim), else ``lp`` itself."""
     ctx = mesh_ctx()
-    return lp if ctx is None else ctx.gather_layer(lp)
+    return lp if ctx is None else ctx.gather_layer(lp, group)
 
 
 def tp_down_proj(h, w, logical: str):

@@ -32,6 +32,14 @@ mixer runs whole on every rank, with no collective. JAX's
 xc's channels while scoring: where the data sits, not what is computed;
 the port keeps the heads cut.
 
+In the train layout (``models.api.loss_fn(mesh=...)``) a layer first
+gathers its weights' D rows over 'data' (``layers.gather_layer``), the
+normed input ``enter``s the column-parallel ``in_z``/``in_x``/``in_dt``,
+and B and C, whole on every rank but read by this rank's heads only,
+``enter`` the scan after the conv: their cotangent is summed over
+'model', so ``in_B``, ``in_C`` and conv_w's B and C channels come out
+whole on every rank, and ``out_proj``'s psum is the identity backward.
+
 One deliberate difference: JAX is functional and returns a new cache;
 here ``decode_step`` writes the conv and SSM states and ``pos`` into the
 cache tensors in place, as the dense family does with its K/V, so a
@@ -46,7 +54,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from .layers import column_input, rms_norm, tp_down_proj
+from .layers import column_input, gather_layer, rms_norm, tp_down_proj
 from .transformer import (check_impl, embed_tokens, layer_weights,
                           lm_logits, remat, torch_dtype)
 
@@ -168,14 +176,23 @@ def _local_dims(cfg: ModelConfig, lp: dict) -> tuple[int, int, int, int]:
 
 def ssm_block(cfg: ModelConfig, lp: dict, x, ssd_impl: str = "kernel"):
     """Full mamba2 layer (teacher-forced). x (B, S, D) -> (B, S, D); the
-    scan's intra-chunk part is ``ssd_impl``'s (``ssd_chunked``)."""
+    scan's intra-chunk part is ``ssd_impl``'s (``ssd_chunked``).
+
+    In the train layout the layer's weights are gathered over 'data'
+    first, and where 'model' cuts ``ssm_inner`` the conv's B and C
+    channels (whole on every rank, each feeding only this rank's heads)
+    ``enter`` the scan: the backward sums their cotangent over 'model',
+    so ``in_B``, ``in_C``, conv_w's B and C channels and the normed
+    input get their whole gradient on every rank."""
+    lp = gather_layer(lp)           # FSDP: whole over 'data' (train layout)
     B, S, _ = x.shape
     di, N, H, P = _local_dims(cfg, lp)
     h = rms_norm(x, lp["ln"], cfg.norm_eps)
     z, xc, Bm, Cm, dt_raw = _projections(lp, h)
     conv_out, _ = _conv1d_causal(torch.cat([xc, Bm, Cm], dim=-1),
                                  lp["conv_w"])
-    xc, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)    # views
+    xc, bc = torch.split(conv_out, [di, 2 * N], dim=-1)       # views
+    Bm, Cm = torch.split(column_input(bc, "ssm_inner"), [N, N], dim=-1)
     dt = F.softplus(dt_raw + lp["dt_bias"])
     A = -torch.exp(lp["A_log"].float())
     xh = xc.reshape(B, S, H, P)

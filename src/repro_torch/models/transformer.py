@@ -44,8 +44,8 @@ and decode runs the sequence-sharded attention
 train layout (``models.api.loss_fn(mesh=...)``) each block first
 gathers its weights' D rows over 'data' (``layers.gather_layer``), the
 normed activations ``enter`` the column-parallel products, and the
-batch is this rank's rows: the gradients come out as this rank's
-blocks (``train/train_loop.py``).
+batch is this rank's rows (vlm: with their rows of ``img_embeds``): the
+gradients come out as this rank's blocks (``train/train_loop.py``).
 
 One deliberate difference: JAX is functional and returns a new cache;
 here ``decode_step`` writes the new K/V into the cache tensors in place
@@ -208,8 +208,12 @@ def _own_columns(o, ctx):
 
 
 def dense_block(cfg: ModelConfig, lp: dict, x, *, positions,
-                attn_impl: str = "flash"):
-    lp = gather_layer(lp)           # FSDP: whole over 'data' (train layout)
+                attn_impl: str = "flash", group: str = "layers"):
+    """One decoder block (attention, then the MLP, each pre-norm with its
+    residual) over the whole sequence; ``lp`` are the block's weights
+    from the leaf group ``group`` (hybrid's shared block: "shared_attn"),
+    gathered by its specs in the train layout."""
+    lp = gather_layer(lp, group)    # FSDP: whole over 'data' (train layout)
     x = x + attn_block(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps),
                        positions=positions, attn_impl=attn_impl)
     return x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["wi_gate"],

@@ -114,7 +114,7 @@ class ModelPredictor:
     def __init__(self, params, cfg: ModelConfig, *, bos_id: int | None = None,
                  extra_batch: dict | None = None, device=None, mesh=None):
         if mesh is not None:
-            model_api.check_mesh(cfg, mesh)
+            model_api.module_for(cfg)
             if mesh.degree(batch_axes(mesh)) > 1:
                 raise NotImplementedError(
                     f"a predictor on {mesh.shape}: the engine keeps every "
@@ -167,7 +167,7 @@ class ModelPredictor:
         mesh's), this rank's blocks of the same weights, drawn leaf by
         leaf (``sharding.specs.init_params_sharded``)."""
         if mesh is not None:
-            model_api.check_mesh(cfg, mesh)
+            model_api.module_for(cfg)
         dev = resolve_device(device if device is not None or mesh is None
                              else mesh.device)
         extra = dict(extra_batch or {})

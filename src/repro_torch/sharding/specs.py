@@ -28,7 +28,10 @@ block of 768), which GSPMD reshards around and a hand-sharded rank
 cannot. A rank holds its block of xc's channels, followed by B and C
 whole (``cut_conv``; di / tp + 2N channels), the layout its own
 projections give it; ``gather_conv`` and ``join_conv`` put the global
-leaf back together.
+leaf back together. Their specs are ``ConvSpec``s (tuples equal to
+JAX's that also carry 2N), so ``cut`` and ``local_shape``, and the code
+that reads a spec tree alone (the optimizer's norm, a checkpoint's
+gather), take the layout from the spec.
 
 One difference from the JAX trees: JAX keeps the decode positions
 ``pos`` whole on every device (P()), since its step is one global
@@ -92,9 +95,16 @@ def param_axes(cfg: ModelConfig) -> dict:
 
 
 def param_pspecs(cfg: ModelConfig, mesh, layout: str = "train") -> dict:
-    """Spec tree matching ``init_params``' structure."""
+    """Spec tree matching ``init_params``' structure; mamba2's ``conv_w``
+    has a ``ConvSpec`` (equal to JAX's tuple), which tells the code that
+    cuts, gathers or reduces a leaf by its spec alone (a checkpoint, the
+    optimizer's norm) the port's conv layout."""
     r = _rules(cfg, mesh, layout)
-    return _map(param_axes(cfg), lambda axes: tuple(r[a] for a in axes))
+    out = _map(param_axes(cfg), lambda axes: tuple(r[a] for a in axes))
+    if cfg.family in ("ssm", "hybrid"):
+        out["layers"]["conv_w"] = ConvSpec(out["layers"]["conv_w"],
+                                           2 * cfg.ssm_state)
+    return out
 
 
 def _entry(axes: tuple):
@@ -155,7 +165,8 @@ def cache_pspecs(cfg: ModelConfig, mesh, *, batch: int) -> dict:
     if cfg.family in ("ssm", "hybrid"):
         ssm_ok = cfg.ssm_heads % tp == 0 and cfg.ssm_d_inner % tp == 0
         inner_ax = "model" if ssm_ok else None
-        specs["conv"] = (None, b_ax, None, inner_ax)
+        specs["conv"] = ConvSpec((None, b_ax, None, inner_ax),
+                                 2 * cfg.ssm_state)
         specs["state"] = (None, b_ax, inner_ax, None, None)
     if cfg.family == "hybrid":
         specs["k"] = kv_spec
@@ -191,14 +202,25 @@ def block(mesh, entry, size: int) -> tuple[int, int]:
 
 def local_shape(mesh, spec: tuple, shape: tuple) -> tuple:
     """This rank's block shape of a tensor of ``shape`` under ``spec``
-    (dims past the spec's are whole)."""
+    (dims past the spec's are whole; a ``ConvSpec``'s last dim as
+    ``cut`` cuts it)."""
+    tail = whole_tail(mesh, spec)
+    if tail:
+        out = local_shape(mesh, tuple(spec[:-1]) + (None,), shape)
+        return out[:-1] + (block(mesh, spec[-1], shape[-1] - tail)[1]
+                           + tail,)
     spec = tuple(spec) + (None,) * (len(shape) - len(spec))
     return tuple(block(mesh, e, n)[1] for e, n in zip(spec, shape))
 
 
 def cut(t, mesh, spec: tuple):
     """This rank's block of ``t`` under ``spec``, as a tensor of its own
-    (the whole can be freed); ``t`` itself where no dim is cut."""
+    (the whole can be freed); ``t`` itself where no dim is cut. A
+    ``ConvSpec`` cuts the last dim in the port's conv layout
+    (``cut_conv``)."""
+    if isinstance(spec, ConvSpec) and whole_tail(mesh, spec):
+        rest = cut(t, mesh, tuple(spec[:-1]) + (None,))
+        return _cut_channels(rest, mesh, spec[-1], t.shape[-1] - spec.bc)
     out = t
     for dim, entry in enumerate(spec):
         start, n = block(mesh, entry, t.shape[dim])
@@ -213,8 +235,32 @@ def cut(t, mesh, spec: tuple):
 CONV_LEAVES = ("conv_w", "conv")
 
 
-def _is_conv(cfg: ModelConfig, name: str) -> bool:
-    return name in CONV_LEAVES and cfg.family in ("ssm", "hybrid")
+class ConvSpec(tuple):
+    """The spec of a conv leaf (``CONV_LEAVES``: JAX's, and equal to its
+    tuple) in the port's layout: its last dim's trailing ``bc`` channels
+    (B and C, 2N) are whole on every rank of the axes its last entry
+    names, the channels before them cut by it (``cut_conv``). ``cut``
+    and ``local_shape`` cut such a leaf so, and the optimizer's norm and
+    a checkpoint's gather read ``bc`` (``whole_tail``)."""
+
+    def __new__(cls, spec, bc: int):
+        self = super().__new__(cls, spec)
+        self.bc = int(bc)
+        return self
+
+    def __getnewargs__(self):
+        return tuple(self), self.bc
+
+
+def whole_tail(mesh, spec) -> int:
+    """The trailing channels of a leaf's last dim that are whole on every
+    rank although ``spec`` cuts that dim on ``mesh``: a ``ConvSpec``'s
+    ``bc`` where its last entry cuts (over more than one rank), else
+    0."""
+    if not isinstance(spec, ConvSpec) or not spec:
+        return 0
+    axes = _axes_of(spec[-1])
+    return spec.bc if axes and mesh.degree(axes) > 1 else 0
 
 
 def cut_conv(t, cfg: ModelConfig, mesh, entry):
@@ -224,7 +270,12 @@ def cut_conv(t, cfg: ModelConfig, mesh, entry):
     where ``entry`` cuts nothing."""
     if not _axes_of(entry):
         return t
-    di = cfg.ssm_d_inner
+    return _cut_channels(t, mesh, entry, cfg.ssm_d_inner)
+
+
+def _cut_channels(t, mesh, entry, di: int):
+    """``t``'s block of its first ``di`` channels under ``entry``, then
+    the channels after them whole (a new tensor)."""
     start, n = block(mesh, entry, di)
     return torch.cat([t[..., start:start + n], t[..., di:]], dim=-1)
 
@@ -247,35 +298,16 @@ def gather_conv(local, cfg: ModelConfig, mesh, entry):
     return join_conv(list(mesh.all_gather(local[None], axes, dim=0)), cfg)
 
 
-def _cut_leaf(name: str, t, cfg: ModelConfig, mesh, spec: tuple):
-    """This rank's block of leaf ``name`` under ``spec``: ``cut``, and
-    for a conv leaf its last dim by ``cut_conv``."""
-    if _is_conv(cfg, name):
-        return cut_conv(cut(t, mesh, tuple(spec[:-1]) + (None,)), cfg,
-                        mesh, spec[-1])
-    return cut(t, mesh, spec)
-
-
-def _local_leaf_shape(name: str, cfg: ModelConfig, mesh, spec: tuple,
-                      shape: tuple) -> tuple:
-    """The shape of ``_cut_leaf``'s block of a leaf of ``shape``."""
-    if _is_conv(cfg, name):
-        out = local_shape(mesh, tuple(spec[:-1]) + (None,), shape)
-        di = block(mesh, spec[-1], cfg.ssm_d_inner)[1]
-        return out[:-1] + (di + 2 * cfg.ssm_state,)
-    return local_shape(mesh, spec, shape)
-
-
 def shard_params(params: dict, cfg: ModelConfig, mesh,
                  layout: str = "serve") -> dict:
     """This rank's block of every leaf of the whole tree ``params`` (from
     ``init_params`` or ``from_jax``), leaf by leaf (``conv_w`` in the
-    port's layout: ``cut_conv``)."""
+    port's layout: its ``ConvSpec``)."""
     specs = param_pspecs(cfg, mesh, layout)
 
     def walk(p, s):
         return {k: walk(v, s[k]) if isinstance(v, dict)
-                else _cut_leaf(k, v, cfg, mesh, s[k])
+                else cut(v, mesh, s[k])
                 for k, v in p.items()}
     return walk(params, specs)
 
@@ -292,7 +324,7 @@ def init_params_sharded(cfg: ModelConfig, mesh, seed: int = 0,
         s = specs
         for k in path:
             s = s[k]
-        return _cut_leaf(path[-1], arr, cfg, mesh, s)
+        return cut(arr, mesh, s)
     return init_params(cfg, seed, device, keep=keep)
 
 
@@ -311,10 +343,9 @@ def _cache_spec(specs: dict, name: str, shape: tuple, batch: int) -> tuple:
 
 def shard_cache(cache: dict, cfg: ModelConfig, mesh, *, batch: int) -> dict:
     """This rank's block of every leaf of a whole decode cache of
-    ``batch`` lanes (``conv`` in the port's layout: ``cut_conv``)."""
+    ``batch`` lanes (``conv`` in the port's layout: its ``ConvSpec``)."""
     specs = cache_pspecs(cfg, mesh, batch=batch)
-    return {k: _cut_leaf(k, v, cfg, mesh,
-                         _cache_spec(specs, k, tuple(v.shape), batch))
+    return {k: cut(v, mesh, _cache_spec(specs, k, tuple(v.shape), batch))
             for k, v in cache.items()}
 
 
@@ -330,7 +361,6 @@ def cache_local_shapes(cfg: ModelConfig, mesh, shapes: dict, *,
     """This rank's shapes of a cache whose whole leaves have ``shapes``
     (name -> shape)."""
     specs = cache_pspecs(cfg, mesh, batch=batch)
-    return {k: _local_leaf_shape(k, cfg, mesh,
-                                 _cache_spec(specs, k, tuple(s), batch),
-                                 tuple(s))
+    return {k: local_shape(mesh, _cache_spec(specs, k, tuple(s), batch),
+                           tuple(s))
             for k, s in shapes.items()}

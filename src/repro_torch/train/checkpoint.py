@@ -15,6 +15,9 @@ without ``msgpack``).
   cuts each rank's block of every global leaf under ITS mesh and layout
   (elastic: a checkpoint saved on (2, 2) restores onto (1, 4), (4, 1),
   one device, or the serve layout of ``ModelPredictor(mesh=...)``).
+  mamba2's ``conv_w`` and its optimizer leaves go by their
+  ``ConvSpec``: gathered into JAX's global leaf, cut back by
+  ``specs.cut`` into the port's layout.
 
 Leaves are tensors (on any device) or numpy arrays; a restored leaf takes
 the device of the matching leaf of ``like``, and the stored dtype.
@@ -175,7 +178,17 @@ def _gather_leaf(leaf, spec, mesh):
     """On rank 0, the whole leaf (on the host) assembled from the blocks
     of the ranks that hold them (point to point, every block received at
     once); on the sending ranks, None; a leaf whole on every rank is rank
-    0's own."""
+    0's own. A leaf in mamba2's conv layout (``specs.ConvSpec``) is its
+    cut channels gathered, then its B and C channels (``whole_tail``,
+    whole on every rank of the last dim's axes) as rank 0 holds them:
+    JAX's global leaf, as ``specs.join_conv`` puts it together."""
+    from repro_torch.sharding.specs import whole_tail
+    tail = whole_tail(mesh, spec)
+    if tail:
+        head = _gather_leaf(leaf[..., :-tail], tuple(spec), mesh)
+        bc = _gather_leaf(leaf[..., -tail:], tuple(spec[:-1]) + (None,),
+                          mesh)
+        return None if head is None else torch.cat([head, bc], dim=-1)
     if not cut_axes(mesh, spec):
         return leaf.detach().cpu() if mesh.rank == 0 else None
     blocks, whole = _blocks(mesh, spec, tuple(leaf.shape))

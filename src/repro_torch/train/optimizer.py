@@ -13,10 +13,12 @@ leaf) each leaf is this rank's block and ``m``, ``v`` and ``err`` are
 cut like it (ZeRO: FSDP parameters, FSDP optimizer states); the update
 of a block is the update of its elements. Two quantities span blocks:
 ``global_norm`` sums each leaf's squares once (a ``psum`` over the axes
-the leaf is cut on, never over one it is whole on), and
-``grad_compress`` quantizes with the leaf's global amax (a ``pmax`` over
-its cut axes), so each element rounds as the unsharded update rounds
-it. Every rank ends with the same norm.
+the leaf is cut on, never over one it is whole on; mamba2's ``conv_w``
+block holds B and C whole beside its cut channels, and they are counted
+once), and ``grad_compress`` quantizes with the leaf's global amax (a
+``pmax`` over its cut axes, which the whole B and C channels do not
+disturb), so each element rounds as the unsharded update rounds it.
+Every rank ends with the same norm.
 """
 from __future__ import annotations
 
@@ -124,12 +126,22 @@ def reduce_by_axes(values: list, axes: list, mesh, op: str):
 def global_norm(tree, mesh=None, pspecs=None) -> torch.Tensor:
     """The L2 norm of every leaf's elements; on a mesh, of the whole
     leaves, each block's squares summed over the axes its leaf is cut
-    on."""
-    sq = [torch.sum(x.float() ** 2) for x in tree_leaves(tree)]
-    if mesh is not None:
-        axes = [cut_axes(mesh, s) for s in tree_leaves(pspecs)]
-        sq = reduce_by_axes(sq, axes, mesh, "psum")
-    return torch.sqrt(sum(sq))
+    on. A leaf in mamba2's conv layout (``sharding.specs.ConvSpec``)
+    counts its cut channels so, and its trailing B and C channels,
+    whole on every rank of the last dim's axes, once."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(x.float() ** 2)
+                              for x in tree_leaves(tree)))
+    from repro_torch.sharding.specs import whole_tail
+    sq, axes = [], []
+    for x, s in zip(tree_leaves(tree), tree_leaves(pspecs)):
+        tail = whole_tail(mesh, s)
+        parts = [(x, s)] if not tail else [
+            (x[..., :-tail], s), (x[..., -tail:], tuple(s[:-1]) + (None,))]
+        for part, spec in parts:
+            sq.append(torch.sum(part.float() ** 2))
+            axes.append(cut_axes(mesh, spec))
+    return torch.sqrt(sum(reduce_by_axes(sq, axes, mesh, "psum")))
 
 
 @torch.no_grad()

@@ -17,8 +17,8 @@ beside the tokens, sliced with them. Per-layer remat follows
 ``cfg.remat``. The metrics stay on the device: reading one waits for the
 step.
 
-On a mesh (``launch/mesh.py``; the dense and moe families) the step is
-one rank's program in JAX's train layout
+On a mesh (``launch/mesh.py``; every family) the step is one rank's
+program in JAX's train layout
 (``specs.param_pspecs(cfg, mesh, "train")``): FSDP over 'data' (a
 weight's D rows; each layer gathers its weights at use), TP and EP over
 'model', data parallelism over 'pod' and 'data'. Every tree holds this
@@ -30,8 +30,12 @@ tokens that compete for capacity are those of one microbatch on one
 rank), and sums each leaf's gradient over the batch
 axes it is whole on (a gathered leaf's came summed over 'data' from the
 gather's backward) and over 'model' where each rank holds a partial one
-(``model_partial``); then the sharded ``adamw_update``. The metrics are
-the same on every rank. The step is eager: capture of a sharded step is
+(``model_partial``); then the sharded ``adamw_update``. The families'
+conditioning (encdec ``frames``, vlm ``img_embeds``) is cut over the
+batch axes with the tokens; mamba2's ``conv_w`` is a leaf of the port's
+conv layout (``specs.ConvSpec``: its xc channels cut over 'model', B and
+C whole, their gradient summed over 'model' in the backward). The
+metrics are the same on every rank. The step is eager: capture of a sharded step is
 ROADMAP Queue 1 item 3.
 """
 from __future__ import annotations
@@ -91,16 +95,25 @@ def model_partial(cfg: ModelConfig, mesh) -> set:
     each rank holds a part of: they act on what differs along 'model'
     (this rank's heads, experts). Their gradients are summed over
     'model'; every other leaf whole over 'model' acts on what is the same
-    on every rank of it, and its gradient is too."""
+    on every rank of it, and its gradient is too. Every attention group
+    counts (``layers``, encdec's ``enc_layers`` and ``dec_layers`` with
+    the cross-attention's ``wxk``/``wxv``, hybrid's unstacked
+    ``shared_attn``). mamba2's B and C, whole on every rank and read by
+    this rank's heads, are not among them: their cotangent is summed
+    over 'model' in the backward (``mamba2.ssm_block``), so ``in_B``,
+    ``in_C`` and conv_w's B and C channels come out whole."""
     r = specs.rules(cfg, mesh, "train")
     if mesh.axis_size("model") == 1:
         return set()
     out = set()
-    if r["heads"] == "model":
-        if cfg.qk_norm:
-            out |= {("layers", "q_norm"), ("layers", "k_norm")}
+    for group, leaves in specs.param_pspecs(cfg, mesh, "train").items():
+        if not isinstance(leaves, dict) or "wq" not in leaves \
+                or r["heads"] != "model":
+            continue
+        names = {"q_norm", "k_norm"}
         if r["kv_heads"] != "model":    # q gathered, K/V whole
-            out |= {("layers", "wk"), ("layers", "wv")}
+            names |= {"wk", "wv", "wxk", "wxv"}
+        out |= {(group, k) for k in names if k in leaves}
     if cfg.family == "moe" and r["expert"] == "model":
         out.add(("layers", "router"))
     return out
@@ -149,10 +162,10 @@ def reduce_grads(grads: list, cfg: ModelConfig, mesh) -> list:
 
 
 def check_train_mesh(cfg: ModelConfig, mesh) -> None:
-    """Refuse what the port does not train on a mesh yet: the families
-    outside ``models.api.TRAIN_MESH_FAMILIES`` and experts that do not
-    divide 'model' (ROADMAP Queue 1 item 3)."""
-    model_api.check_mesh(cfg, mesh, train=True)
+    """Refuse what the port does not train on a mesh yet: experts that
+    do not divide 'model' (ROADMAP Queue 1 item 3); every family of
+    ``models.api.TRAIN_MESH_FAMILIES`` trains there."""
+    model_api.module_for(cfg)
     tp = mesh.axis_size("model")
     if cfg.family == "moe" and tp > 1 and cfg.n_experts % tp:
         raise NotImplementedError(

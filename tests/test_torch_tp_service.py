@@ -25,8 +25,10 @@ blocks (``ModelPredictor.random_init(mesh=...)``).
     the mesh's decode logits within 1e-4 of the unsharded predictor's
     on the same seed (encdec: the stub frontend's one source, its cross
     K/V one copy that every lane reads, this rank's KV heads of it).
-  * Training on a mesh is refused for those four families, naming the
-    ROADMAP item (a layout-only mesh: the refusal comes before any
+  * Training on a mesh takes those four families too (held in
+    ``tests/test_torch_train_mesh_families.py``); what stays open,
+    experts that do not divide 'model', is refused, naming the ROADMAP
+    item (a layout-only mesh: the refusal comes before any
     collective).
 """
 import dataclasses
@@ -261,16 +263,15 @@ def test_other_families_round_trip_at_tp2(families_run, family):
 
 
 def test_a_mesh_is_refused_for_training():
-    """Training on a mesh takes the dense and moe families (held in
-    ``tests/test_torch_train_mesh.py``); what stays open is refused: the
-    other families, and experts that do not divide 'model'."""
+    """Training on a mesh takes every family (held in
+    ``tests/test_torch_train_mesh.py`` and
+    ``tests/test_torch_train_mesh_families.py``); what stays open is
+    refused: experts that do not divide 'model'."""
     mesh = Mesh((1, 2), ("data", "model"), rank=0)
     make_train_step(CFG, mesh)
     for family in ("ssm", "hybrid", "encdec", "vlm"):
-        cfg = ModelConfig(**dataclasses.asdict(tiny(family)))
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 3"):
-            make_train_step(cfg, mesh)
+        make_train_step(ModelConfig(**dataclasses.asdict(tiny(family))),
+                        mesh)
     moe3 = ModelConfig(**dataclasses.asdict(tiny("moe", n_experts=3)))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
         make_train_step(moe3, mesh)

@@ -230,12 +230,15 @@ def test_microbatches_average_two_value_and_grad_calls():
     with pytest.raises(ValueError):
         ploop.make_train_step(pcfg, opt=pc, num_microbatches=3)(
             params, state, {"tokens": toks})
-    # a family the port does not train on a mesh yet is refused there
-    from repro_torch.configs import mamba2_130m
+    # what the port does not train on a mesh yet is refused there:
+    # experts that do not divide 'model' (every family trains on one)
+    from repro_torch.configs import granite_moe_1b_a400m, mamba2_130m
     from repro_torch.launch.mesh import Mesh
+    mesh = Mesh((1, 2), ("data", "model"), rank=0)
+    ploop.make_train_step(mamba2_130m.SMOKE_CONFIG, mesh)
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ploop.make_train_step(mamba2_130m.SMOKE_CONFIG,
-                              Mesh((1, 2), ("data", "model"), rank=0))
+        ploop.make_train_step(granite_moe_1b_a400m.SMOKE_CONFIG.with_(
+            n_experts=3), mesh)
 
 
 def test_token_pipeline_batches_equal_jax():

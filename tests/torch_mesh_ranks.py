@@ -36,15 +36,19 @@ def _blocks(cfg, mesh, tree_np):
 
 def _case(mesh, cfg: ModelConfig, jp, batch: dict, kind: str, kw: dict):
     """One case on ``mesh``: "vg" (loss and this rank's gradient blocks),
-    "step" (``steps`` train steps, each on ``batch`` rolled by the step
-    index: the losses, grad norms and final parameter blocks, and the
+    "step" (``steps`` train steps, each on ``batch``'s tokens rolled by
+    the step index, its conditioning as it is: the losses, grad norms and final parameter blocks, and the
     same again from the start: whether the two runs agree bit for bit)
     or "adamw" (the sharded update on given gradients: ``kw["grads"]``,
     two updates)."""
     p = _blocks(cfg, mesh, jp)
     toks = torch.as_tensor(batch["tokens"]).long()
+    # the conditioning (encdec frames, vlm img_embeds) rides beside them
+    extra = {k: torch.as_tensor(v) for k, v in batch.items()
+             if k != "tokens"}
     if kind == "vg":
-        rows = ploop.rank_rows({"tokens": toks}, cfg, mesh, len(toks))
+        rows = ploop.rank_rows({"tokens": toks, **extra}, cfg, mesh,
+                               len(toks))
         loss, g = ploop.value_and_grad(p, cfg, rows, mesh=mesh,
                                        loss_block=kw.get("loss_block", 0))
         return {"loss": float(loss), "grads": _np(g)}
@@ -60,7 +64,7 @@ def _case(mesh, cfg: ModelConfig, jp, batch: dict, kind: str, kw: dict):
             losses, norms = [], []
             for s in range(kw["steps"]):
                 params, state, m = step(params, state, {
-                    "tokens": torch.roll(toks, s, dims=1)})
+                    "tokens": torch.roll(toks, s, dims=1), **extra})
                 losses.append(float(m["loss"]))
                 norms.append(float(m["grad_norm"]))
             return params, losses, norms
@@ -223,4 +227,48 @@ def elastic_world(mesh, fields: dict, ckpt_dir: str) -> dict:
     except KeyError as e:
         refused = str(e)
     out["refused"] = _all_ranks(mesh, (mesh.rank, refused))
+    return out
+
+
+def elastic_ssd_world(mesh, cases: dict) -> dict:
+    """``_elastic_ssd`` for each case (name -> (config fields, checkpoint
+    directory)) on this world."""
+    torch.set_num_threads(1)
+    return {name: _elastic_ssd(mesh, fields, ckpt_dir)
+            for name, (fields, ckpt_dir) in cases.items()}
+
+
+def _elastic_ssd(mesh, fields: dict, ckpt_dir: str) -> dict:
+    """An ssm or hybrid training state on this world's mesh (2, 2) after
+    one step (so that m and v are not zero), saved; then restored onto
+    (1, 4) and (4, 1) in the train layout and (1, 4) in the serve
+    layout (parameters, m and v). Returns {"saved": every rank's (rank,
+    its state's blocks as numpy), (shape, layout): every rank's (rank,
+    restored blocks)}."""
+    from repro_torch.train.checkpoint import restore_latest, save_checkpoint
+    cfg = ModelConfig(**fields)
+    opt = popt.AdamWConfig(learning_rate=1e-3, warmup_steps=1)
+    params, state = ploop.init_train_state(cfg, 0, "cpu", opt, mesh=mesh)
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (4, 16))
+    params, state, _ = ploop.make_train_step(cfg, mesh, opt=opt,
+                                             global_batch=4)(
+        params, state, {"tokens": toks})
+    sspecs = ploop.state_specs(cfg, mesh, opt)
+    save_checkpoint(ckpt_dir, 1, {
+        "params": params, "opt": state,
+        "pipe": {"step": np.asarray(1, np.int64)}}, mesh=mesh, specs=sspecs)
+    mine = {"params": params, "m": state["m"], "v": state["v"]}
+    out = {"saved": _all_ranks(mesh, (mesh.rank, _np(mine)))}
+    for shape, layout in (((1, 4), "train"), ((4, 1), "train"),
+                          ((1, 4), "serve")):
+        m = Mesh(shape, ("data", "model"))
+        p = specs.init_params_sharded(cfg, m, 1, "cpu", layout=layout)
+        sp = specs.param_pspecs(cfg, m, layout)
+        like = {"params": p, "opt": {"m": p, "v": p}}
+        got, step = restore_latest(ckpt_dir, like, mesh=m, specs={
+            "params": sp, "opt": {"m": sp, "v": sp}})
+        assert step == 1
+        blocks = {"params": got["params"], "m": got["opt"]["m"],
+                  "v": got["opt"]["v"]}
+        out[(shape, layout)] = _all_ranks(m, (m.rank, _np(blocks)))
     return out
