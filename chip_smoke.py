@@ -303,7 +303,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    with the share of equal top-48 ids printed. None of these times is a
    measure of tensor parallelism over NCCL on separate cards
    (``python -m repro_torch.launch.mesh_probe`` profiles such steps and
-   the collectives, outside this script's time limit).
+   the collectives, outside this script's time limit). 24h, long-context
+   decode (``LONG_CONFIGS``; 4 ranks on (data 2, model 2), batch 1, so
+   the cache's sequence is cut over 'data'): ``h2o-danube-3-4b`` whole
+   with its 4,096-slot ring past the wrap, bf16 and int8, and
+   ``zamba2-7b`` cut to 26 layers at 524,288 positions near their end,
+   each cache put at its position by seeded rows (``_fill_long_cache``);
+   ``make_serve_step``'s 8 steps (the partial kernels' launches
+   required), their host and device ms, collectives and peak memory;
+   the same steps' logits against the unsharded steps on the same cache
+   on rank 0 (SCORE_TOL; zamba2 through its fp32 twin), every rank's
+   outputs rank 0's; the control: the same steps with the 'data' 1
+   ranks' partials left out of every combine (``_long_dropped``) must
+   fail that check (the V rows carry an offset along the cache,
+   ``LONG_V_OFFSET``, so every slice counts). Beside phases 14-18,
+   ``python -m
+   repro_torch.launch.dryrun`` traces the three cells this slice
+   unblocks on the meta device (``DRYRUN_CELLS``; exit code 0 and no
+   ``.err`` required).
 25. Training on a mesh (4 ranks sharing the card over gloo, FSDP 2 over
    'data' x TP / EP 2 over 'model'; ``TRAIN_MESH``): 25a the training
    driver ``python -m repro_torch.launch.train`` as a user runs it,
@@ -336,7 +353,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    before phase 19. 25d's zamba2 and llava (39 and 67 GiB over their
    ranks) run beside the kernels' build, while the card holds nothing
    else, and have ended before phase 2; its whisper and mamba2 and
-   mamba2's serving run on a thread beside phases 19-22 and have ended
+   mamba2's serving run on a thread beside phases 19-22, then 24h once
+   phases 19-20 have let go of the card (``LONG_GO``), and have ended
    before phase 23.
 12. Last, one JSON line describing every kernel (its ``launches`` from
    the main path that runs it: phase 3 for ``decode_attention`` and
@@ -348,7 +366,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    config, ``launches_phase21_22`` per phase 21-22 config and
    ``launches_phase23``, phase 23's kernel forwards per config;
    ``launches_phase24`` per phase 24 config, rank 0's, and
-   ``launches_phase24_scoring``, its scoring's;
+   ``launches_phase24_scoring``, its scoring's; ``launches_phase24h``
+   per 24h config, rank 0's, and the partial kernels' ``shapes_24h``
+   (their checks at 24h's rank shapes);
    ``launches_phase25``, 25c's round trips at TP 2 (rank 0) and
    unsharded, and 25d's of mamba2's trained checkpoint with its
    scoring; the partial form's ``launches`` from 24c), then the
@@ -362,7 +382,8 @@ for the time limit: each phase's fresh-process decompression from its
 end until it is read back before a phase that needs most of the card
 (14, 19, zamba2-7b's training in 23), 25a beside phases 4-13, phases 24
 and 25b-c beside phases 15-18, 25d beside the build (zamba2, llava) and
-phases 19-22 (whisper, mamba2). The script's own process makes every
+phases 19-22 (whisper, mamba2, then 24h), the dry run's cells beside
+phases 14-18. The script's own process makes every
 CUDA call from its main thread.
 
 The CLI's ``pred-*`` predictors train at first use: phase 7 trains
@@ -384,6 +405,7 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1101,6 +1123,18 @@ def phase_kernels(gen, probe_chunks: int) -> dict:
          ((16, PRED_BASE.n_heads, PRED_BASE.padded_kv_heads,
            PRED_BASE.head_dim, mesh_cache_len(MESH_SEQ_INT8)),
           torch.float32, gen, 8, True)),
+        # phase 24h's rank shapes at (data 2, model 2), batch 1 (two
+        # lanes here: one of one position, one full): h2o's ring of
+        # 4,096 in 2 slices over 'data' (16 of 32 heads over 4 of 8 KV
+        # heads, hd 120), both builds; zamba2's 524,288 positions in 2
+        # slices (16 of 32 heads and KV heads, hd 112)
+        ("decode_attention_partial@24h-h2o", check_partial,
+         ((2, h2o[0] // 2, h2o[1] // 2, h2o[2], W), bf, gen, 2)),
+        ("decode_attention_partial_int8@24h-h2o", check_partial,
+         ((2, h2o[0] // 2, h2o[1] // 2, h2o[2], W), bf, gen, 2, True)),
+        ("decode_attention_partial@24h-zamba2", check_partial,
+         ((2, zh // 2, ZAMBA.padded_kv_heads // 2, zhd, 524_288), bf, gen,
+          2)),
         ("decode_attention_partial@qwen3-moe-S128", check_partial,
          ((16,) + qmoe + (S,), bf, gen, 8)),
         ("decode_attention_partial@qwen3-moe-S4096", check_partial,
@@ -1877,6 +1911,19 @@ def _compare_logits(what: str, scored, decoded, tol=SCORE_TOL,
     """max |scored - decoded| <= tol x max |decoded|; or, given the
     decode program's logits in fp32 (``fp32_twin``), mean and max
     |scored - decoded| <= 2 x those of |decoded - fp32_twin|."""
+    r, ok, held = _logit_distance(scored, decoded, tol, fp32_twin)
+    log(f"[score] {what}: max |dlogit| {r['max_abs_diff']:.4g} ({held}), "
+        f"mean {r['mean_abs_diff']:.3g}; top-1 ids agree "
+        f"{r['top1_agree']:.4f}, top-48 id sets agree "
+        f"{r['top48_sets_agree']:.4f}")
+    if not ok:
+        fail(f"{what}: scoring disagrees with the decode program: {r}")
+    return r
+
+
+def _logit_distance(scored, decoded, tol=SCORE_TOL, fp32_twin=None):
+    """(the distances, whether ``_compare_logits`` holds them, what they
+    are held to)."""
     import torch
     a, b = scored.float(), decoded.float()
     diff = (a - b).abs()
@@ -1901,13 +1948,7 @@ def _compare_logits(what: str, scored, decoded, tol=SCORE_TOL,
                 f"{r['twin_max_abs_diff']:.4g}")
         ok = r["mean_abs_diff"] <= 2 * r["twin_mean_abs_diff"] \
             and r["max_abs_diff"] <= 2 * r["twin_max_abs_diff"]
-    log(f"[score] {what}: max |dlogit| {r['max_abs_diff']:.4g} ({held}), "
-        f"mean {r['mean_abs_diff']:.3g}; top-1 ids agree "
-        f"{r['top1_agree']:.4f}, top-48 id sets agree "
-        f"{r['top48_sets_agree']:.4f}")
-    if not ok:
-        fail(f"{what}: scoring disagrees with the decode program: {r}")
-    return r
+    return r, ok, held
 
 
 def _decode_logits(pred, chunks, prefix=None):
@@ -3980,6 +4021,354 @@ def phase_mesh() -> dict:
     return out
 
 
+# --------------------------------------------------------- phase 24h
+#: long-context decode on a (data 2, model 2) mesh, 4 ranks sharing the
+#: card over gloo, at batch 1: a batch that does not divide 'data' puts
+#: the cache's sequence over it (JAX's ``cache_pspecs``), each rank
+#: attending its slice through the partial kernel at per-lane lengths,
+#: the slices merged by their LSE over 'data'. (phase, config spec,
+#: cache length, the lane's position, an fp32 twin): h2o-danube-3-4b
+#: whole, its 4,096-slot ring past the wrap (2,048 slots a rank; 8 KV
+#: heads, 4 a rank over 'model'), with the model dtype's and the int8
+#: cache; zamba2-7b cut to 26 layers (two applications of its shared
+#: block) at JAX's long_500k cell, S 524,288 (262,144 slots a rank, 16
+#: of 32 KV heads, the SSM state whole along the lane on every rank),
+#: near its end. Each cache is put at its position by writing seeded
+#: random rows (and SSM state), in place of a prefill of that many
+#: steps. Memory: zamba2@26's K/V are 2 x 2 x 32 x 112 x 2 B x 524,288
+#: = 15.0 GB (3.76 GB a rank), its weights 2.59 GB a rank; the
+#: unsharded reference 4.9 + 15.0 GB and its fp32 twin 9.8 + 30.1 GB,
+#: on rank 0 after the others have let go.
+LONG_CONFIGS = (
+    ("24h-h2o", "h2o-danube-3-4b", 4096, 10_000, False),
+    ("24h-h2o-int8", "h2o-danube-3-4b+int8", 4096, 10_000, False),
+    ("24h-zamba2", "zamba2-7b@26", 524_288, 524_288 - 16, True))
+LONG_STEPS = 8
+#: slots of one seeded draw of K/V rows (the same draws fill a rank's
+#: slice and the unsharded cache)
+LONG_DRAW = 4096
+#: the V rows' offset along the cache, LONG_V_OFFSET x cos(pi (slot +
+#: 1/2) / S) times a seeded vector a layer and KV head: the slices of
+#: the cache attend to different means (random rows alone average to
+#: about 0 over any slice), so a slice left out of the combine, or
+#: attended at the wrong place, moves the logits
+LONG_V_OFFSET = 2.0
+#: set once phases 19-20 have let go of the card (qwen3-moe's 45 GB):
+#: 24h, beside phases 21-22, waits for it (its ranks hold 31 GB, and
+#: rank 0's fp32 twin 37 GB)
+LONG_GO = threading.Event()
+
+
+def _fill_long_cache(cache, cfg, mesh, S: int, pos0: int) -> None:
+    """Put a cache of one lane at position ``pos0`` in place: every K/V
+    row (int8: quantized, with its scale) drawn from a generator seeded
+    by (leaf, layer, block of LONG_DRAW slots), so that a rank's slice
+    (``mesh``: its slots, ``specs.seq_block``, and its KV heads) and the
+    unsharded cache (``mesh`` None) hold the same values, each V row
+    offset by its slot (``LONG_V_OFFSET``); the SSM state and conv rows
+    likewise per layer, this rank's heads and channels."""
+    import math
+    import torch
+    from repro_torch.models.transformer import _quant_kv
+    from repro_torch.sharding import specs
+    dev = cache["pos"].device
+    Kp, hd = cfg.padded_kv_heads, cfg.head_dim
+    S = min(S, cfg.sliding_window) if cfg.sliding_window else S
+    lo, n = (0, S) if mesh is None else specs.seq_block(
+        cfg, mesh, S, lanes_cut=False)
+    kn = cache["k"].shape[3]
+    k0 = 0 if kn == Kp else mesh.axis_index("model") * kn
+    int8 = cfg.kv_cache_dtype == "int8"
+
+    def gen(leaf: int, layer: int, block: int = 0):
+        g = torch.Generator(device=dev)
+        g.manual_seed((leaf * 1_000 + layer) * 1_000_000 + block)
+        return g
+    for li in range(cache["k"].shape[0]):
+        u = torch.randn((Kp, hd), device=dev, generator=gen(4, li))[
+            k0:k0 + kn] * LONG_V_OFFSET
+        for c in range(lo // LONG_DRAW, (lo + n - 1) // LONG_DRAW + 1):
+            a, b = max(lo, c * LONG_DRAW), min(lo + n, (c + 1) * LONG_DRAW)
+            for j, name in enumerate(("k", "v")):
+                x = torch.randn((1, LONG_DRAW, Kp, hd), device=dev,
+                                generator=gen(j, li, c))[
+                    :, a - c * LONG_DRAW:b - c * LONG_DRAW, k0:k0 + kn]
+                if name == "v":
+                    slot = torch.arange(a, b, device=dev) + 0.5
+                    x = x + torch.cos(slot * (math.pi / S))[
+                        None, :, None, None] * u
+                if int8:
+                    q, sc = _quant_kv(x)
+                    cache[name][li, :, a - lo:b - lo] = q
+                    cache[f"{name}_scale"][li, :, a - lo:b - lo] = sc
+                else:
+                    cache[name][li, :, a - lo:b - lo] = x.to(
+                        cache[name].dtype)
+    if "state" in cache:
+        H, hn = cfg.ssm_heads, cache["state"].shape[2]
+        h0 = 0 if hn == H else mesh.axis_index("model") * hn
+        width = cfg.ssm_d_inner + 2 * cfg.ssm_state
+        for li in range(cache["state"].shape[0]):
+            st = torch.randn((1, H) + tuple(cache["state"].shape[3:]),
+                             device=dev, generator=gen(2, li)) * 0.5
+            cache["state"][li] = st[:, h0:h0 + hn]
+            cv = torch.randn((1, cfg.ssm_conv - 1, width), device=dev,
+                             generator=gen(3, li)) * 0.5
+            if cache["conv"].shape[-1] != width:
+                cv = specs.cut_conv(cv, cfg, mesh, "model")
+            cache["conv"][li] = cv.to(cache["conv"].dtype)
+    cache["pos"].fill_(pos0)
+
+
+def _long_prev(cfg):
+    import numpy as np
+    import torch
+    return torch.as_tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab_size - 1, LONG_STEPS), device="cuda").long()
+
+
+def long_rank(mesh, spec: str, S: int, pos0: int) -> dict:
+    """24h on one rank for config ``spec``: its blocks of the weights
+    drawn from seed 0, its slice of a cache of one lane put at ``pos0``
+    (``_fill_long_cache``). The main path, launch counts reset just
+    before and read just after: ``make_serve_step``'s LONG_STEPS steps
+    (the partial kernel required); one more under the profiler (device
+    ms); then the same steps from the same cache through the serve
+    step's model call (``steps.decode_logits``), the logits gathered:
+    returned with every rank's outputs checked equal to rank 0's."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.serve import steps
+    from repro_torch.sharding import specs
+    cfg = config(spec)
+    me = f"[long] {spec} rank {mesh.rank}"
+    int8 = cfg.kv_cache_dtype == "int8"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = specs.init_params_sharded(cfg, mesh, 0, "cuda")
+    prev = _long_prev(cfg)
+
+    def fresh():
+        cache = api.init_cache(cfg, 1, S, device="cuda", mesh=mesh)
+        _fill_long_cache(cache, cfg, mesh, S, pos0)
+        return cache
+    cache = fresh()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    serve = steps.make_serve_step(cfg, mesh, batch=1, topk=48)
+    ops.reset_launches()
+    calls0, bytes0 = mesh.calls, mesh.bytes
+    t0 = time.perf_counter()
+    ids, qs = [], []
+    for t in range(LONG_STEPS):
+        i, q, cache = serve(params, cache, prev[t:t + 1])
+        ids.append(i)
+        qs.append(q)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / LONG_STEPS * 1e3
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    calls = (mesh.calls - calls0) / LONG_STEPS
+    mib = (mesh.bytes - bytes0) / LONG_STEPS / 2**20
+    need = "decode_attention_partial" + ("_int8" if int8 else "")
+    if launches.get(need, 0) <= 0:
+        fail(f"{me}: the main path launched {need} no time: {launches}")
+    dev_ms = step_device_ms(lambda: serve(params, cache, prev[:1]))
+    del cache
+    cache = fresh()
+    logits = []
+    with torch.no_grad():
+        for t in range(LONG_STEPS):
+            lg = steps.decode_logits(params, cfg, cache, prev[t:t + 1],
+                                     mesh)
+            logits.append(lg.whole().float())
+    logits = torch.stack(logits, dim=1).cpu()
+    del cache
+    cache = fresh()
+    control = _long_dropped(params, cfg, cache, prev, mesh)
+    ids, qs = torch.stack(ids).cpu(), torch.stack(qs).cpu()
+    if not mesh.agree(b"".join(x.numpy().tobytes()
+                               for x in (ids, qs, logits))):
+        fail(f"{me}: this rank's outputs differ from another rank's")
+    peak = torch.cuda.max_memory_allocated()
+    local = {k: tuple(v.shape) for k, v in cache.items()}
+    del params, cache
+    _free_card()
+    out = dict(launches=launches, host_ms=host_ms, device_ms=dev_ms,
+               idle=None if dev_ms is None else 1 - dev_ms / host_ms,
+               collectives_per_step=calls, collective_mib_per_step=mib,
+               peak_gib=peak / 2**30, init_s=t_init, logits=logits,
+               control=control, ids=ids, local=local)
+    log(f"{me}: cache {local}; {LONG_STEPS} serve steps at "
+        f"{host_ms:.1f} ms host ({_ms(dev_ms)} device, idle "
+        f"{_idle(dev_ms, host_ms)}), "
+        f"{calls:.1f} collectives a step ({mib:.3f} MiB), launches "
+        f"{launches}; peak {peak / 2**30:.2f} GiB; every rank's outputs "
+        f"rank 0's")
+    return out
+
+
+def _long_dropped(params, cfg, cache, prev, mesh):
+    """The control of 24h: the same steps with the partial of the ranks
+    at 'data' index 1 (half the cache's slices) left out of every
+    combine (``transformer.combine_partials``); logits (1, LONG_STEPS,
+    V) on the host."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serve import steps
+    whole = transformer.combine_partials
+
+    def dropped(mesh, o, lse, axes=("model",)):
+        if "data" in axes and mesh.axis_index("data") == 1:
+            o, lse = torch.zeros_like(o), torch.full_like(lse,
+                                                          float("-inf"))
+        return whole(mesh, o, lse, axes)
+    transformer.combine_partials = dropped
+    try:
+        out = [steps.decode_logits(params, cfg, cache, prev[t:t + 1], mesh)
+               .whole().float() for t in range(LONG_STEPS)]
+    finally:
+        transformer.combine_partials = whole
+    return torch.stack(out, dim=1).cpu()
+
+
+def long_whole(spec: str, S: int, pos0: int, fp32: bool = False):
+    """The unsharded reference of ``long_rank`` on one device: the whole
+    model from seed 0 (``fp32``: its fp32 twin) over the whole cache
+    filled with the same rows, LONG_STEPS decode steps; logits (1,
+    LONG_STEPS, V) on the host."""
+    import torch
+    from repro_torch.models import api
+    cfg = config(spec)
+    if fp32:
+        cfg = cfg.with_(dtype="float32")
+    prev = _long_prev(cfg)
+    params = api.init_params(cfg, 0, "cuda")
+    cache = api.init_cache(cfg, 1, S, device="cuda")
+    _fill_long_cache(cache, cfg, None, S, pos0)
+    out = []
+    with torch.no_grad():
+        for t in range(LONG_STEPS):
+            lg, _ = api.decode_step(params, cfg, cache, prev[t:t + 1])
+            out.append(lg[..., :cfg.vocab_size].float())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache
+    _free_card()
+    return torch.stack(out, dim=1).cpu(), peak
+
+
+def long_world(mesh, configs) -> dict:
+    """24h: every config of ``configs`` on this world's ranks in turn,
+    then, on rank 0 alone, each against its unsharded reference (and
+    its fp32 twin, where asked) within SCORE_TOL of max |logit|
+    (through the twin: mean and max |difference| within twice the bf16
+    reference's distance from it, as 24e holds zamba2). Returns rank
+    0's results."""
+    import torch
+    torch.set_grad_enabled(False)
+    res = {}
+    for phase, spec, S, pos0, _ in configs:
+        t0 = time.perf_counter()
+        res[phase] = long_rank(mesh, spec, S, pos0)
+        if mesh.rank == 0:
+            log(f"[time] {phase} {spec} on the mesh: "
+                f"{time.perf_counter() - t0:.1f} s")
+    if mesh.rank != 0:
+        return {}
+    for phase, spec, S, pos0, twin in configs:
+        t0 = time.perf_counter()
+        r = res[phase]
+        torch.cuda.reset_peak_memory_stats()
+        whole, peak = long_whole(spec, S, pos0)
+        tw = None
+        if twin:
+            torch.cuda.reset_peak_memory_stats()
+            tw, peak32 = long_whole(spec, S, pos0, fp32=True)
+            r["twin_peak_gib"] = peak32 / 2**30
+        r["vs_unsharded"] = _compare_logits(
+            f"24h {spec}: the (2, 2) mesh's {LONG_STEPS} steps at position "
+            f"{pos0} vs the unsharded steps", r["logits"], whole,
+            fp32_twin=tw)
+        # the control: with half the slices left out, the same check
+        # must fail
+        ctl, held, _ = _logit_distance(r.pop("control"), whole,
+                                       fp32_twin=tw)
+        r["control_dropped_half"] = ctl
+        log(f"[long] 24h {spec} control, the 'data' 1 ranks' partials "
+            f"left out: max |dlogit| {ctl['max_abs_diff']:.4g}, mean "
+            f"{ctl['mean_abs_diff']:.3g}")
+        if held:
+            fail(f"24h {spec}: the steps with half the cache's slices left "
+                 f"out pass the check against the unsharded steps: it "
+                 f"cannot see a lost slice ({ctl})")
+        mine = r["ids"][:, 0].long().sort(dim=-1).values
+        want = whole[0].topk(48, dim=-1).indices.sort(dim=-1).values
+        r["ids_equal"] = (mine == want).all(-1).float().mean().item()
+        r["whole_peak_gib"] = peak / 2**30
+        r.pop("logits")
+        r.pop("ids")
+        log(f"[time] {phase} unsharded reference: "
+            f"{time.perf_counter() - t0:.1f} s; the share of steps whose "
+            f"top-48 id set equals the unsharded's: {r['ids_equal']:.3f}")
+    return res
+
+
+def phase_long_context() -> dict:
+    """Phase 24h (``long_world`` in one world of (data 2, model 2))."""
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    out = run_ranks(long_world, (2, 2), ("data", "model"), backend="gloo",
+                    device="cuda", args=(LONG_CONFIGS,), timeout=900)
+    log(f"[time] 24h world: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+#: the dry run's cells this slice unblocks (JAX's long_500k cell for a
+#: ring and a hybrid, and qwen3-moe's train-layout scoring, from probes)
+DRYRUN_CELLS = (("h2o_danube_3_4b", "long_500k", "single", "auto"),
+                ("zamba2_7b", "long_500k", "multi", "auto"),
+                ("qwen3_moe_235b_a22b", "prefill_32k", "single", "on"))
+
+
+def start_dryrun() -> list:
+    """``python -m repro_torch.launch.dryrun`` for DRYRUN_CELLS, one
+    process each (the meta device: no card), beside the next phases."""
+    out = ROOT / "build" / "chip_smoke" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+         "--shape", sh, "--mesh", m, "--probe", probe, "--force",
+         "--results", str(out)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for a, sh, m, probe in DRYRUN_CELLS]
+
+
+def finish_dryrun(procs: list) -> dict:
+    """Wait for ``start_dryrun``'s processes: every exit code 0, every
+    cell's JSON written with no ``.err``; returns each cell's memory,
+    FLOPs and collectives."""
+    out = ROOT / "build" / "chip_smoke" / "dryrun"
+    res = {}
+    for (a, sh, m, _), p in zip(DRYRUN_CELLS, procs):
+        text, _ = p.communicate(timeout=600)
+        if p.returncode != 0:
+            fail(f"dry run {a} {sh} {m}: exit {p.returncode}\n"
+                 f"{text[-3000:]}")
+        cell = json.loads((out / f"{a}__{sh}__{m}.json").read_text())
+        res[f"{a}/{sh}/{m}"] = dict(
+            trace_s=cell["lower_s"],
+            bytes_per_device=cell["memory"]["bytes_per_device"],
+            flops=cell["flops"]["total"],
+            collective_bytes=cell["collectives"]["total_bytes"],
+            bottleneck=cell["roofline"]["bottleneck"])
+        log(f"[dryrun] {a} {sh} {m}: exit 0, {res[f'{a}/{sh}/{m}']}")
+    if list(out.glob("*.err")):
+        fail(f"dry run: error sidecars {sorted(out.glob('*.err'))}")
+    return res
+
+
 # ---------------------------------------------------------- phase 25
 #: training on a mesh, the ranks sharing the one card over gloo (a step's
 #: FSDP gathers and their reduce-scatters go through the host): 25a the
@@ -4637,9 +5026,10 @@ def beside_19_22(times: dict) -> dict:
     """25d's whisper and mamba2 (``TRAIN_MESH_FAMILIES``: whisper's 13
     GiB beside phase 19's 12, before phase 20's 45), then mamba2's
     trained checkpoint served (``train_mesh_serve_ssm``, a world of (1,
-    2)), on a thread beside phases 19-22, as ``beside_15_18`` runs its
-    phases; ended before phase 23 (zamba2@29's 66 GiB). Returns {name:
-    rank 0's results, "25d-serve": ...}."""
+    2)), then phase 24h once phases 19-20 are done (LONG_GO), on a
+    thread beside phases 19-22, as ``beside_15_18``
+    runs its phases; ended before phase 23 (zamba2@29's 66 GiB).
+    Returns {name: rank 0's results, "25d-serve": ..., "24h": ...}."""
     from repro_torch.data.synthetic import human_like
     from repro_torch.launch.mesh import run_ranks
     t0 = time.perf_counter()
@@ -4655,7 +5045,12 @@ def beside_19_22(times: dict) -> dict:
     times["25d serving mamba2's checkpoint"] = round(
         time.perf_counter() - t0, 1)
     shutil.rmtree(TRAIN_MESH_WORK, ignore_errors=True)
-    for name in ("25d whisper, mamba2", "25d serving mamba2's checkpoint"):
+    LONG_GO.wait()
+    t0 = time.perf_counter()
+    out["24h"] = phase_long_context()
+    times["24h long-context decode"] = round(time.perf_counter() - t0, 1)
+    for name in ("25d whisper, mamba2", "25d serving mamba2's checkpoint",
+                 "24h long-context decode"):
         log(f"[time] {name}: {times[name]} s (beside phases 19-22)")
     return out
 
@@ -4790,6 +5185,8 @@ def main() -> int:
         finally:
             driver.stop()
         timed("3, 8 fresh processes, their end", join_fresh)
+        # the dry run's cells (the meta device, no card) beside 14-18
+        dry = start_dryrun()
         timed("14 qwen3-1.7b training", phase_train_full_width)
         # phases 24 and 25 (25b, 25c) on a thread beside phases 15-18
         _free_card()
@@ -4805,16 +5202,24 @@ def main() -> int:
                                      beside.result)
         finally:
             beside.join()
+        dryrun = timed("dry run, its end, after phase 18", finish_dryrun,
+                       dry)
         timed("15, 17 fresh processes, their end", join_fresh)
-        # 25d's whisper and mamba2, and mamba2's serving, beside 19-22
+        # 25d's whisper and mamba2, mamba2's serving, and phase 24h
+        # beside 19-22
         beside = _Beside(beside_19_22, times)
         try:
             moe = timed("19+20 moe configs", phase_moe_configs)
+            _free_card()
+            LONG_GO.set()               # 24h may take the card now
             cond = timed("21+22 vlm and encdec configs",
                          phase_conditioned_configs)
-            families = timed("25d its end, after phase 22", beside.result)
+            families = timed("24h, 25d their end, after phase 22",
+                             beside.result)
         finally:
+            LONG_GO.set()
             beside.join()
+        long_ctx = families.pop("24h")
         train_mesh.update(alone, **families)
         trained = timed("23 training of the other families",
                         phase_train_families, join_fresh)
@@ -4863,6 +5268,10 @@ def main() -> int:
                # phase 24's round trips on a mesh, rank 0's counts
                "launches_phase24": {a: int(d["launches"].get(name, 0))
                                     for a, d in mesh.items()},
+               # phase 24h's serve steps at batch 1 on (data 2, model
+               # 2), rank 0's
+               "launches_phase24h": {a: int(d["launches"].get(name, 0))
+                                     for a, d in long_ctx.items()},
                # phase 24's scoring on the mesh (the score step's
                # forward), rank 0's: 24d-g's ssd_intra at a rank's heads
                "launches_phase24_scoring": {
@@ -4899,7 +5308,16 @@ def main() -> int:
         if "bf16_kernel_ms" in r:
             row.update(bf16_kernel_ms=r["bf16_kernel_ms"],
                        bf16_kernel_device_ms=r["bf16_kernel_device_ms"])
+        at_24h = {k.split("@")[1]: {f: v[f] for f in (
+            "ms", "device_ms", "bound_ms", "bound_by", "plain_ms",
+            "library_ms", "library_device_ms", "max_abs_err")}
+            for k, v in kern.items()
+            if k.split("@")[0] == name and "@24h" in k}
+        if at_24h:
+            row["shapes_24h"] = at_24h
         rows.append(row)
+    log(f"[long] 24h, rank 0: {json.dumps(long_ctx)}")
+    log(f"[dryrun] {json.dumps(dryrun)}")
     log(f"[done] every phase in {time.perf_counter() - t_run:.1f} s, the "
         f"build included; by phase {times}")
     log(json.dumps({"kernels": rows}))

@@ -11,6 +11,15 @@ the card its result, written through ``data_ptr()``, would carry no
 ``grad_fn``, and training would lose that gradient without an error.
 The training forward runs ``models/layers.py attention_masked`` instead.
 
+Inside a ``meta_trace`` block (the dry run, ``launch/dryrun.py``, which
+traces a step without data), a tensor on the ``meta`` device gets the
+kernel's output shapes and dtypes on ``meta`` and nothing computed: not
+a fallback, since nothing there has values. The wrapper also adds the
+kernel's FLOPs, from a formula of its shapes (``META_FLOPS``), to the
+list the block hands out, where a dry run counts them beside
+``FlopCounterMode``'s. Outside such a block a meta tensor takes the
+CUDA branch, as any tensor off the CPU does (and is refused there).
+
 Each wrapper checks device, dtype, shape and strides, launches, checks
 the ``cudaError_t`` the C entry point returns (a refused launch never
 runs, and a later synchronise would not report it), and adds one to its
@@ -29,6 +38,7 @@ went through the kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
@@ -45,6 +55,67 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+#: the (kernel, flops) of each wrapper call on the meta device while a
+#: ``meta_trace`` block is open, else None
+_META_COSTS = None
+
+
+@contextlib.contextmanager
+def meta_trace():
+    """Open the wrappers' meta path: inside the block a wrapper given
+    meta tensors returns its outputs' shapes and appends (name, flops)
+    to the list the block hands out (the kernels' FLOPs of a traced
+    step, ``META_FLOPS``'s formulas, which ``FlopCounterMode`` cannot
+    see)."""
+    global _META_COSTS
+    prev, _META_COSTS = _META_COSTS, []
+    try:
+        yield _META_COSTS
+    finally:
+        _META_COSTS = prev
+
+
+def _causal_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """(query, key) pairs a prefill attention scores: all Sq x Sk, or,
+    causal (query i sees keys up to i + Sk - Sq), at most ``window`` a
+    query."""
+    if not causal:
+        return Sq * Sk
+    a = Sk - Sq + 1                      # keys of query 0
+    w = window or Sk
+    m = max(0, min(Sq, w - a + 1))       # queries below the window
+    return m * a + m * (m - 1) // 2 + (Sq - m) * w
+
+
+#: a kernel's FLOPs from its call's shapes (2 per multiply-add of its
+#: products; the CDF kernels 4 per logit: exp, two sums, a compare). The
+#: decode kernels count every allocated position: on the meta device
+#: the live lengths have no values.
+META_FLOPS = {
+    "decode": lambda q, k: 4 * q.shape[0] * q.shape[1] * k.shape[1]
+    * q.shape[2],
+    "flash": lambda q, k, causal, window: 4 * q.shape[0] * q.shape[1]
+    * q.shape[3] * _causal_pairs(q.shape[2], k.shape[2], causal, window),
+    "cdf": lambda logits: 4 * logits.numel(),
+    "ssd": lambda x, Bm: 2 * x.shape[0] * x.shape[1] * (
+        x.shape[1] * Bm.shape[2] + x.shape[1] * x.shape[2] * x.shape[3]
+        + Bm.shape[2] * x.shape[2] * x.shape[3]),
+}
+
+
+def _meta(name: str, flops: int, *outs):
+    """The meta path's outputs (``outs``), its FLOPs recorded."""
+    if _META_COSTS is not None:
+        _META_COSTS.append((name, int(flops)))
+    return outs[0] if len(outs) == 1 else outs
+
+
+def _on_meta(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the meta path: on the meta device, inside a
+    ``meta_trace`` block."""
+    return _META_COSTS is not None and t.device.type == "meta"
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -144,6 +215,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return ref.decode_attention(q, k_cache, v_cache, lengths)
+    if _on_meta(q):
+        return _meta("decode_attention", META_FLOPS["decode"](q, k_cache),
+                     torch.empty_like(q))
     _check_cuda("decode_attention", q, k_cache, v_cache, lengths)
     _check_decode("decode_attention", q, k_cache, v_cache, lengths)
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
@@ -187,6 +261,9 @@ def decode_attention_int8(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return ref.decode_attention_int8(q, k_cache, v_cache, k_scale,
                                          v_scale, lengths)
+    if _on_meta(q):
+        return _meta(name, META_FLOPS["decode"](q, k_cache),
+                     torch.empty_like(q))
     _check_int8(name, q, k_cache, v_cache, k_scale, v_scale, lengths)
     B, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
@@ -253,6 +330,8 @@ def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
     _refuse_grad(name, q, k_cache, v_cache)
     if q.device.type == "cpu":
         return ref.decode_attention_partial(q, k_cache, v_cache, lengths)
+    if _on_meta(q):
+        return _meta(name, META_FLOPS["decode"](q, k_cache), *_partial_out(q))
     _check_cuda(name, q, k_cache, v_cache, lengths)
     _check_decode(name, q, k_cache, v_cache, lengths)
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
@@ -290,6 +369,8 @@ def decode_attention_partial_int8(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return ref.decode_attention_partial_int8(q, k_cache, v_cache,
                                                  k_scale, v_scale, lengths)
+    if _on_meta(q):
+        return _meta(name, META_FLOPS["decode"](q, k_cache), *_partial_out(q))
     _check_int8(name, q, k_cache, v_cache, k_scale, v_scale, lengths)
     B, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
@@ -352,6 +433,11 @@ def topk_cdf(logits: torch.Tensor, k: int, precision: int):
     _refuse_grad("topk_cdf", logits)
     if logits.device.type == "cpu":
         return ref.topk_cdf(logits, k, precision)
+    if _on_meta(logits):
+        R = logits.shape[0]
+        return _meta("topk_cdf", META_FLOPS["cdf"](logits),
+                     logits.new_empty((R, k), dtype=torch.int32),
+                     logits.new_empty((R, k + 2), dtype=torch.int32))
     _check_logits("topk_cdf", logits)
     R, V = logits.shape
     if not 1 <= k <= min(V, 256) or not 1 <= precision <= 24 \
@@ -413,6 +499,9 @@ def cdf_points(logits: torch.Tensor, precision: int) -> torch.Tensor:
     _refuse_grad("cdf_points", logits)
     if logits.device.type == "cpu":
         return ref.cdf_points(logits, precision)
+    if _on_meta(logits):
+        return _meta("cdf_points", META_FLOPS["cdf"](logits),
+                     logits.new_empty(logits.shape, dtype=torch.int32))
     _check_logits("cdf_points", logits)
     R, V = logits.shape
     if not 1 <= precision <= 24 or (1 << precision) <= V:
@@ -468,6 +557,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal, window)
+    if _on_meta(q):
+        B, H, Sq, hd = q.shape
+        return _meta("flash_attention",
+                     META_FLOPS["flash"](q, k, causal, window),
+                     q.new_empty((B, Sq, H, hd)).transpose(1, 2))
     _check_cuda("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
@@ -545,6 +639,12 @@ def ssd_intra(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _refuse_grad("ssd_intra", x, dt, A, Bm, Cm)
     if x.device.type == "cpu":
         return ref.ssd_intra(x, dt, A, Bm, Cm)
+    if _on_meta(x):
+        R, Q, H, P = x.shape
+        f32 = dict(dtype=torch.float32)
+        return _meta("ssd_intra", META_FLOPS["ssd"](x, Bm),
+                     x.new_empty((R, Q, H, P), **f32),
+                     x.new_empty((R, H, P, Bm.shape[2]), **f32))
     _check_cuda("ssd_intra", x, dt, A, Bm, Cm)
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 3 \
             or Cm.shape != Bm.shape:

@@ -98,6 +98,9 @@ class Mesh:
         #: collectives (``chip_smoke.py`` phase 25)
         self.calls = 0
         self.bytes = 0
+        #: a list to record every collective in, as (op, axis, shape,
+        #: dtype, input bytes, output bytes), or None (``record``)
+        self.log = None
         self._groups = {}
         if layout_only:
             self._groups = {a: None for a, n in self.shape.items() if n > 1}
@@ -150,13 +153,29 @@ class Mesh:
             if g is None:
                 continue
             x = x.contiguous()
-            self._count(x)
+            self._count(x, _OPS[op], a)
             dist.all_reduce(x, op=op, group=g)
         return x
 
-    def _count(self, x: torch.Tensor) -> None:
+    def _count(self, x: torch.Tensor, op: str, axis: str) -> None:
+        n = x.numel() * x.element_size()
         self.calls += 1
-        self.bytes += x.numel() * x.element_size()
+        self.bytes += n
+        self._record(op, axis, x, n)
+
+    def _record(self, op: str, axis, x: torch.Tensor, n: int) -> None:
+        if self.log is not None:
+            out = n * self.degree(axis) if op in ("all_gather", "agree") \
+                else n
+            self.log.append((op, axis, tuple(x.shape), str(x.dtype), n,
+                             out))
+
+    def record(self) -> list:
+        """Start recording this mesh's collectives (``log``) and return
+        the list they go into: the dry run's log, and the real world's
+        that a test holds it against."""
+        self.log = []
+        return self.log
 
     def psum(self, x: torch.Tensor, axis) -> torch.Tensor:
         """The sum of ``x`` over the ranks along ``axis``, on every one of
@@ -177,7 +196,7 @@ class Mesh:
             if g is None:
                 continue
             x = x.contiguous()
-            self._count(x)
+            self._count(x, "all_gather", a)
             parts = [torch.empty_like(x) for _ in range(self.axis_size(a))]
             dist.all_gather(parts, x, group=g)
             x = torch.cat(parts, dim=dim)
@@ -191,9 +210,53 @@ class Mesh:
                          dtype=torch.int32, device=self.device)
         if self.size == 1:
             return True
+        self._record("agree", self.axis_names, d,
+                     d.numel() * d.element_size())
         parts = [torch.empty_like(d) for _ in range(self.size)]
         dist.all_gather(parts, d)
         return all(torch.equal(p, parts[0]) for p in parts)
+
+
+_OPS = {dist.ReduceOp.SUM: "psum", dist.ReduceOp.MAX: "pmax"}
+
+
+class StandInMesh(Mesh):
+    """A stand-in for rank ``rank`` of a mesh of ``shape``, in one
+    process and without a process group (the dry run's: one process
+    traces rank 0 of a 256- or 512-rank mesh). Its layout is the real
+    mesh's (``Mesh(shape, axes, rank=...)``), and its collectives take
+    tensors on the meta device: each returns what the real one would in
+    shape and dtype, moves no data, and is counted and recorded as the
+    real one is (``calls``, ``bytes``, ``log``: one entry per axis of
+    more than one rank, in the real mesh's order). ``agree`` records one
+    gather over the world and answers True."""
+
+    def __init__(self, shape, axes, *, rank: int = 0, device="meta"):
+        super().__init__(shape, axes, rank=rank, device=device)
+        self.log = []
+
+    def _reduce(self, x: torch.Tensor, axis, op) -> torch.Tensor:
+        for a in _names(axis):
+            if self.axis_size(a) > 1:
+                self._count(x.contiguous(), _OPS[op], a)
+        return x
+
+    def all_gather(self, x: torch.Tensor, axis, dim: int = 0):
+        for a in reversed(_names(axis)):
+            n = self.axis_size(a)
+            if n > 1:
+                self._count(x, "all_gather", a)
+                shape = list(x.shape)
+                shape[dim] *= n
+                x = x.new_empty(shape)
+        return x
+
+    def agree(self, data: bytes) -> bool:
+        if self.size > 1:
+            self._record("agree", self.axis_names,
+                         torch.empty(32, dtype=torch.int32, device="meta"),
+                         128)
+        return True
 
 
 def _names(axis) -> tuple:
@@ -222,11 +285,16 @@ def local_mesh(device=None) -> Mesh:
     return Mesh((1, 1), ("data", "model"), device=device)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         stand_in_rank=None) -> Mesh:
     """The JAX package's production layout: (data 16, model 16), or
-    (pod 2, data 16, model 16); the world must have that many ranks."""
+    (pod 2, data 16, model 16); the world must have that many ranks.
+    ``stand_in_rank`` given: that rank's ``StandInMesh`` (no world; the
+    dry run's)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = AXES if multi_pod else AXES[1:]
+    if stand_in_rank is not None:
+        return StandInMesh(shape, axes, rank=stand_in_rank)
     return Mesh(shape, axes, device=device)
 
 

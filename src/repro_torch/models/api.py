@@ -84,15 +84,27 @@ def _gather_top(params: dict, ctx) -> dict:
             for k, v in params.items()}
 
 
+def gather_top(params: dict, cfg: ModelConfig, mesh) -> dict:
+    """``params`` (this rank's blocks in the train layout) with the
+    top-level leaves gathered over 'data' (``_gather_top``): what the LM
+    head of a train-layout forward reads, in the serve layout's
+    blocks."""
+    with mesh_context(mesh, cfg, "train") as ctx:
+        return _gather_top(params, ctx)
+
+
 def forward(params, cfg: ModelConfig, batch: dict, *, mesh=None,
-            batch_sharded: bool = False, **kw):
+            batch_sharded: bool = False, layout: str = "serve", **kw):
     """Teacher-forced logits (B, S, padded_vocab) for batch["tokens"]. On
-    a ``mesh`` (the serve layout): ``params`` are this rank's blocks
-    (``sharding.specs.shard_params``), the tokens this rank's lanes
-    (``batch_sharded``: the batch is cut over the batch axes) and the
-    logits this rank's block of the vocabulary where 'model' cuts it.
-    The train layout runs inside ``loss_fn``."""
-    with mesh_context(mesh, cfg, batch_sharded=batch_sharded):
+    a ``mesh``: ``params`` are this rank's blocks in ``layout``
+    (``sharding.specs.shard_params``; "train": FSDP over 'data', each
+    layer gathering its weights at use, as JAX scores the moe family),
+    the tokens this rank's lanes (``batch_sharded``: the batch is cut
+    over the batch axes) and the logits this rank's block of the
+    vocabulary where 'model' cuts it. Training runs ``loss_fn``."""
+    with mesh_context(mesh, cfg, layout, batch_sharded=batch_sharded) as ctx:
+        if layout == "train":
+            params = _gather_top(params, ctx)
         return module_for(cfg).forward(params, cfg, batch, **kw)
 
 
@@ -104,17 +116,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     (``sharding.specs.cache_pspecs``), allocated at its own shapes
     (``sharding.specs.cache_local_shapes``: mamba2's ``conv`` in the
     port's layout, the encdec cross K/V of one source whole along the
-    lanes); a sequence cut over the batch axes (a batch that does not
-    divide them) is refused."""
+    lanes; the sequence cut over the batch axes where the batch does not
+    divide them, and over 'model' where the KV heads do not divide it: a
+    ring's min(max_len, W) slots too, which must divide those axes)."""
     mod = module_for(cfg)
     if mesh is None:
         return mod.init_cache(cfg, batch, max_len, dtype, device, **kw)
-    seq = specs.cache_pspecs(cfg, mesh, batch=batch).get("k", (None,) * 3)[2]
-    if seq not in (None, "model"):
-        raise NotImplementedError(
-            f"a cache of {batch} lanes on {mesh.shape}: the batch does not "
-            f"divide the batch axes, and a cache cut along the sequence "
-            f"over them is not ported (ROADMAP Queue 1 item 3)")
     whole = mod.init_cache(cfg, batch, max_len, dtype, "meta", **kw)
     shapes = specs.cache_local_shapes(
         cfg, mesh, {k: tuple(v.shape) for k, v in whole.items()},
@@ -198,7 +205,7 @@ def _ce_from_logits(logits, targets):
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0,
-            mesh=None):
+            mesh=None, batch_sharded: bool | tuple = True):
     """Next-token cross entropy (paper Eq. 16), as the JAX package's
     ``loss_fn``: batch["tokens"] (B, S) is the whole input, the target of
     position t is token t + 1, and the last position (no target) is
@@ -214,10 +221,16 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0,
 
     On a ``mesh`` (the train layout): ``params`` are this rank's blocks
     (``specs.param_pspecs(cfg, mesh, "train")``) and ``batch`` this
-    rank's rows of the global batch (cut over 'pod' and 'data'); the
-    cross entropy is taken over the vocabulary-sharded logits, and the
-    loss is the mean over the global batch's masked positions (sums
-    ``psum``med over the batch axes), the same on every rank. The
+    rank's rows of the global batch (cut over 'pod' and 'data'), or,
+    ``batch_sharded`` False, the whole batch on every rank (one that
+    does not divide the batch axes, as JAX's ``batch_pspecs`` keeps it),
+    or, a tuple, its rows cut over those batch axes and whole over the
+    others (``train_loop.row_axes``);
+    the cross entropy is taken over the vocabulary-sharded logits, and
+    the loss is the mean over the global batch's masked positions (sums
+    ``psum``med over the batch axes: a whole batch counts once on every
+    rank, numerator and denominator alike, so the mean and each rank's
+    share of the gradient are the same), the same on every rank. The
     gradients autograd then gives are this rank's contributions: the
     train step sums them over the axes a leaf is whole on
     (``train/train_loop.py``)."""
@@ -230,7 +243,8 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0,
         else batch["mask"].float().clone()
     mask[:, -1] = 0.0
     fwd = module_for(cfg).forward
-    with mesh_context(mesh, cfg, "train", batch_sharded=True) as ctx:
+    with mesh_context(mesh, cfg, "train",
+                      batch_sharded=batch_sharded) as ctx:
         params = _gather_top(params, ctx)
         if loss_block:
             hidden = fwd(params, cfg, batch, return_hidden=True, **train_kw)
@@ -253,7 +267,7 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_block: int = 0,
     return tot[0] / tot[1].clamp(min=1.0)
 
 
-__all__ = ["forward", "loss_fn", "TRAIN_MESH_FAMILIES",
+__all__ = ["forward", "gather_top", "loss_fn", "TRAIN_MESH_FAMILIES",
            "TRAIN_FORWARD", "init_cache", "decode_step",
            "rollback_leaves", "ring_leaves", "conditioning_leaves",
            "write_conditioning",

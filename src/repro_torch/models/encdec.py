@@ -37,12 +37,14 @@ encoder's non-causal flash over the rank's heads), its MLP columns and
 ``tp_down_proj``'s sums over 'model'. The cross K/V of a rank are its
 KV heads' block of the one shared source (``cross_kv``: its columns of
 ``wxk``/``wxv``), which a decode step attends with its q heads, summed
-over 'model' after ``wxo``. Where the KV heads do not divide 'model'
-(JAX's ``cache_pspecs`` then cuts ``xk``/``xv`` along the source), a
-rank holds its slice of the source positions, every KV head: the step
-runs the partial decode kernel over it with all q heads and combines
-the ranks' partials by their LSE (``transformer.combine_partials``), as
-the sequence-sharded self cache does. Every source position is written
+over 'model' after ``wxo``. Where JAX's ``cache_pspecs`` cuts
+``xk``/``xv`` along the source (over 'model' where the KV heads do not
+divide it, every KV head on every rank; over 'data' where the lanes are
+not cut over it, a batch that does not divide the batch axes), a rank
+holds its slice of the source positions (``source_cut``): the step
+runs the partial decode kernel over it and combines the ranks' partials
+by their LSE over those axes (``transformer.combine_partials``), as the
+sequence-cut self cache does. Every source position is written
 before the first step, so the cross cache needs no lock-step of its
 own.
 
@@ -68,9 +70,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from .layers import (column_input, gather_layer, mesh_ctx, rms_norm, swiglu,
                      tp_down_proj)
-from .transformer import (ATTN_IMPLS, _decode_attn_one, _own_columns,
-                          attn_block, check_impl, combine_partials,
-                          embed_tokens, lm_logits, remat, torch_dtype)
+from .transformer import (ATTN_IMPLS, _decode_attn_one, _gathers_q,
+                          _own_columns, attn_block, check_impl,
+                          combine_partials, embed_tokens, lm_logits, remat,
+                          seq_cut, torch_dtype)
 
 #: the cache leaves a speculative rollback restores per lane, whole: only
 #: ``pos`` (the self-attention K/V past it are hidden and overwritten;
@@ -142,20 +145,24 @@ def cross_kv(cfg: ModelConfig, lp: dict, enc):
             (enc @ lp["wxv"]).reshape(B, Se, -1, hd))
 
 
-def source_cut(ctx=None) -> bool:
-    """Whether the cross K/V on the mesh ``ctx`` (default: the active
-    one) are cut along the source positions: 'model' has more than one
-    rank and does not divide the KV heads (JAX's ``cache_pspecs``)."""
-    ctx = mesh_ctx() if ctx is None else ctx
-    return ctx is not None and ctx.tp > 1 and not ctx.cut("kv_heads")
+def source_cut(cfg: ModelConfig, ctx=None) -> tuple:
+    """The mesh axes the cross K/V on the mesh ``ctx`` (default: the
+    active one) are cut over along the source positions, as JAX's
+    ``cache_pspecs`` cuts them with the self-attention cache's sequence
+    (``transformer.seq_cut``): 'data' (and 'pod') where the lanes are
+    not cut over the batch axes, 'model' where it does not divide the KV
+    heads; () where the source is whole."""
+    return seq_cut(cfg, mesh_ctx() if ctx is None else ctx)
 
 
-def _own_source(k, n: int):
+def _own_source(cfg: ModelConfig, k, n: int):
     """This rank's ``n`` source positions of ``k`` (B, S_enc, K, hd)
-    where the cross K/V are cut along the source, else ``k``."""
-    if not source_cut():
+    where the cross K/V are cut along the source (its block in the
+    row-major order of ``source_cut``'s axes), else ``k``."""
+    axes = source_cut(cfg)
+    if not axes:
         return k
-    return k.narrow(1, mesh_ctx().mesh.axis_index("model") * n, n)
+    return k.narrow(1, mesh_ctx().mesh.axis_index(axes) * n, n)
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *,
@@ -223,8 +230,8 @@ def write_cross_kv(params, cfg: ModelConfig, xk, xv, frames) -> None:
     enc = encode(params, cfg, frames)
     for layer in range(cfg.n_layers):
         k, v = cross_kv(cfg, _layer(params["dec_layers"], layer), enc)
-        xk[layer].copy_(_own_source(k, xk.shape[2]))
-        xv[layer].copy_(_own_source(v, xv.shape[2]))
+        xk[layer].copy_(_own_source(cfg, k, xk.shape[2]))
+        xv[layer].copy_(_own_source(cfg, v, xv.shape[2]))
 
 
 def precompute_cross_kv(params, cfg: ModelConfig, frames):
@@ -249,8 +256,8 @@ def _cross_attend(cfg: ModelConfig, lp: dict, x, xk, xv, src_len):
     LSE; the output's rows of ``wxo`` summed over 'model'."""
     B, hd = x.shape[0], cfg.head_dim
     ctx = mesh_ctx()
-    split = source_cut(ctx)
-    gather = split and ctx.cut("heads")
+    split = source_cut(cfg, ctx)
+    gather = bool(split) and _gathers_q(cfg, ctx)
     q = column_input(x, "heads") @ lp["wxq"]
     if gather:
         q = ctx.all_gather(q, "model", dim=-1)
@@ -258,7 +265,7 @@ def _cross_attend(cfg: ModelConfig, lp: dict, x, xk, xv, src_len):
     k, v = xk.expand(B, -1, -1, -1), xv.expand(B, -1, -1, -1)
     if split:
         o, lse = ops.decode_attention_partial(q, k, v, src_len)
-        o = combine_partials(ctx.mesh, o, lse).to(q.dtype)
+        o = combine_partials(ctx.mesh, o, lse, split).to(q.dtype)
     else:
         o = ops.decode_attention(q, k, v, src_len)
     o = o.reshape(B, 1, -1)

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import collectives
+from repro_torch.launch.mesh import batch_axes
 from repro_torch.sharding import specs
 
 NEG_INF = -1e30
@@ -55,13 +56,16 @@ class MeshContext:
     config on it (``sharding.specs.rules``: logical axis -> mesh axis or
     None), whether the call's batch is cut over the batch axes
     (``batch_sharded``: each rank holds its block of the lanes or rows)
-    and, in the train layout, the spec of every parameter leaf
-    (``pspecs``)."""
+    and over which of them (``row_axes``: all that have more than one
+    rank, or, for a train microbatch that does not divide them all, the
+    inner ones, its rows whole over the rest), and, in the train layout,
+    the spec of every parameter leaf (``pspecs``)."""
     mesh: object
     layout: str
     rules: dict
     batch_sharded: bool = False
     pspecs: dict | None = None
+    row_axes: tuple = ()
 
     @property
     def tp(self) -> int:
@@ -122,19 +126,24 @@ _MESH = contextvars.ContextVar("repro_torch_mesh", default=None)
 
 @contextlib.contextmanager
 def mesh_context(mesh, cfg=None, layout: str = "serve", *,
-                 batch_sharded: bool = False):
+                 batch_sharded: bool | tuple = False):
     """Run the model calls inside on ``mesh`` (None: one device) with
     ``cfg``'s sharding rules in ``layout`` ("serve" or "train", as
-    ``sharding.specs.LAYOUTS``)."""
+    ``sharding.specs.LAYOUTS``). ``batch_sharded``: whether the batch is
+    cut over the batch axes, or the tuple of those it is cut over
+    (``MeshContext.row_axes``)."""
     ctx = None
     if mesh is not None:
         if layout not in specs.LAYOUTS:
             raise ValueError(f"layout {layout!r} (one of {specs.LAYOUTS})")
+        rows = tuple(batch_sharded) if isinstance(batch_sharded, tuple) \
+            else tuple(a for a in batch_axes(mesh)
+                       if mesh.axis_size(a) > 1) if batch_sharded else ()
         ctx = MeshContext(
             mesh, layout, specs.rules(cfg, mesh, layout),
             bool(batch_sharded),
             specs.param_pspecs(cfg, mesh, layout) if layout == "train"
-            else None)
+            else None, rows)
     tok = _MESH.set(ctx)
     try:
         yield ctx

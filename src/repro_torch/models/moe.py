@@ -88,15 +88,22 @@ E_loc = E). Two layouts, as in JAX:
   * otherwise (``mapped``): the tokens are this rank's, the expert
     weights whole;
   * the train layout (``_moe_block_train``, JAX's ``mapped`` under
-    ``make_train_step``): the expert weights gathered over 'data' with
-    the rest of the layer, the tokens this rank's rows, and the
-    capacity-dropped dispatch with C from this rank's own T, as JAX's
-    ``shard_map`` body computes it. The drops then depend on the batch
-    shard: the sharded loss equals the mean of the shards' unsharded
-    losses, not the loss over the whole batch (each shard has the same
-    number of positions). The tokens ``enter`` the dispatch and the
-    router's gradient, a partial one on each rank, is summed over
-    'model' by the train step (``train_loop.model_partial``).
+    ``make_train_step`` and ``make_score_step``): the expert weights
+    gathered over 'data' with the rest of the layer, the tokens this
+    rank's rows, and the capacity-dropped dispatch with C from this
+    rank's own T, as JAX's ``shard_map`` body computes it; scoring
+    dispatches dropless there, in groups of 2,048 tokens. The drops
+    then depend on the batch shard: the sharded loss equals the mean
+    of the shards' unsharded losses, not the loss over the whole batch
+    (each shard has the same number of positions). The tokens
+    ``enter`` the dispatch and the router's gradient, a partial one on
+    each rank, is summed over 'model' by the train step
+    (``train_loop.model_partial``). A microbatch whose rows are whole
+    over some batch axes has its tokens cut further over them, so that
+    the blocks of tokens dispatched together are JAX's. On a mesh whose
+    'model' axis has one rank JAX dispatches each microbatch on one
+    device, with C from all its tokens, and so does the port (the
+    tokens gathered over the batch axes).
 
 Not ported: an int8 KV cache: the JAX package's moe decode step writes
 no scales (``moe.py decode_step`` unpacks three values from
@@ -320,21 +327,55 @@ def _moe_block_mesh(cfg: ModelConfig, lp: dict, x_flat, ctx,
     return y.to(x_flat.dtype)
 
 
-def _moe_block_train(cfg: ModelConfig, lp: dict, x_flat, ctx):
-    """The moe FFN of this rank's tokens x (T, D) in the train layout
-    (JAX's ``mapped``): the expert weights whole over 'data' (the
-    layer's gather), this rank's experts over 'model', the capacity from
-    this rank's T (rows over 'pod' and 'data'), as JAX's ``shard_map``
-    computes it; the partial outputs summed over 'model' in fp32 and
-    rounded once."""
+def _moe_block_train(cfg: ModelConfig, lp: dict, x_flat, ctx, *,
+                     dropless: bool = False, dispatch_group: int = 0):
+    """The moe FFN of the tokens x (T, D) in the train layout, the expert
+    weights whole over 'data' (the layer's gather), as JAX's
+    ``moe_block`` computes it on a mesh. The rows are cut over
+    ``ctx.row_axes`` and whole over the other batch axes. Where 'model'
+    has more than one rank, JAX's ``mapped``: this rank's experts over
+    'model', the T tokens cut further over the batch axes the rows are
+    whole on (the outputs gathered back), so that each rank dispatches
+    one of the blocks of T x (ranks over 'pod' and 'data') consecutive
+    tokens that JAX's ``shard_map`` ``in_specs`` give the ranks; the
+    partial outputs summed over 'model' in fp32 and rounded once. Where
+    it has one, JAX's one-device dispatch of the whole microbatch: the
+    tokens gathered over the axes the rows are cut over, this rank's
+    rows of the output kept. Training dispatches with capacity drops, C
+    from the tokens dispatched together, as JAX computes it; scoring
+    (``dropless``: JAX's ``make_score_step``) dispatches dropless in
+    groups of ``dispatch_group`` tokens (0: all at once), exact whatever
+    the grouping (so this rank's tokens alone)."""
+    mesh = ctx.mesh
+    rows = ctx.row_axes
+    T = x_flat.shape[0]
+    if not dropless and ctx.tp == 1:
+        if mesh.degree(rows) == 1:
+            return moe_ffn_capacity(x_flat, lp, cfg)
+        y = moe_ffn_capacity(ctx.all_gather(x_flat, rows, dim=0), lp, cfg)
+        return y.narrow(0, mesh.axis_index(rows) * T, T)
+    whole = tuple(a for a in batch_axes(mesh) if a not in rows)
+    cut = ctx.tp > 1 and mesh.degree(whole) > 1
+    x_in = x_flat
+    if cut:
+        n = T // mesh.degree(whole)
+        if n * mesh.degree(whole) != T:
+            raise ValueError(f"{T} tokens do not divide the batch axes "
+                             f"{whole} of {mesh.shape}")
+        x_in = x_flat.narrow(0, mesh.axis_index(whole) * n, n)
     tp = _expert_tp(cfg, ctx)
-    if tp == 1:
-        return moe_ffn_capacity(x_flat, lp, cfg)
     E_loc = cfg.n_experts // tp
-    y = moe_ffn_capacity(ctx.enter(x_flat), lp, cfg,
-                         lo=ctx.mesh.axis_index("model") * E_loc,
-                         E_loc=E_loc)
-    return ctx.psum(y, "model").to(x_flat.dtype)
+    kw = {} if tp == 1 else dict(lo=mesh.axis_index("model") * E_loc,
+                                 E_loc=E_loc)
+    xe = x_in if tp == 1 else ctx.enter(x_in)
+    if not dropless:
+        y = moe_ffn_capacity(xe, lp, cfg, **kw)
+    else:
+        groups = xe.split(dispatch_group) if dispatch_group else (xe,)
+        y = torch.cat([moe_ffn(g, lp, cfg, **kw) for g in groups])
+    if tp > 1:
+        y = ctx.psum(y, "model").to(x_flat.dtype)
+    return ctx.all_gather(y, whole, dim=0) if cut else y
 
 
 def _expert_tp(cfg: ModelConfig, ctx) -> int:
@@ -358,17 +399,15 @@ def moe_block(cfg: ModelConfig, lp: dict, x, dispatch_group: int = 0, *,
     dispatches them all at once with capacity drops
     (``moe_ffn_capacity``). On a mesh, expert parallelism: the serve
     layout dispatches dropless (``_moe_block_mesh``), the train layout
-    with capacity drops (``_moe_block_train``), as JAX trains."""
+    with capacity drops (``_moe_block_train``), as JAX trains, or, for
+    scoring (JAX's ``make_score_step``), dropless."""
     B, S, D = x.shape
     x_flat = x.reshape(B * S, D)
     ctx = mesh_ctx()
     if ctx is not None and ctx.train:
-        if dropless:
-            raise NotImplementedError(
-                "the train layout dispatches with capacity drops, as JAX "
-                "trains (models.api.TRAIN_FORWARD); the dropless dispatch "
-                "runs in the serve layout")
-        return _moe_block_train(cfg, lp, x_flat, ctx).reshape(B, S, D)
+        return _moe_block_train(cfg, lp, x_flat, ctx, dropless=dropless,
+                                dispatch_group=dispatch_group
+                                ).reshape(B, S, D)
     if ctx is not None:
         if not dropless:
             raise NotImplementedError(

@@ -39,8 +39,11 @@ where the KV heads divide tp), its hidden columns of the MLP and, where
 (``lm_logits``); ``tp_down_proj`` sums the row-parallel products over
 'model'. KV heads that do not divide tp leave the K/V projections whole
 on every rank: q is gathered over 'model', scoring attends all heads,
-and decode runs the sequence-sharded attention
-(``decode_requires_lockstep``, ``_seq_sharded_decode_attn``). In the
+and decode runs the sequence-cut attention (``_seq_sharded_decode_attn``),
+as it does wherever JAX's ``cache_pspecs`` cuts the cache along the
+sequence (``seq_cut``: also over the batch axes, for a batch that does
+not divide them, and a ring along its slots); lock-step only where
+JAX's predicate says so (``decode_requires_lockstep``). In the
 train layout (``models.api.loss_fn(mesh=...)``) each block first
 gathers its weights' D rows over 'data' (``layers.gather_layer``), the
 normed activations ``enter`` the column-parallel products, and the
@@ -64,6 +67,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.launch import collectives
+from repro_torch.sharding import specs
 from .layers import (NEG_INF, attention_masked, column_input,
                      decode_attention, gather_layer, in_mesh_ctx,
                      mesh_ctx,
@@ -362,73 +366,110 @@ def decode_requires_lockstep(cfg: ModelConfig, mesh=None) -> bool:
         and not cfg.sliding_window
 
 
-def _write_slot(c, slot, new, mine):
-    """c[:, slot] = new where ``mine`` (a 0-d bool tensor), in place and
+def seq_cut(cfg: ModelConfig, ctx) -> tuple:
+    """The mesh axes this rank's self-attention cache is cut over along
+    the sequence on the mesh ``ctx`` (``specs.seq_axes``: the batch axes
+    where the lanes are not cut over them, 'model' where the KV heads do
+    not divide it); () on one device or where the sequence is whole."""
+    if ctx is None or cfg.family == "ssm":
+        return ()
+    return specs.seq_axes(cfg, ctx.mesh, lanes_cut=ctx.batch_sharded)
+
+
+def _write_rows(c, lanes, slot, new, mine):
+    """c[lane, slot[lane]] = new[lane] for the lanes where ``mine`` (B,)
+    holds, the others' rows rewritten with what they hold: in place and
     without a host sync."""
-    c[:, slot] = torch.where(mine, new.to(c.dtype), c[:, slot])
+    old = c[lanes, slot]
+    keep = mine.view((-1,) + (1,) * (new.dim() - 1))
+    c[lanes, slot] = torch.where(keep, new.to(c.dtype), old)
 
 
-def _seq_sharded_decode_attn(cfg: ModelConfig, mesh, q, k_new, v_new, kc,
-                             vc, pos, scales=None):
-    """Decode attention over a SEQUENCE-sharded cache (the KV heads do not
-    divide tp): this rank's ``kc``/``vc`` (B, S / tp, K, hd) hold
-    positions [rank * S / tp, (rank + 1) * S / tp) of every KV head. As
-    the JAX package's ``_seq_sharded_decode_attn``: the lanes' positions
-    collapse to their max (lock-step), the rank whose slice holds it
-    writes the new K/V (int8: quantized, with their scales), and every
-    rank attends all heads q (B, 1, H, hd) over its live positions with
-    the partial decode-attention kernel, which returns the normalized
-    output and its log-sum-exp (a rank with none live: 0 and -inf). The
-    ranks combine by the max M of the LSE and fp32 sums: o = sum_r o_r
-    exp(lse_r - M) / sum_r exp(lse_r - M). JAX takes M with a ``pmax``
-    and the sums with two ``psum``s; here one ``all_gather`` brings every
-    rank's (o, lse) and each rank combines them in rank order, the same
-    bits on every rank (``combine_partials``): one collective a layer
-    where a collective (a host round trip over gloo) costs more than the
-    combine. Returns (B, 1, H, hd) in q's dtype."""
+def _seq_sharded_decode_attn(cfg: ModelConfig, mesh, axes: tuple, q, k_new,
+                             v_new, kc, vc, pos, scales=None,
+                             lockstep: bool = False):
+    """Decode attention over a cache cut along the SEQUENCE over the mesh
+    ``axes`` (``seq_cut``): this rank's ``kc``/``vc`` (B, S_loc, K, hd)
+    hold slots [lo, lo + S_loc) of the S = S_loc x degree(axes) slots,
+    its block in the row-major order of ``axes`` (``specs.block``), as
+    JAX's ``cache_pspecs`` lays them out. Each lane writes its new K/V
+    (int8: quantized, with their scales) at its slot (``_cache_slot``:
+    pos % S in a ring) on the rank whose slice holds it, and every rank
+    attends q (B, 1, H, hd) over its live slots with the partial
+    decode-attention kernel at per-lane lengths clamp(min(p + 1, S) -
+    lo, 0, S_loc) (the ring's live slots after the wrap are all of
+    them), which returns the normalized output and its log-sum-exp (a
+    lane with no live slot here: 0 and -inf). ``combine_partials``
+    merges the ranks' partials over ``axes``.
+
+    ``lockstep`` (JAX's ``decode_requires_lockstep``: KV heads that do
+    not divide 'model', no window): as JAX's ``_seq_sharded_decode_attn``,
+    the lanes' positions collapse to their max. Elsewhere (a ring, a
+    cache cut over the batch axes), each lane keeps its own position, as
+    JAX's unsharded arithmetic that XLA's partitioner runs there.
+    Returns (B, 1, H, hd) in q's dtype."""
     B, _, H, hd = q.shape
     S_loc = kc.shape[1]
-    r = mesh.axis_index("model")
-    p = pos.max()                       # uniform across lanes by contract
-    lo = r * S_loc
-    mine = (p >= lo) & (p < lo + S_loc)
-    slot = (p - lo).clamp(0, S_loc - 1).long()
+    S = S_loc * mesh.degree(axes)
+    lo = mesh.axis_index(axes) * S_loc
+    p = pos.max().expand(B) if lockstep else pos
+    glob = _cache_slot(cfg, p, S)
+    mine = (glob >= lo) & (glob < lo + S_loc)
+    slot = (glob - lo).clamp(0, S_loc - 1)
+    lanes = torch.arange(B, device=q.device)
     if scales is None:
-        _write_slot(kc, slot, k_new[:, 0], mine)
-        _write_slot(vc, slot, v_new[:, 0], mine)
+        _write_rows(kc, lanes, slot, k_new[:, 0], mine)
+        _write_rows(vc, lanes, slot, v_new[:, 0], mine)
     else:
         ks, vs = scales
         kq, k_sc = _quant_kv(k_new[:, 0])
         vq, v_sc = _quant_kv(v_new[:, 0])
-        _write_slot(kc, slot, kq, mine)
-        _write_slot(vc, slot, vq, mine)
-        _write_slot(ks, slot, k_sc, mine)
-        _write_slot(vs, slot, v_sc, mine)
-    lengths = (p + 1 - lo).clamp(0, S_loc).to(torch.int32).expand(B) \
-        .contiguous()
+        _write_rows(kc, lanes, slot, kq, mine)
+        _write_rows(vc, lanes, slot, vq, mine)
+        _write_rows(ks, lanes, slot, k_sc, mine)
+        _write_rows(vs, lanes, slot, v_sc, mine)
+    lengths = ((p + 1).clamp(max=S) - lo).clamp(0, S_loc) \
+        .to(torch.int32).contiguous()
     if scales is None:
         o, lse = ops.decode_attention_partial(q[:, 0], kc, vc, lengths)
     else:
         o, lse = ops.decode_attention_partial_int8(q[:, 0], kc, vc,
                                                    *scales, lengths)
-    return combine_partials(mesh, o, lse).to(q.dtype).reshape(B, 1, H, hd)
+    return combine_partials(mesh, o, lse, axes).to(q.dtype) \
+        .reshape(B, 1, H, hd)
 
 
-def combine_partials(mesh, o, lse):
-    """The attention over a sequence cut over 'model' from every rank's
-    partial (``ops.decode_attention_partial``: o (B, H, hd) normalized
-    over its slice, lse (B, H); a rank with no live position 0 and
-    -inf): one ``all_gather`` of every rank's (o, lse), then, in rank
-    order on every rank (the same bits everywhere), o = sum_r o_r
-    exp(lse_r - M) / sum_r exp(lse_r - M), M the max of the lse. fp32
-    (B, H, hd)."""
+#: the most ranks whose partials ``combine_partials`` all-gathers: one
+#: collective a layer, of n x (B, H, hd + 1) fp32, where over gloo a
+#: collective's round trip costs more than its bytes; above it JAX's
+#: pmax and psum, two collectives whose payload does not grow with n
+COMBINE_GATHER_RANKS = 8
+
+
+def combine_partials(mesh, o, lse, axes=("model",)):
+    """The attention over a sequence cut over the mesh ``axes`` from every
+    rank's partial (``ops.decode_attention_partial``: o (B, H, hd)
+    normalized over its slice, lse (B, H); a rank with no live position
+    0 and -inf): o = sum_r o_r exp(lse_r - M) / sum_r exp(lse_r - M), M
+    the max of the lse, the same bits on every rank. Over at most
+    ``COMBINE_GATHER_RANKS`` ranks, one ``all_gather`` of every rank's
+    (o, lse) (the blocks in the row-major order of the tuple, the order
+    their slices take along the sequence), merged in that order on every
+    rank; over more, as JAX: M by a ``pmax``, then the numerator and
+    the denominator by one ``psum`` (an all-reduce gives every rank of
+    its group the same bits). fp32 (B, H, hd)."""
     hd = o.shape[-1]
-    parts = mesh.all_gather(torch.cat([o, lse[..., None]], dim=-1)[None],
-                            "model", dim=0)             # (tp, B, H, hd + 1)
-    o_r, lse_r = parts[..., :hd], parts[..., hd]
-    w = torch.exp(lse_r - lse_r.amax(dim=0))            # (tp, B, H)
-    num = (o_r * w[..., None]).sum(dim=0)
-    return num / w.sum(dim=0)[..., None]
+    if mesh.degree(axes) <= COMBINE_GATHER_RANKS:
+        parts = mesh.all_gather(torch.cat([o, lse[..., None]], dim=-1)[None],
+                                axes, dim=0)            # (n, B, H, hd + 1)
+        o_r, lse_r = parts[..., :hd], parts[..., hd]
+        w = torch.exp(lse_r - lse_r.amax(dim=0))        # (n, B, H)
+        num = (o_r * w[..., None]).sum(dim=0)
+        return num / w.sum(dim=0)[..., None]
+    w = torch.exp(lse - mesh.pmax(lse.clone(), axes))   # (B, H)
+    sums = mesh.psum(torch.cat([o * w[..., None], w[..., None]], dim=-1),
+                     axes)                              # (B, H, hd + 1)
+    return sums[..., :hd] / sums[..., hd:]
 
 
 def _decode_attn_one(cfg, lp: dict, x, kc, vc, pos, scales=None):
@@ -438,21 +479,15 @@ def _decode_attn_one(cfg, lp: dict, x, kc, vc, pos, scales=None):
     each lane's slot (``_cache_slot``). ``scales`` (k_scale, v_scale),
     each (B, S, K): an int8 cache, written quantized, with the row's
     scale, in place. On a mesh: this rank's heads over its KV heads
-    (both cut over 'model'), or the sequence-sharded path
-    (``decode_requires_lockstep``), which gathers q's heads first when
-    they are cut."""
+    (both cut over 'model'), or, where the cache is cut along the
+    sequence (``seq_cut``), its slice through the partial kernel
+    (``_seq_sharded_decode_attn``), which gathers q's heads over 'model'
+    first where they are cut and the KV heads are not."""
     B, _, D = x.shape
     hd = cfg.head_dim
     ctx = mesh_ctx()
-    seq = ctx is not None and decode_requires_lockstep(cfg, ctx.mesh)
-    if ctx is not None and not seq and ctx.tp > 1 \
-            and not ctx.cut("kv_heads"):
-        raise NotImplementedError(
-            f"decode of {cfg.name} on {ctx.mesh.shape}: a sliding window "
-            f"whose {cfg.padded_kv_heads} KV heads do not divide the "
-            f"model axis (its cache would be cut along the sequence, "
-            f"which the ring does not take; ROADMAP Queue 1 item 3)")
-    gather = seq and ctx.cut("heads")
+    axes = seq_cut(cfg, ctx)
+    gather = bool(axes) and _gathers_q(cfg, ctx)
     q = x @ lp["wq"]
     if gather:
         q = ctx.mesh.all_gather(q, "model", dim=-1)
@@ -464,9 +499,10 @@ def _decode_attn_one(cfg, lp: dict, x, kc, vc, pos, scales=None):
         k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
     q = rope(q, pos[:, None], cfg.rope_theta)
     k = rope(k, pos[:, None], cfg.rope_theta)
-    if seq:
-        o = _seq_sharded_decode_attn(cfg, ctx.mesh, q, k, v, kc, vc, pos,
-                                     scales)
+    if axes:
+        o = _seq_sharded_decode_attn(
+            cfg, ctx.mesh, axes, q, k, v, kc, vc, pos, scales,
+            lockstep=decode_requires_lockstep(cfg, ctx.mesh))
     else:
         slot = _cache_slot(cfg, pos, kc.shape[1])
         lanes = torch.arange(B, device=x.device)

@@ -79,11 +79,17 @@ replicated integers; the caller writes rank 0's archive (every rank's
 is the same, which ``Mesh.agree`` checks). The mesh shape is coding
 geometry, as the lane count is: an archive decodes at the TP it was
 written at; at another it round-trips or raises ``ContainerError``.
-On a mesh whose KV heads do not divide 'model', decode takes the
-sequence-sharded attention (``transformer.decode_requires_lockstep``):
-lock-step only, so the continuous-batching scheduler refuses the
-predictor and speculative verify is refused; ``LLMCompressor``'s
-grouped decoder serves it.
+On a mesh whose KV heads do not divide 'model', the cache is cut along
+the sequence over 'model' and decode takes the sequence-cut attention.
+Without a window it is lock-step only
+(``transformer.decode_requires_lockstep``, as JAX's): the
+continuous-batching scheduler refuses the predictor and speculative
+verify is refused; ``LLMCompressor``'s grouped decoder serves it. A
+sliding window's ring cut so keeps per-lane positions: each rank holds
+its slice of every lane's slots, a lane reset zeroes that lane's slots
+on every rank, a snapshot and its restore hold every rank's own slice,
+and a speculative rollback puts back only the ring slots this rank
+holds (``graphs.verify_body``'s ``ring_slice``).
 
 Determinism: TF32 matrix products are switched off explicitly
 (``torch.backends.cuda.matmul.allow_tf32 = False``), and bf16 products
@@ -191,13 +197,31 @@ class ModelPredictor:
             frames = self.extra_batch["frames"]
             kw = dict(source_len=frames.shape[1],
                       lanes=encdec.source_lanes(frames.shape[0], batch))
-        if self.mesh is not None and self.lockstep:
-            # the sequence cut into tp equal blocks
-            tp = self.mesh.shape["model"]
-            max_len = -(-max_len // tp) * tp
+        n = self._seq_degree()
+        if n > 1:           # the sequence (a ring's slots) in n blocks
+            max_len = -(-max_len // n) * n
         return model_api.init_cache(self.cfg, batch, max_len,
                                     device=self.device, mesh=self.mesh,
                                     **kw)
+
+    def _seq_degree(self) -> int:
+        """The ranks the cache's sequence is cut over (``specs.seq_axes``:
+        'model' where the KV heads do not divide it; the engine's lanes
+        are never cut over the batch axes); 1 on one device."""
+        if self.mesh is None:
+            return 1
+        return self.mesh.degree(specs.seq_axes(self.cfg, self.mesh,
+                                               lanes_cut=False))
+
+    def _ring_slice(self, state):
+        """(lo, S) of this rank's ring slots where the ring is cut along
+        them (``graphs.verify_body``), else None."""
+        ring = model_api.ring_leaves(self.cfg)
+        n = self._seq_degree()
+        if not ring or n == 1:
+            return None
+        S = state[ring[0]].shape[2] * n
+        return specs.seq_block(self.cfg, self.mesh, S, lanes_cut=False)[0], S
 
     def _condition(self, cache) -> None:
         """Write the per-job conditioning into ``cache`` in place: the
@@ -341,7 +365,7 @@ class ModelPredictor:
             logits, snaps, rows = graphs.verify_body(
                 body, state, self._tokens(seq.T),
                 model_api.rollback_leaves(self.cfg),
-                model_api.ring_leaves(self.cfg))
+                model_api.ring_leaves(self.cfg), self._ring_slice(state))
             if self.mesh is not None:
                 logits = steps.step_logits(logits, self.cfg, self.mesh)
             return logits, graphs.Snapshots(state, snaps, rows)

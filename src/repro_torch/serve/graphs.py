@@ -136,14 +136,20 @@ class Snapshots:
 
 
 def verify_body(eager_step, cache: dict, seq: torch.Tensor, names,
-                ring=()):
+                ring=(), ring_slice=None):
     """T = seq.shape[0] eager decode steps over ``cache`` (inputs seq[t],
     (B,) each), with the leaves ``names`` copied before the first step
     and after each, and the rows of the ``ring`` leaves ((L, B, S, ...),
     a sliding-window cache) that the steps will overwrite, slots (pos +
     t) % S, copied before the first: (logits (B, T, V), {name: (T + 1,
     *leaf.shape)}, {"slots": (B, T), name: (L, B, T, ...)} or {}). The
-    slots of one round must be distinct, so T <= S."""
+    slots of one round must be distinct, so T <= S.
+
+    ``ring_slice`` (lo, S): a ring cut along its slots on a mesh
+    (``specs.seq_block``), this rank's leaves holding slots [lo, lo +
+    S_loc) of S. The slots are then local, and "own" (B, T) marks the
+    steps whose slot this rank holds: a rollback writes back only
+    those."""
     T = seq.shape[0]
     snaps = {k: torch.empty((T + 1,) + cache[k].shape,
                             dtype=cache[k].dtype, device=cache[k].device)
@@ -152,7 +158,8 @@ def verify_body(eager_step, cache: dict, seq: torch.Tensor, names,
         snaps[k][0].copy_(cache[k])
     rows = {}
     if ring:
-        S = cache[ring[0]].shape[2]
+        S_loc = cache[ring[0]].shape[2]
+        lo, S = (0, S_loc) if ring_slice is None else ring_slice
         if T > S:
             raise ValueError(f"verify: {T} steps would overwrite their own "
                              f"slots in a ring of {S}")
@@ -160,7 +167,11 @@ def verify_body(eager_step, cache: dict, seq: torch.Tensor, names,
         slots = (pos.long()[:, None] + torch.arange(
             T, device=pos.device)) % S
         lanes = torch.arange(pos.shape[0], device=pos.device)[:, None]
-        rows = {"slots": slots}
+        rows = {}
+        if ring_slice is not None:
+            rows["own"] = (slots >= lo) & (slots < lo + S_loc)
+            slots = (slots - lo).clamp(0, S_loc - 1)
+        rows["slots"] = slots
         rows.update({k: cache[k][:, lanes, slots] for k in ring})
     steps = []
     for t in range(T):
@@ -175,7 +186,8 @@ def rollback(snaps: Snapshots, accepted) -> dict:
     of the round's inputs (0: before the round), in place: the whole
     leaves from the snapshot after that many steps, and in a ring the
     slots of steps accepted[b]..T-1 from their rows before the round
-    (the steps before those wrote the same values in lock-step)."""
+    (the steps before those wrote the same values in lock-step); in a
+    ring cut over a mesh, only the slots this rank holds ("own")."""
     state = snaps.state
     pos = state["pos"]
     acc = np.asarray(accepted, np.int64).ravel()
@@ -196,9 +208,12 @@ def rollback(snaps: Snapshots, accepted) -> dict:
         if b.size:
             b = torch.as_tensor(b, device=pos.device)
             t = torch.as_tensor(t, device=pos.device)
+            if "own" in snaps.ring:     # a ring cut over a mesh
+                own = snaps.ring["own"][b, t]
+                b, t = b[own], t[own]
             slots = snaps.ring["slots"][b, t]
             for k, rows in snaps.ring.items():
-                if k != "slots":
+                if k not in ("slots", "own"):
                     state[k][:, b, slots] = rows[:, b, t]
     return state
 

@@ -16,8 +16,12 @@ rank calls the step with its own blocks of the weights
 (``sharding.specs.shard_params``, the serve layout for both families)
 and of the cache (``models.api.init_cache(mesh=...)``), and with the
 whole tokens (B, ...): a rank takes its lanes where the batch divides
-the batch axes. The ids and qpmf come back whole on every rank
-(gathered over the batch axes), the same integers on each. The top-K is
+the batch axes; elsewhere (a batch of 1 on a (data, model) mesh: the
+long-context cells) every rank runs every lane, and the cache is cut
+along the sequence over the batch axes (``specs.cache_pspecs``: each
+rank attends its slice, ``transformer.combine_partials``). The ids and
+qpmf come back whole on every rank (gathered over the batch axes), the
+same integers on each. The top-K is
 the sharded one (``core.cdf.topk_quantized_sharded``) exactly when the
 'model' axis cuts the padded vocabulary (``padded_vocab % tp == 0``),
 else the top-K kernel on the whole logits. The model calls are split
@@ -26,10 +30,11 @@ give a step's logits as ``core.cdf.LogitShards``), so that the engine's
 decode and scoring on a mesh (``serve/engine.py``), which learn K only
 from the coder, run these same functions. The moe family dispatches
 dropless, as JAX's ``_fam_kw`` asks (the port's moe model always does
-where it serves; scoring in groups of 2,048 tokens).
-JAX scores the moe family in its train layout (FSDP over 'data'), which
-changes where its weights live and not the function; FSDP comes with
-training on a mesh.
+where it serves; scoring in groups of 2,048 tokens). The score step
+runs the moe family in JAX's train layout (``score_layout``: FSDP over
+'data', the expert weights gathered, the tokens a rank's rows), the
+same function with other weight placement and collectives; it takes
+that layout's blocks.
 
 Every family serves on a mesh. The per-job conditioning comes with the
 tokens, cut over the batch axes as JAX's ``batch_pspecs`` cuts it where
@@ -54,6 +59,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cdf import LogitShards
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import api as model_api
+from repro_torch.sharding import specs
 
 
 def tokens_batch_sharded(mesh, batch: int) -> bool:
@@ -208,6 +214,15 @@ def make_prefill_step(cfg: ModelConfig, mesh=None, *, batch: int):
     return prefill_step
 
 
+def score_layout(cfg: ModelConfig, mesh) -> str:
+    """The layout the score step runs in on ``mesh``: JAX's
+    ``make_score_step`` scores the moe family in the train layout (FSDP
+    over 'data', the dropless dispatch of ``models.moe``'s ``mapped``),
+    every other family in the serve layout."""
+    return "train" if cfg.family == "moe" and mesh is not None \
+        else "serve"
+
+
 def make_score_step(cfg: ModelConfig, mesh=None, *, topk: int = 64,
                     precision: int = 16, s_block: int = 2048,
                     global_batch: int = 1):
@@ -215,8 +230,18 @@ def make_score_step(cfg: ModelConfig, mesh=None, *, topk: int = 64,
     vlm "img_embeds" (B, n_img, D), encdec "frames" (B or 1, S_enc, D))
     -> (ids (B, S, K), qpmf (B, S, K+1)) of the text positions: the
     teacher-forced forward (the prefill-attention kernel), then the LM
-    head and the top-K per block of ``s_block`` positions."""
+    head and the top-K per block of ``s_block`` positions.
+
+    On a mesh the moe family scores in JAX's train layout
+    (``score_layout``): each layer gathers its weights over 'data', the
+    tokens are this rank's rows and the experts dispatch dropless in
+    groups of 2,048 (``models.moe._moe_block_train``). ``params`` are
+    this rank's blocks in that layout (``specs.shard_params(...,
+    layout=score_layout(cfg, mesh))``), as JAX's ``in_shardings`` give
+    them; with one rank on 'data' the two layouts' blocks are the
+    same."""
     rows = _Rows(mesh, global_batch)
+    layout = score_layout(cfg, mesh)
 
     @torch.no_grad()
     def score_step(params, batch):
@@ -227,8 +252,16 @@ def make_score_step(cfg: ModelConfig, mesh=None, *, topk: int = 64,
             extra = rows.conditioning(
                 {k: v for k, v in batch.items() if k != "tokens"},
                 global_batch, dev)
-            hidden = score_hidden(params, cfg, tokens, mesh,
-                                  batch_sharded=rows.sharded, extra=extra)
+            if layout == "train":
+                hidden = model_api.forward(
+                    params, cfg, {"tokens": tokens, **extra}, mesh=mesh,
+                    batch_sharded=rows.sharded, layout="train",
+                    return_hidden=True, dispatch_group=2048)
+                params = model_api.gather_top(params, cfg, mesh)
+            else:
+                hidden = score_hidden(params, cfg, tokens, mesh,
+                                      batch_sharded=rows.sharded,
+                                      extra=extra)
             ids, qpmf = [], []
             for s0 in range(0, hidden.shape[1], s_block):
                 i, q = head_logits(params, cfg, hidden[:, s0:s0 + s_block],

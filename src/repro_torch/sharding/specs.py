@@ -134,6 +134,30 @@ def batch_pspecs(cfg: ModelConfig, mesh, *, global_batch: int) -> dict:
     return specs
 
 
+def seq_axes(cfg: ModelConfig, mesh, *, lanes_cut: bool) -> tuple:
+    """The mesh axes an attention cache's sequence (a ring's slots, the
+    encdec source) is cut over, outermost first, as ``cache_pspecs``
+    lays it out: ('pod',) 'data' when the lanes are not cut over the
+    batch axes (``lanes_cut``: the batch divides them) and 'data' has
+    more than one rank, then 'model' when the padded KV heads do not
+    divide it. () where the sequence is whole on every rank."""
+    axes = []
+    if not lanes_cut and mesh_degree(mesh, "data") > 1:
+        axes += [a for a in ("pod", "data") if a in mesh.axis_names]
+    if cfg.padded_kv_heads % mesh_degree(mesh, "model"):
+        axes.append("model")
+    return tuple(axes)
+
+
+def seq_block(cfg: ModelConfig, mesh, length: int, *,
+              lanes_cut: bool) -> tuple[int, int]:
+    """(lo, n): this rank's slots [lo, lo + n) of a cache sequence of
+    ``length`` (a ring's min(max_len, W) slots, a linear cache's
+    max_len, the encdec source) cut over ``seq_axes``, in the row-major
+    order of that tuple (``block``); (0, length) where it is whole."""
+    return block(mesh, seq_axes(cfg, mesh, lanes_cut=lanes_cut), length)
+
+
 def cache_pspecs(cfg: ModelConfig, mesh, *, batch: int) -> dict:
     """Spec tree matching ``init_cache``'s structure at decode shapes:
     the cache batch over (pod, data) when it divides; KV heads over
@@ -142,14 +166,7 @@ def cache_pspecs(cfg: ModelConfig, mesh, *, batch: int) -> dict:
     tp = mesh_degree(mesh, "model")
     b_ax = _batch_spec(mesh, batch)
     kv_ok = cfg.padded_kv_heads % tp == 0
-    seq_ax = []
-    if b_ax is None and mesh_degree(mesh, "data") > 1:
-        seq_ax.append("data")
-        if "pod" in mesh.axis_names:
-            seq_ax.insert(0, "pod")
-    if not kv_ok:
-        seq_ax.append("model")
-    seq_ax = _entry(tuple(seq_ax))
+    seq_ax = _entry(seq_axes(cfg, mesh, lanes_cut=b_ax is not None))
     kv_spec = (None, b_ax, seq_ax, "model" if kv_ok else None, None)
 
     specs = {"pos": ()}

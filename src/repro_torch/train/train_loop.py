@@ -25,7 +25,9 @@ weight's D rows; each layer gathers its weights at use), TP and EP over
 rank's blocks (``init_train_state(..., mesh=...)``,
 ``specs.shard_params(..., layout="train")``); the step takes the global
 batch, slices it into microbatches and keeps this rank's rows of each
-(``specs.batch_pspecs``), as JAX does (with moe's capacity drops, the
+(``specs.batch_pspecs``; a microbatch that does not divide the batch
+axes is cut over the inner ones that divide it, or whole on every
+rank: ``row_axes``), as JAX does (with moe's capacity drops, the
 tokens that compete for capacity are those of one microbatch on one
 rank), and sums each leaf's gradient over the batch
 axes it is whole on (a gathered leaf's came summed over 'data' from the
@@ -174,17 +176,33 @@ def check_train_mesh(cfg: ModelConfig, mesh) -> None:
             f"(ROADMAP Queue 1 item 3)")
 
 
-def rank_rows(batch: dict, cfg: ModelConfig, mesh, global_batch: int):
-    """This rank's rows of the global ``batch`` (rows over 'pod' and
-    'data', ``specs.batch_pspecs``); a batch that does not divide the
-    batch axes is refused (JAX then keeps it whole on every rank, which
-    the port's data-parallel sums do not take)."""
+def row_axes(cfg: ModelConfig, mesh, global_batch: int) -> tuple:
+    """The batch axes a batch of ``global_batch`` rows is cut over: all
+    of them (with more than one rank) where the rows divide them
+    (``specs.batch_pspecs``), else the innermost ones whose ranks divide
+    the rows, the outer ones ('pod' first) keeping the rows whole, ()
+    where none does. JAX's spec keeps such a batch whole and leaves its
+    placement to XLA's partitioner; the function is the same: the loss
+    counts a row once on every rank that holds it, numerator and
+    denominator alike, and a moe layer cuts its tokens further over the
+    axes the rows are whole on, so that it dispatches JAX's blocks of
+    tokens (``models.moe._moe_block_train``)."""
     spec = specs.batch_pspecs(cfg, mesh, global_batch=global_batch)
-    rows = spec["tokens"][0]
-    if rows is None and mesh.degree(batch_axes(mesh)) > 1:
-        raise ValueError(
-            f"a global batch of {global_batch} rows does not divide the "
-            f"batch axes of {mesh.shape}")
+    ba = tuple(a for a in batch_axes(mesh) if mesh.axis_size(a) > 1)
+    if spec["tokens"][0] is not None:
+        return ba
+    for i in range(1, len(ba)):
+        if global_batch % mesh.degree(ba[i:]) == 0:
+            return ba[i:]
+    return ()
+
+
+def rank_rows(batch: dict, cfg: ModelConfig, mesh, global_batch: int):
+    """This rank's rows of the global ``batch``: cut over ``row_axes``
+    (all the batch axes, 'pod' and 'data', where they divide it, as
+    ``specs.batch_pspecs``), whole over the others."""
+    ax = row_axes(cfg, mesh, global_batch)
+    rows = None if not ax else (ax[0] if len(ax) == 1 else ax)
     out = {}
     for k, v in batch.items():
         v = torch.as_tensor(v)
@@ -228,12 +246,17 @@ def make_train_step(cfg: ModelConfig, mesh=None, *,
         for i in range(num_microbatches):
             part = batch if num_microbatches == 1 else \
                 {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            yield part if mesh is None else rank_rows(part, cfg, mesh, mb)
+            if mesh is None:
+                yield part, {}
+            else:
+                yield rank_rows(part, cfg, mesh, mb), dict(
+                    batch_sharded=row_axes(cfg, mesh, mb))
 
     def train_step(params, opt_state, batch):
         grads, loss = None, 0.0
-        for part in microbatches(batch):
-            l_i, g_i = _local_value_and_grad(params, cfg, part, **kw)
+        for part, rows in microbatches(batch):
+            l_i, g_i = _local_value_and_grad(params, cfg, part, **kw,
+                                             **rows)
             if num_microbatches == 1:
                 grads, loss = g_i, l_i
                 break

@@ -254,10 +254,17 @@ def test_cache_local_shapes_follow_the_specs(kv):
 
 
 def test_a_cache_whose_batch_does_not_divide_is_refused():
+    """A batch that does not divide the batch axes puts the cache's
+    sequence over them (JAX's ``cache_pspecs``): 3 lanes on (2, 2) hold
+    8 of 16 positions a rank, every lane. What is refused is a sequence
+    that does not divide those axes in turn."""
     cfg = pget("qwen3_14b").with_(n_layers=1)
     mesh = Mesh((2, 2), ("data", "model"), rank=0)
-    with pytest.raises(NotImplementedError, match="does not divide"):
-        api.init_cache(cfg, 3, 16, device="meta", mesh=mesh)
+    local = api.init_cache(cfg, 3, 16, device="meta", mesh=mesh)
+    assert local["k"].shape[1:3] == (3, 8)
+    assert specs.cache_pspecs(cfg, mesh, batch=3)["k"][2] == "data"
+    with pytest.raises(ValueError, match="does not divide"):
+        api.init_cache(cfg, 3, 15, device="meta", mesh=mesh)
 
 
 def test_a_layout_only_mesh_runs_no_collectives():

@@ -259,8 +259,11 @@ def run_case(mesh, ref_: dict, family: str, kv) -> dict:
         qs.append(q)
     out["prefill_ids"], out["prefill_q"] = torch.stack(ids), torch.stack(qs)
 
+    # the score step takes its layout's blocks (moe: the train layout)
     score = steps.make_score_step(cfg, mesh, topk=K, global_batch=B)
-    out["score_ids"], out["score_q"] = score(p, {"tokens": inputs})
+    out["score_ids"], out["score_q"] = score(specs.shard_params(
+        _params(ref_, family), cfg, mesh,
+        layout=steps.score_layout(cfg, mesh)), {"tokens": inputs})
     if mesh.shape["data"] == 1:
         out.update(run_engine(mesh, cfg, p, tokens))
     out["agree"] = _digest(mesh, *out.values())
